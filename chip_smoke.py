@@ -17,7 +17,11 @@ phase printing one line:
    within a stated tolerance on float inputs, equal to itself from run to
    run) at four shapes up to the 1200 training scale;
 4. K3 against its plain version (equal to the bit) on the 90,000 anchors of
-   a 1200×1600 image for 0 to 2048 gt boxes;
+   a 1200×1600 image for 0 to 2048 gt boxes: uniform, a crowd, and a band
+   of faces that overfills one block's list of gt; its wrapper's wall, and
+   its device time with the host taken out (200 launches captured in a
+   CUDA graph, replayed between two CUDA events), beside the same device
+   time of an empty kernel on the same grid;
 5. one training micro-batch with every parameter requiring a gradient
    (K2 runs), its stem gradients against the plain stem's;
 6. training, the slice's path: ``train_net`` for 6 iterations of the
@@ -72,6 +76,28 @@ THRESH = 0.05
 # published H100 SXM rates (NVIDIA H100 datasheet): fp32 on the CUDA
 # cores and device-memory bandwidth
 PEAK_FP32, PEAK_BYTES = 67e12, 3.35e12
+# K3's cases over the anchors of a 1200×1600 image: (gt, masked, layout)
+IOU_CASES = ((0, 0, "uniform"), (1, 0, "uniform"), (64, 0, "uniform"),
+             (64, 64, "uniform"), (512, 100, "uniform"),
+             (2048, 500, "uniform"), (2048, 0, "crowd"), (2048, 0, "band"))
+IOU_TIMED = ((64, 0, "uniform"), (2048, 500, "uniform"), (2048, 0, "crowd"),
+             (2048, 0, "band"))
+# the band: faces packed at the top left, all in the first block's union
+# box, so that its list of gt fills and is walked early (csrc/iou.cu)
+BAND = (0, 0, 600, 40)
+GRAPH_REPS = 200
+# an empty kernel, launched on K3's grid: the floor of a launch
+EMPTY_CU = r"""
+#include <cuda_runtime.h>
+__global__ void empty_kernel() {}
+extern "C" int shf_empty(int blocks, int threads, void* stream) {
+  empty_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>();
+  return (int)cudaGetLastError();
+}
+extern "C" const char* shf_cuda_error_string(int e) {
+  return cudaGetErrorString(static_cast<cudaError_t>(e));
+}
+"""
 
 
 def say(phase, **fields):
@@ -134,6 +160,33 @@ def median_ms(fn, n=20, warmup=3):
     return float(np.median(times))
 
 
+def graph_ms(fn, reps=GRAPH_REPS, n=5):
+    """Device time of one call of fn, without the host: `reps` calls
+    captured in one CUDA graph, replayed between two CUDA events; the median
+    of n replays over reps."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):               # warm up off the capture
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    times = []
+    for _ in range(n):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / reps)
+    del graph
+    return float(np.median(times))
+
+
 def bound_ms(n_bytes, n_ops):
     """The least time for the work: the larger of bytes over the memory
     rate and fp32 operations over the CUDA-core rate."""
@@ -149,6 +202,46 @@ def dense_anchors(h, w):
                                     scales=list(tdm.ANCHOR_SCALES),
                                     shifts=[0], strides=[8] * 3)
     return anchors.dense_anchors(h, w, 8, base).astype(np.float32)
+
+
+def uniform_gt(rng, g):
+    """g gt boxes of 8-300 px anywhere on a 1200×1600 image."""
+    x1 = rng.uniform(-20, 1600, g)
+    y1 = rng.uniform(-20, 1200, g)
+    s = rng.uniform(8, 300, g)
+    return np.stack([x1, y1, x1 + s, y1 + s * rng.uniform(0.7, 1.3, g)],
+                    1).reshape(g, 4).astype(np.float32)
+
+
+def iou_case_inputs(rng, case):
+    """gt (G, 4) float32 and mask (G,) bool of one of IOU_CASES, drawn from
+    rng in the order of IOU_CASES."""
+    from smallhardface_tpu_torch.ops.iou_cases import band_gt, crowd_gt
+    g, n_masked, layout = case
+    gt = {"uniform": lambda: uniform_gt(rng, g),
+          "crowd": lambda: crowd_gt(rng, g, 1200, 1600),
+          "band": lambda: band_gt(rng, g, BAND)}[layout]()
+    mask = np.ones(g, bool)
+    mask[g - n_masked:] = False
+    return gt, mask
+
+
+def group_kept(anchors, gt, mask, size):
+    """K3's culling (csrc/iou.cu) as tensor code: for each group of `size`
+    consecutive anchors (a warp, 32, or a block, 256), the number of
+    unmasked gt its union box keeps, and the number of its anchors."""
+    n = anchors.shape[0]
+    pad = anchors[-1:].expand((-n) % size, 4)   # leaves the union as it is
+    a = torch.cat([anchors, pad]).view(-1, size, 4)
+    u = torch.cat([a[..., :2].amin(1), a[..., 2:].amax(1)], 1)[:, None]
+    iw = (torch.minimum(u[..., 2], gt[None, :, 2])
+          - torch.maximum(u[..., 0], gt[None, :, 0]) + 1)
+    ih = (torch.minimum(u[..., 3], gt[None, :, 3])
+          - torch.maximum(u[..., 1], gt[None, :, 1]) + 1)
+    kept = ((iw > 0) & (ih > 0) & mask[None]).sum(1)
+    lanes = torch.full_like(kept, size)
+    lanes[-1] = n - size * (len(kept) - 1)
+    return kept, lanes
 
 
 def face_roidb(rng, sizes, n_faces=(1, 30)):
@@ -204,7 +297,14 @@ def main():
         matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32)
 
     t0 = time.perf_counter()
-    libs = (stem.STEM, stem.STEM_GRAD, iou.IOU)
+    os.makedirs(cuda_build.BUILD_DIR, exist_ok=True)
+    empty_src = os.path.join(cuda_build.BUILD_DIR, "empty_launch.cu")
+    with open(empty_src, "w") as f:
+        f.write(EMPTY_CU)
+    empty = cuda_build.CudaLibrary("empty", empty_src,
+                                   {"shf_empty": [cuda_build.CI] * 2
+                                    + [cuda_build.VP]})
+    libs = [stem.STEM, stem.STEM_GRAD, iou.IOU, empty]
     cuda_build.build_all(libs)
     say("build", seconds=round(time.perf_counter() - t0, 3),
         capability=list(torch.cuda.get_device_capability(0)),
@@ -379,15 +479,17 @@ def main():
     rng = np.random.RandomState(SEED + 2)
     anchors = torch.from_numpy(dense_anchors(150, 200)).to(dev)
     n = anchors.shape[0]
-    for g, n_masked in ((0, 0), (1, 0), (64, 0), (64, 64), (512, 100),
-                        (2048, 500)):
-        x1 = rng.uniform(-20, 1600, g)
-        y1 = rng.uniform(-20, 1200, g)
-        s = rng.uniform(8, 300, g)
-        gt = np.stack([x1, y1, x1 + s, y1 + s * rng.uniform(0.7, 1.3, g)],
-                      1).reshape(g, 4).astype(np.float32)
-        mask = np.ones(g, bool)
-        mask[g - n_masked:] = False
+    blocks = -(-n // 256)                       # K3's grid: 256 per block
+
+    def launch_empty():
+        empty.check(empty.load().shf_empty(
+            blocks, 256, torch.cuda.current_stream().cuda_stream), "empty")
+    floor_ms = graph_ms(launch_empty)
+    say("launch_floor", kernel="empty", grid=[blocks, 256], device_ms=floor_ms,
+        timing=f"{GRAPH_REPS} launches in one CUDA graph, median of 5 "
+               "replays, per launch")
+    for g, n_masked, layout in IOU_CASES:
+        gt, mask = iou_case_inputs(rng, (g, n_masked, layout))
         gt_t = torch.from_numpy(gt).to(dev)
         mask_t = torch.from_numpy(mask).to(dev)
         got = iou.max_iou(anchors, gt_t, mask_t)
@@ -395,27 +497,46 @@ def main():
         torch.cuda.synchronize()
         equal = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
         fields = {}
-        if (g, n_masked) in ((64, 0), (2048, 500)):
-            fields["kernel_ms"] = median_ms(
-                lambda: iou.max_iou(anchors, gt_t, mask_t))
+        if (g, n_masked, layout) in IOU_TIMED:
+            call = lambda: iou.max_iou(anchors, gt_t, mask_t)  # noqa: E731
+            fields["kernel_ms"] = median_ms(call)
+            fields["device_ms"] = graph_ms(call)
             fields["plain_ms"] = median_ms(
                 lambda: iou.max_iou_reference(anchors, gt_t, mask_t))
             # the whole (N, G) IoU matrix in one pass, then its row max
             fields["iou_matrix_max_ms"] = median_ms(
                 lambda: torch.where(mask_t[None], iou_matrix(anchors, gt_t),
                                     -1.0).max(1))
+            # the bound of the dense work: 15 fp32 operations per pair
             fields["bound_ms"], fields["bound_by"] = bound_ms(
                 24 * n + 17 * g, 15 * n * g)
-        say("iou_vs_plain", anchors=n, gt=g, masked=n_masked,
+            # the work this data needs, as the kernel culls: each block
+            # tests every unmasked gt, each warp its block's list (10 fp32
+            # operations per test), and the pairs its own list keeps (15 each)
+            kept, lanes = group_kept(anchors, gt_t, mask_t, 32)
+            block_kept, _ = group_kept(anchors, gt_t, mask_t, 256)
+            pairs = int((kept * lanes).sum())
+            warp_tests = int(
+                block_kept.repeat_interleave(8)[:len(kept)].sum())
+            fields["data_bound_ms"], fields["data_bound_by"] = bound_ms(
+                24 * n + 17 * g,
+                15 * pairs
+                + 10 * (warp_tests + len(block_kept) * int(mask.sum())))
+            fields.update(kept_per_warp_mean=float(kept.float().mean()),
+                          kept_per_warp_max=int(kept.max()),
+                          kept_per_block_max=int(block_kept.max()),
+                          pairs_evaluated=pairs, pairs_dense=n * g)
+        say("iou_vs_plain", anchors=n, gt=g, masked=n_masked, layout=layout,
             bit_equal=equal, fg_anchors=int((got[0] >= 0.5).sum()), **fields)
         if not equal:
-            raise AssertionError(f"K3 disagrees at G={g}")
-        if g == 64 and not n_masked:
+            raise AssertionError(f"K3 disagrees at G={g} ({layout})")
+        if (g, n_masked, layout) == IOU_TIMED[0]:
             kernels["max_iou"] = {
                 "name": "max_iou", "route": "cuda",
                 "source": "smallhardface_tpu_torch/csrc/iou.cu",
                 "replaces": "smallhardface_tpu/ops/pallas_iou.py:34",
                 "max_abs_err": 0.0, "ms": fields["kernel_ms"],
+                "device_ms": fields["device_ms"],
                 "plain_ms": fields["plain_ms"],
                 "bound_ms": fields["bound_ms"],
                 "bound_by": fields["bound_by"], "library_ms": None}

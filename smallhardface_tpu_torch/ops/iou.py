@@ -2,10 +2,13 @@
 
 Counterpart of ``smallhardface_tpu/ops/pallas_iou.py``: the TPU kernel
 ``_kernel`` (pallas_iou.py:34), reached through ``pallas_max_iou``, becomes
-the CUDA C++ kernel ``csrc/iou.cu`` (K3) for Hopper (sm_90a). Its header
-says what bounds it on an H100 and what the design does about that. Unlike
-the Pallas kernel (G ≤ 512), it takes any number of gt boxes, so
-``train/targets.anchor_targets`` calls it for every gt bucket.
+the CUDA C++ kernel ``csrc/iou.cu`` (K3) for Hopper (sm_90a). Each warp of
+32 anchors skips the gt that cannot overlap the union box of its anchors,
+pairs whose IoU is provably 0; its header says what bounds it on an H100,
+what the design does about that, and why the result stays equal to the
+plain version's to the bit. Unlike the Pallas kernel (G ≤ 512), it takes
+any number of gt boxes, so ``train/targets.anchor_targets`` calls it for
+every gt bucket.
 
 - ``max_iou_reference``: the plain version, ``ops/bbox.max_iou_chunked``.
 - ``max_iou``: the wrapper. On CPU tensors it is the plain version; on

@@ -10,7 +10,12 @@ a machine that has only PyTorch:
   backward in float64 on small-integer inputs (every product and sum exact),
   and to itself from run to run; the stem's autograd backward launches it;
 - K3 (anchor max-IoU, csrc/iou.cu): equal to the bit to its plain version,
-  for no gt, masked rows and a gt count above the Pallas kernel's 512.
+  for no gt, masked rows and a gt count above the Pallas kernel's 512, and
+  on the inputs that could break its gt culling (``ops/iou_cases.k3_case``;
+  the CPU tests hold a numpy model of the culling to the same cases),
+  including a crowd of 2048 small faces over the 90,000 anchors of a
+  1200×1600 image, and a band of 2048 faces that one block of anchors
+  keeps beyond its list, with ties on both sides of the list's walk.
 """
 
 import numpy as np
@@ -19,6 +24,8 @@ import torch
 
 from smallhardface_tpu_torch.ops import anchors as anchors_mod
 from smallhardface_tpu_torch.ops import iou, stem
+from smallhardface_tpu_torch.ops.iou_cases import (BASE, K3_CASES, band_gt,
+                                                  crowd_gt, k3_case)
 
 VALID = (24, 96)
 
@@ -89,19 +96,34 @@ def test_stem_autograd_launches_both_kernels(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("g,n_masked", [(0, 0), (64, 5), (64, 64),
-                                        (2048, 100)])
-def test_max_iou_kernel_vs_plain(cuda, g, n_masked):
-    rng = np.random.RandomState(g + n_masked)
-    base = anchors_mod.generate_anchors(base_size=16, ratios=[1],
-                                        scales=[1, 2, 4], shifts=[0],
-                                        strides=[8, 8, 8])
-    anchors = anchors_mod.dense_anchors(150, 200, 8, base).astype(np.float32)
-    x1, y1 = rng.uniform(-10, 1600, g), rng.uniform(-10, 1200, g)
-    s = rng.uniform(4, 300, g)
-    gt = np.stack([x1, y1, x1 + s, y1 + s], 1).reshape(g, 4).astype(
-        np.float32)
-    mask = np.arange(g) < g - n_masked
+@pytest.mark.parametrize("case", [(0, 0), (64, 5), (64, 64), (2048, 100)]
+                         + list(K3_CASES) + ["crowd_full", "band_full"])
+def test_max_iou_kernel_vs_plain(cuda, case):
+    """Random gt as (G, masked) over the anchors of a 1200×1600 image, the
+    culling cases of k3_case, and a crowd and a band of 2048 faces over
+    that image."""
+    if isinstance(case, tuple):
+        g, n_masked = case
+        rng = np.random.RandomState(g + n_masked)
+        anchors = anchors_mod.dense_anchors(150, 200, 8, BASE).astype(
+            np.float32)
+        x1, y1 = rng.uniform(-10, 1600, g), rng.uniform(-10, 1200, g)
+        s = rng.uniform(4, 300, g)
+        gt = np.stack([x1, y1, x1 + s, y1 + s], 1).reshape(g, 4).astype(
+            np.float32)
+        mask = np.arange(g) < g - n_masked
+    elif case == "crowd_full":
+        anchors = anchors_mod.dense_anchors(150, 200, 8, BASE).astype(
+            np.float32)
+        gt = crowd_gt(np.random.RandomState(1), 2048, 1200, 1600)
+        mask = np.ones(2048, bool)
+    elif case == "band_full":
+        anchors = anchors_mod.dense_anchors(150, 200, 8, BASE).astype(
+            np.float32)
+        gt = band_gt(np.random.RandomState(2), 2048, (0, 0, 600, 40))
+        mask = np.ones(2048, bool)
+    else:
+        anchors, gt, mask = k3_case(case)
     args = [torch.from_numpy(a).to(cuda) for a in (anchors, gt, mask)]
     before = iou.max_iou.launches
     best, idx = iou.max_iou(*args)
