@@ -15,7 +15,12 @@ phase printing one line:
    detector on the CPU at a small pyramid;
 3. K2 against its plain version (equal to the bit on small-integer inputs,
    within a stated tolerance on float inputs, equal to itself from run to
-   run) at four shapes up to the 1200 training scale;
+   run) and its tensor-core products against the same products in float64
+   on its own routing (its scratch c1 and dpre2), at four shapes up to the
+   1200 training scale; at that scale its wrapper's wall, its device time
+   (20 calls in one CUDA graph) and each of its five launches' device
+   time (torch.profiler), beside two bounds: all on the CUDA cores, and its own split between the
+   CUDA cores and the tensor cores;
 4. K3 against its plain version (equal to the bit) on the 90,000 anchors of
    a 1200×1600 image for 0 to 2048 gt boxes: uniform, a crowd, and a band
    of faces that overfills one block's list of gt; its wrapper's wall, and
@@ -71,11 +76,17 @@ RTOL = 1e-4                 # fp32 kernel vs fp32 cuDNN: fp32 rounding only
 # shapes, and 2.4e-3 was measured at 1×1200×1600 with this script's
 # inputs (H100 80GB HBM3, 700 W).
 GRAD_TOL = {False: 1e-3, True: 5e-3}        # keyed by "full training size"
+# K2's products (3xTF32 on the tensor cores) on its own routing, max |Δ| /
+# peak against the same products in float64: no pool or ReLU flip enters,
+# and one TF32 product (no hi/lo split) would miss it by ten times
+# (tests/test_torch_port_tf32x3.py)
+PRODUCT_TOL = 1e-5
 TRAIN_ITERS, SNAPSHOT = 6, 3
 THRESH = 0.05
 # published H100 SXM rates (NVIDIA H100 datasheet): fp32 on the CUDA
 # cores and device-memory bandwidth
 PEAK_FP32, PEAK_BYTES = 67e12, 3.35e12
+PEAK_TF32 = 495e12          # dense TF32 on the tensor cores
 # K3's cases over the anchors of a 1200×1600 image: (gt, masked, layout)
 IOU_CASES = ((0, 0, "uniform"), (1, 0, "uniform"), (64, 0, "uniform"),
              (64, 64, "uniform"), (512, 100, "uniform"),
@@ -86,6 +97,10 @@ IOU_TIMED = ((64, 0, "uniform"), (2048, 500, "uniform"), (2048, 0, "crowd"),
 # box, so that its list of gt fills and is walked early (csrc/iou.cu)
 BAND = (0, 0, 600, 40)
 GRAPH_REPS = 200
+# K2's launches (csrc/stem_grad.cu) in order, by the stage each runs
+GRAD_KERNELS = {"dpre2": "dpre2_kernel", "split_w2f": "split_w2f_kernel",
+                "dc1": "dc1_kernel", "wgrad": "wgrad_kernel",
+                "reduce": "reduce_kernel"}
 # an empty kernel, launched on K3's grid: the floor of a launch
 EMPTY_CU = r"""
 #include <cuda_runtime.h>
@@ -192,6 +207,69 @@ def bound_ms(n_bytes, n_ops):
     rate and fp32 operations over the CUDA-core rate."""
     t_bytes, t_ops = n_bytes / PEAK_BYTES * 1e3, n_ops / PEAK_FP32 * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes > t_ops else "operations"
+
+
+def kernel_ms(fn, kernels, n=10, warmup=3):
+    """Device time per call of fn of each of the repo's kernels named in
+    ``kernels`` ({label: __global__ name}): n calls under torch.profiler
+    (CUPTI), each kernel's summed durations over n. Raises where the
+    profiler saw one of them run for no time."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    us = dict.fromkeys(kernels, 0.0)
+    for ev in prof.key_averages():
+        for label, name in kernels.items():
+            # the repo's kernels sit in an anonymous namespace
+            if f"::{name}(" in ev.key:
+                us[label] += ev.self_device_time_total
+    if not all(us.values()):
+        raise AssertionError(f"the profiler saw no device time: {us}")
+    return {label: t / n / 1e3 for label, t in us.items()}
+
+
+def stem_grad_time(stem, args, grad_err, prod_err, reps=20):
+    """K2 at the training scale: its wrapper's wall, its device time, each
+    launch's device time and its bounds. Returns its entry of the kernels
+    line."""
+    B, H, W, _ = args[0].shape
+    ms = median_ms(lambda: stem.fused_stem_grad(*args))
+    device_ms = graph_ms(lambda: stem.fused_stem_grad(*args), reps=reps)
+    stage_ms = kernel_ms(lambda: stem.fused_stem_grad(*args), GRAD_KERNELS)
+    plain_ms = median_ms(lambda: stem.fused_stem_grad_reference(*args))
+    p = B * H * W
+    n_bytes = 4 * (3 * p + 64 * p // 4)
+    # all on the CUDA cores: recompute (conv1_2, conv1_1), the data
+    # gradient, dw2, dw1 (the first design's bound)
+    cores_ms, cores_by = bound_ms(n_bytes, 2 * (3 * 576 + 2 * 27) * 64 * p)
+    # this design: the recompute and the dw1 job on the CUDA cores, then the
+    # data gradient and dw2 as three TF32 products each on the tensor cores
+    t_ops = (2 * (576 + 2 * 27) * 64 * p / PEAK_FP32
+             + 3 * 2 * (2 * 576) * 64 * p / PEAK_TF32) * 1e3
+    t_bytes = n_bytes / PEAK_BYTES * 1e3
+    bnd, by = max(t_ops, t_bytes), "bytes" if t_bytes > t_ops else "operations"
+    say("stem_grad_time", shape=[B, H, W, 3], kernel_ms=ms,
+        device_ms=device_ms, stage_device_ms=stage_ms,
+        stage_sum_ms=sum(stage_ms.values()), plain_ms=plain_ms,
+        bound_ms=bnd, bound_by=by, bound_cuda_cores_ms=cores_ms,
+        bound_cuda_cores_by=cores_by,
+        timing=f"wall: median of 20 CUDA-event walls; device: {reps} calls "
+               "in one CUDA graph, median of 5 replays, per call; a stage: "
+               "its kernel's durations in 10 calls under torch.profiler, "
+               "per call")
+    return {"name": "fused_stem_grad", "route": "cuda",
+            "source": "smallhardface_tpu_torch/csrc/stem_grad.cu",
+            "replaces": "smallhardface_tpu/ops/pallas_stem.py:460",
+            "max_abs_err": grad_err, "own_routing_err_over_peak": prod_err,
+            "ms": ms, "device_ms": device_ms, "stage_device_ms": stage_ms,
+            "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
+            "library_ms": None}
 
 
 def dense_anchors(h, w):
@@ -426,53 +504,59 @@ def main():
 
     # ---- K2 against its plain version ----
     rng = np.random.RandomState(SEED + 1)
-    grad_err = 0.0
+    grad_err = prod_err = 0.0
     for shape, valid_hw in GRAD_SHAPES:
         full = shape[1] >= 1200
         for integer in (True, False):
             arrs = grad_inputs(rng, shape, valid_hw, integer)
             args = [torch.from_numpy(a).to(dev, torch.float32) for a in arrs]
+            arrs_t = [torch.from_numpy(a).to(dev) for a in arrs]
             got = stem.fused_stem_grad(*args, valid_hw=valid_hw)
             again = stem.fused_stem_grad(*args, valid_hw=valid_hw)
-            want = stem.fused_stem_grad_reference(
-                *[torch.from_numpy(a).to(dev) for a in arrs],
-                valid_hw=valid_hw)
+            want = stem.fused_stem_grad_reference(*arrs_t, valid_hw=valid_hw)
+            # the products alone, on the kernel's own routing (a comparison
+            # launch: the wrapper's count does not move)
+            own, scratch = stem._stem_grad_launch(*args, valid_hw=valid_hw)
+            prods = stem.fused_stem_grad_products(
+                arrs_t[0], scratch["c1"].double(), scratch["dpre2"].double(),
+                arrs_t[4], valid_hw)
             torch.cuda.synchronize()
             repeat = all(torch.equal(a, b) for a, b in zip(got, again))
+            repeat = repeat and all(torch.equal(a, b) for a, b in
+                                    zip(got, own))
             errs = [(a.double() - b).abs().max().item() for a, b in
                     zip(got, want)]
             peaks = [b.abs().max().item() for b in want]
             ratio = max(e / p for e, p in zip(errs, peaks))
             tol = 0.0 if integer else GRAD_TOL[full]
+            own_ratio = {
+                name: ((a.double() - b).abs().max()
+                       / b.abs().max().clamp_min(1e-30)).item()
+                for name, a, b in zip(("dpre1", "dw1", "db1", "dw2", "db2"),
+                                      (scratch["dpre1"],) + own, prods)}
             say("stem_grad_vs_plain", shape=list(shape), valid_hw=valid_hw,
                 inputs="small integers" if integer else "floats",
                 max_abs_err={"dw1": errs[0], "db1": errs[1], "dw2": errs[2],
                              "db2": errs[3]},
                 peak=peaks, max_err_over_peak=ratio, tol_over_peak=tol,
                 reference="plain version in float64",
-                bit_identical_repeat=repeat)
+                bit_identical_repeat=repeat,
+                own_routing_err_over_peak=own_ratio,
+                own_routing_tol_over_peak=PRODUCT_TOL,
+                own_routing_reference="fused_stem_grad_products in float64 "
+                                      "on the kernel's c1 and dpre2")
             if not repeat or ratio > tol:
                 raise AssertionError(f"K2 disagrees at {shape}")
+            if not all(r <= PRODUCT_TOL for r in own_ratio.values()):
+                raise AssertionError(f"K2's products disagree at {shape}")
             if not integer:
                 grad_err = max(grad_err, max(errs))
+                prod_err = max(prod_err, max(own_ratio.values()))
+            del scratch, prods, own
         if full:
-            B, H, W, _ = shape
-            args = [a.contiguous() for a in args]
-            ms = median_ms(lambda: stem.fused_stem_grad(*args))
-            plain_ms = median_ms(lambda: stem.fused_stem_grad_reference(*args))
-            p = B * H * W
-            bnd, by = bound_ms(4 * (3 * p + 64 * p // 4),
-                               2 * (3 * 576 + 2 * 27) * 64 * p)
-            say("stem_grad_time", shape=list(shape), kernel_ms=ms,
-                plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
-                timing="median of 20 CUDA-event walls")
-            kernels["fused_stem_grad"] = {
-                "name": "fused_stem_grad", "route": "cuda",
-                "source": "smallhardface_tpu_torch/csrc/stem_grad.cu",
-                "replaces": "smallhardface_tpu/ops/pallas_stem.py:460",
-                "max_abs_err": grad_err, "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": bnd, "bound_by": by, "library_ms": None}
-        del args, got, again, want
+            kernels["fused_stem_grad"] = stem_grad_time(
+                stem, [a.contiguous() for a in args], grad_err, prod_err)
+        del args, arrs_t, got, again, want
     torch.cuda.empty_cache()
 
     # ---- K3 against its plain version ----

@@ -22,6 +22,10 @@ H100 and what the design does about that.
 - ``fused_stem_grad``: K2's wrapper, d(w1, b1, w2, b2) given dy; the image
   gets no gradient (pallas_stem.py:753-756). ``fused_stem_grad.launches``
   counts K2's launches.
+- ``fused_stem_grad_products``: K2's products in plain PyTorch on a given
+  routing (conv1_1's activations and the routed gradient dpre2, K2's own
+  scratch on the card): the check of K2's tensor-core arithmetic alone,
+  with no pool or ReLU flip in it.
 - ``STEM`` / ``STEM_GRAD``: the two kernel libraries, built with ``nvcc`` at
   first use into ``csrc/build/`` (``ops/cuda_build.py``).
 """
@@ -37,9 +41,10 @@ from smallhardface_tpu_torch.ops.cuda_build import CI, VP, CudaLibrary
 STEM = CudaLibrary("stem", "stem.cu",
                    {"shf_stem_forward": [VP] * 6 + [CI] * 5 + [VP]})
 STEM_GRAD = CudaLibrary("stem_grad", "stem_grad.cu",
-                        {"shf_stem_grad": [VP] * 12 + [CI] * 7 + [VP]})
+                        {"shf_stem_grad": [VP] * 13 + [CI] * 7 + [VP]})
 GRAD_CHUNKS = 256       # pixel chunks of K2's weight gradient (fixed order)
 _KT = 32                # pixels per step of that gradient (stem_grad.cu)
+_W2F_SPLIT = 9 * 64 * 64 * 2   # w2f as TF32 hi/lo fragments (stem_grad.cu)
 
 
 def fused_stem_reference(x, w1, b1, w2, b2, valid_hw=None):
@@ -169,14 +174,49 @@ def fused_stem(x, w1, b1, w2, b2, valid_hw=None):
 fused_stem.launches = 0
 
 
-def fused_stem_grad(x, dy, w1, b1, w2, b2, valid_hw=None):
-    """(dw1, db1, dw2, db2), OIHW like the weights: the stem's weight
-    gradients given dy (B, H/2, W/2, 64) NHWC. On a CPU tensor this is
-    ``fused_stem_grad_reference``; on a CUDA tensor it launches K2 on the
-    current stream or raises. The result is the same to the bit from run
-    to run: K2 sums across blocks in a fixed order."""
-    if x.device.type != "cuda":
-        return fused_stem_grad_reference(x, dy, w1, b1, w2, b2, valid_hw)
+def fused_stem_grad_products(x, c1, dpre2, w2, valid_hw=None):
+    """K2's products on a given routing, in plain PyTorch: from c1 (conv1_1
+    after its ReLU and mask) and dpre2 (the gradient routed through the
+    pool and conv1_2's ReLU), both NHWC (B, H, W, 64), returns
+    (dpre1 NHWC, dw1, db1, dw2, db2), the grads OIHW:
+    dpre1 = (the data gradient of conv1_2) * (c1 > 0), dw2 and db2 from c1
+    and dpre2, dw1 and db1 from the masked x and dpre1. Computes in the
+    inputs' dtype."""
+    h = x.permute(0, 3, 1, 2)
+    if valid_hw is not None:
+        h = zero_outside(h, *valid_hw)
+    c = c1.permute(0, 3, 1, 2)
+    d2 = dpre2.permute(0, 3, 1, 2)
+    dc1 = torch.nn.grad.conv2d_input(c.shape, w2, d2, padding=1)
+    d1 = torch.where(c > 0, dc1, torch.zeros_like(dc1))
+    dw2 = torch.nn.grad.conv2d_weight(c, w2.shape, d2, padding=1)
+    dw1 = torch.nn.grad.conv2d_weight(h, (c.shape[1], h.shape[1], 3, 3), d1,
+                                      padding=1)
+    return (d1.permute(0, 2, 3, 1), dw1, d1.sum((0, 2, 3)), dw2,
+            d2.sum((0, 2, 3)))
+
+
+def _grad_scratch(B, H, W, device):
+    """K2's scratch: c1, dpre2, dpre1 NHWC (B, H, W, 64), w2f split into
+    TF32 fragments, the chunk partials and the summed output, and the
+    chunking of the weight gradient's pixels."""
+    n_pix = B * H * W
+    chunk_len = -(-n_pix // GRAD_CHUNKS)
+    chunk_len = -(-chunk_len // _KT) * _KT
+    n_chunk = -(-n_pix // chunk_len)
+    new = lambda *shape: torch.empty(shape, dtype=torch.float32,  # noqa: E731
+                                     device=device)
+    return {"c1": new(B, H, W, 64), "dpre2": new(B, H, W, 64),
+            "dpre1": new(B, H, W, 64),
+            "w2f_split": torch.empty(_W2F_SPLIT, dtype=torch.int32,
+                                     device=device),
+            "partial": new(10, n_chunk, 64, 64), "out": new(10, 64, 64),
+            "n_chunk": n_chunk, "chunk_len": chunk_len}
+
+
+def _stem_grad_launch(x, dy, w1, b1, w2, b2, valid_hw=None):
+    """Launch K2 on the current stream; counts nothing. Returns
+    ((dw1, db1, dw2, db2) OIHW, its scratch from ``_grad_scratch``)."""
     B, H, W = _kernel_shapes(x, "fused_stem_grad")
     w1k, w2k = _hwio(w1, w2)
     # data-gradient weights: w2 flipped in both spatial axes, ci ↔ co
@@ -190,25 +230,32 @@ def fused_stem_grad(x, dy, w1, b1, w2, b2, valid_hw=None):
     _check(w2k, "w2", (3, 3, 64, 64), what)
     _check(b2, "b2", (64,), what)
     vh, vw = _valid(H, W, valid_hw)
-    n_pix = B * H * W
-    chunk_len = -(-n_pix // GRAD_CHUNKS)
-    chunk_len = -(-chunk_len // _KT) * _KT
-    n_chunk = -(-n_pix // chunk_len)
     lib = STEM_GRAD.load()
-    new = lambda *shape: torch.empty(shape, dtype=torch.float32,  # noqa: E731
-                                     device=x.device)
-    c1, dpre2, dpre1 = (new(B, H, W, 64) for _ in range(3))
-    partial, out = new(10, n_chunk, 64, 64), new(10, 64, 64)
+    s = _grad_scratch(B, H, W, x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     STEM_GRAD.check(lib.shf_stem_grad(
         x.data_ptr(), dy.data_ptr(), w1k.data_ptr(), b1.data_ptr(),
-        w2k.data_ptr(), b2.data_ptr(), w2f.data_ptr(), c1.data_ptr(),
-        dpre2.data_ptr(), dpre1.data_ptr(), partial.data_ptr(),
-        out.data_ptr(), B, H, W, vh, vw, n_chunk, chunk_len, stream), what)
-    fused_stem_grad.launches += 1
+        w2k.data_ptr(), b2.data_ptr(), w2f.data_ptr(),
+        s["w2f_split"].data_ptr(), s["c1"].data_ptr(), s["dpre2"].data_ptr(),
+        s["dpre1"].data_ptr(), s["partial"].data_ptr(), s["out"].data_ptr(),
+        B, H, W, vh, vw, s["n_chunk"], s["chunk_len"], stream), what)
+    out = s["out"]
     dw2 = out[:9].reshape(3, 3, 64, 64).permute(3, 2, 0, 1).contiguous()
     dw1 = out[9, :27].reshape(3, 3, 3, 64).permute(3, 2, 0, 1).contiguous()
-    return dw1, out[9, 27].clone(), dw2, out[9, 32].clone()
+    return (dw1, out[9, 27].clone(), dw2, out[9, 28].clone()), s
+
+
+def fused_stem_grad(x, dy, w1, b1, w2, b2, valid_hw=None):
+    """(dw1, db1, dw2, db2), OIHW like the weights: the stem's weight
+    gradients given dy (B, H/2, W/2, 64) NHWC. On a CPU tensor this is
+    ``fused_stem_grad_reference``; on a CUDA tensor it launches K2 on the
+    current stream or raises. The result is the same to the bit from run
+    to run: K2 sums across blocks in a fixed order."""
+    if x.device.type != "cuda":
+        return fused_stem_grad_reference(x, dy, w1, b1, w2, b2, valid_hw)
+    grads, _ = _stem_grad_launch(x, dy, w1, b1, w2, b2, valid_hw)
+    fused_stem_grad.launches += 1
+    return grads
 
 
 fused_stem_grad.launches = 0

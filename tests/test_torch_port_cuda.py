@@ -9,6 +9,9 @@ a machine that has only PyTorch:
 - K2 (stem backward, csrc/stem_grad.cu): equal to the bit to the plain
   backward in float64 on small-integer inputs (every product and sum exact),
   and to itself from run to run; the stem's autograd backward launches it;
+  on float inputs within GRAD_TOL of the plain backward; and its
+  tensor-core products (3xTF32) on its own routing, its scratch c1 and
+  dpre2, within PRODUCT_TOL of each peak of the same products in float64;
 - K3 (anchor max-IoU, csrc/iou.cu): equal to the bit to its plain version,
   for no gt, masked rows and a gt count above the Pallas kernel's 512, and
   on the inputs that could break its gt culling (``ops/iou_cases.k3_case``;
@@ -28,6 +31,13 @@ from smallhardface_tpu_torch.ops.iou_cases import (BASE, K3_CASES, band_gt,
                                                   crowd_gt, k3_case)
 
 VALID = (24, 96)
+# K2 on float inputs against the plain backward, max |Δ| / peak: pool and
+# ReLU near-ties flip with fp32 rounding (chip_smoke.py's GRAD_TOL)
+GRAD_TOL = 1e-3
+# K2's products on its own routing against float64, max |Δ| / peak: 3xTF32
+# keeps about 22 bits of each operand; one TF32 product would miss this by
+# an order of magnitude (tests/test_torch_port_tf32x3.py)
+PRODUCT_TOL = 1e-5
 
 
 @pytest.fixture
@@ -49,6 +59,18 @@ def _int_grad_inputs(seed, shape=(2, 32, 128, 3), valid=VALID):
     return [x, rng.randint(-3, 4, (B, H // 2, W // 2, 64)),
             rng.randint(-3, 4, (64, 3, 3, 3)), rng.randint(-3, 4, 64),
             rng.randint(-2, 3, (64, 64, 3, 3)), rng.randint(-3, 4, 64)]
+
+
+def _float_grad_inputs(seed, shape, valid):
+    """x (garbage beyond valid), dy and OIHW weights at He scale, floats."""
+    rng = np.random.RandomState(seed)
+    B, H, W, _ = shape
+    x = rng.randn(*shape) * 50
+    x[:, valid[0]:] = 1e4
+    x[:, :, valid[1]:] = -1e4
+    return [x, rng.randn(B, H // 2, W // 2, 64),
+            rng.randn(64, 3, 3, 3) * np.sqrt(2 / 27), rng.randn(64) * 0.5,
+            rng.randn(64, 64, 3, 3) * np.sqrt(2 / 576), rng.randn(64) * 0.5]
 
 
 def _on(arrays, device, dtype=torch.float32):
@@ -73,6 +95,46 @@ def test_stem_grad_kernel_vs_plain_on_integers(cuda, shape, valid):
     for a, b, c in zip(got, again, want):
         assert torch.equal(a, b)
         assert torch.equal(a.double(), c)
+
+
+@pytest.mark.cuda
+def test_stem_grad_kernel_vs_plain_on_floats(cuda):
+    """Float inputs end to end, the fp32 routing included, against the
+    plain backward in float64. GRAD_TOL leaves room for pool and ReLU
+    flips, so one TF32 product without the hi/lo split would pass here
+    too: test_stem_grad_products_on_own_routing guards the split."""
+    shape = (2, 32, 128, 3)
+    arrays = _float_grad_inputs(13, shape, VALID)
+    got = stem.fused_stem_grad(*_on(arrays, cuda), valid_hw=VALID)
+    again = stem.fused_stem_grad(*_on(arrays, cuda), valid_hw=VALID)
+    want = stem.fused_stem_grad_reference(
+        *_on(arrays, cuda, torch.float64), valid_hw=VALID)
+    torch.cuda.synchronize()
+    for a, b, c in zip(got, again, want):
+        assert torch.equal(a, b)
+        err = (a.double() - c).abs().max() / c.abs().max()
+        assert err <= GRAD_TOL, err.item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,valid", [
+    ((2, 32, 128, 3), VALID),
+    ((1, 34, 70, 3), (30, 50)),       # ragged tiles, non-×16 even sizes
+])
+def test_stem_grad_products_on_own_routing(cuda, shape, valid):
+    """dpre1, dw1, db1, dw2 and db2 against the same products in float64
+    on the kernel's own c1 and dpre2: its arithmetic alone, no flips."""
+    x, dy, w1, b1, w2, b2 = _on(_float_grad_inputs(14, shape, valid), cuda)
+    grads, scratch = stem._stem_grad_launch(x, dy, w1, b1, w2, b2, valid)
+    want = stem.fused_stem_grad_products(
+        x.double(), scratch["c1"].double(), scratch["dpre2"].double(),
+        w2.double(), valid)
+    torch.cuda.synchronize()
+    assert scratch["dpre2"].abs().max() > 0
+    for name, a, b in zip(["dpre1", "dw1", "db1", "dw2", "db2"],
+                          (scratch["dpre1"],) + grads, want):
+        err = (a.double() - b).abs().max() / b.abs().max()
+        assert err <= PRODUCT_TOL, (name, err.item())
 
 
 @pytest.mark.cuda
