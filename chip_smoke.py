@@ -3,38 +3,53 @@
 
     python3 chip_smoke.py
 
-Builds the port's three CUDA kernels with nvcc, one process per source, all
+Builds the port's four CUDA kernels with nvcc, one process per source, all
 at once: the fused VGG stem (K1, csrc/stem.cu), its backward (K2,
-csrc/stem_grad.cu) and the anchor max-IoU (K3, csrc/iou.cu). Then, each
-phase printing one line:
+csrc/stem_grad.cu), the anchor max-IoU (K3, csrc/iou.cu) and the final
+vote (V1, csrc/vote.cu). Then, each phase printing one line:
 
 1. K1 against its plain version at the shapes of the detection path;
 2. full-pyramid detection at the flagship configuration (VGG-16 at full
-   width, TEST.SCALES 100..1400, flip TTA, BBOX_VOTE) on three seeded
-   synthetic images with random weights, twice each, and against the same
-   detector on the CPU at a small pyramid;
-3. K2 against its plain version (equal to the bit on small-integer inputs,
+   width, TEST.SCALES 100..1400, flip TTA, BBOX_VOTE on the device with
+   VOTE_CAP 2048, the default) on three seeded synthetic images with
+   random weights, twice each, and against the same detector on the CPU at
+   a small pyramid; one image again with the float64 host vote
+   (DEVICE_VOTE = false);
+3. V1 against its plain version: equal to the bit on integer boxes with
+   dyadic scores; on the real top-2048 candidate sets of the three images,
+   on a crowd and on boxes scattered over many centres, the same rows out, the scores equal to the bit and the
+   boxes within VOTE_BOX_TOL; its device time (CUDA graph), wrapper wall,
+   plain time, clusters and bound;
+4. the full five-level pyramid with flip of one image on the card against
+   the port's CPU path, by the golden tests' match rule;
+5. K2 against its plain version (equal to the bit on small-integer inputs,
    within a stated tolerance on float inputs, equal to itself from run to
    run) and its tensor-core products against the same products in float64
    on its own routing (its scratch c1 and dpre2), at four shapes up to the
    1200 training scale; at that scale its wrapper's wall, its device time
    (20 calls in one CUDA graph) and each of its five launches' device
-   time (torch.profiler), beside two bounds: all on the CUDA cores, and its own split between the
-   CUDA cores and the tensor cores;
-4. K3 against its plain version (equal to the bit) on the 90,000 anchors of
+   time (torch.profiler), beside two bounds: all on the CUDA cores, and its
+   own split between the CUDA cores and the tensor cores;
+6. K3 against its plain version (equal to the bit) on the 90,000 anchors of
    a 1200×1600 image for 0 to 2048 gt boxes: uniform, a crowd, and a band
    of faces that overfills one block's list of gt; its wrapper's wall, and
    its device time with the host taken out (200 launches captured in a
    CUDA graph, replayed between two CUDA events), beside the same device
    time of an empty kernel on the same grid;
-5. one training micro-batch with every parameter requiring a gradient
+7. one training micro-batch with every parameter requiring a gradient
    (K2 runs), its stem gradients against the plain stem's;
-6. training, the slice's path: ``train_net`` for 6 iterations of the
-   flagship configuration over all three scales on four seeded synthetic
-   images and their mirrors, then a resume from the iteration-3 snapshot
-   that must reach the same final.npz to the bit;
-7. one training iteration of a small skeletal network on the CPU and on
-   the card from the same weights.
+8. training: ``train_net`` for 6 iterations of the flagship configuration
+   over all three scales on four seeded synthetic images and their
+   mirrors, then a resume from the iteration-3 snapshot that must reach
+   the same final.npz to the bit;
+9. one training iteration of a small skeletal network on the CPU and on
+   the card from the same weights;
+10. the slice's path, train-then-test from the command line:
+   ``smallhardface_tpu_torch.__main__.main`` with the flagship config,
+   ``--train true --test true``, 2 iterations, on a seeded synthetic WIDER
+   tree (scripts/synth_wider.py), evaluated on its 6 val images of
+   1024×1024: final.npz, detections.pkl, result.tar.gz and the
+   Easy/Medium/Hard line.
 
 Each main path runs with the launch counts set to 0 just before it and read
 just after. The second-to-last line is a JSON summary of the kernels; the
@@ -42,8 +57,10 @@ last is {"ok": true, "device": ...}. Any failure raises, exits nonzero and
 prints no such line. Without a CUDA card it exits nonzero at once.
 """
 
+import copy
 import json
 import math
+import re
 import os
 import pickle
 import shutil
@@ -82,6 +99,13 @@ GRAD_TOL = {False: 1e-3, True: 5e-3}        # keyed by "full training size"
 # (tests/test_torch_port_tf32x3.py)
 PRODUCT_TOL = 1e-5
 TRAIN_ITERS, SNAPSHOT = 6, 3
+# V1's merged boxes on float inputs against its plain version, max |Δ| over
+# the largest coordinate: the same members, summed in another order
+VOTE_BOX_TOL = 1e-5
+# the golden detection tests' rule: each side's rows matched at >= 97 %, the
+# counts within max(2, 2 %)
+MATCH_MIN, COUNT_SLACK = 0.97, 0.02
+EVAL_IMAGES, EVAL_SIZE, EVAL_ITERS = 6, 1024, 2
 THRESH = 0.05
 # published H100 SXM rates (NVIDIA H100 datasheet): fp32 on the CUDA
 # cores and device-memory bandwidth
@@ -359,10 +383,11 @@ def main():
     from smallhardface_tpu_torch.config import CONFIG_DIR, cfg, cfg_from_file
     from smallhardface_tpu_torch.detect import TorchDetector, _pyramid_scales
     from smallhardface_tpu_torch.models import detector as tdm
-    from smallhardface_tpu_torch.ops import cuda_build, iou, stem
+    from smallhardface_tpu_torch.ops import cuda_build, iou, nms_device, stem
     from smallhardface_tpu_torch.ops.bbox import iou_matrix
 
     dev = torch.device("cuda", 0)
+    pristine = copy.deepcopy(cfg)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -382,7 +407,7 @@ def main():
     empty = cuda_build.CudaLibrary("empty", empty_src,
                                    {"shf_empty": [cuda_build.CI] * 2
                                     + [cuda_build.VP]})
-    libs = [stem.STEM, stem.STEM_GRAD, iou.IOU, empty]
+    libs = [stem.STEM, stem.STEM_GRAD, iou.IOU, nms_device.VOTE, empty]
     cuda_build.build_all(libs)
     say("build", seconds=round(time.perf_counter() - t0, 3),
         capability=list(torch.cuda.get_device_capability(0)),
@@ -453,18 +478,18 @@ def main():
     small_gpu = det.detect(images[0], THRESH)[0][0]
     small_cpu = TorchDetector(params, spec, "cpu").detect(
         images[0], THRESH)[0][0]
-    fwd, bwd = _match_fraction(small_gpu, small_cpu), _match_fraction(
-        small_cpu, small_gpu)
-    say("reference", scales=[100, 300], dets_gpu=len(small_gpu),
-        dets_cpu=len(small_cpu), match_gpu_in_cpu=fwd, match_cpu_in_gpu=bwd)
-    if min(fwd, bwd) < 0.97 or abs(len(small_gpu) - len(small_cpu)) > max(
-            2, 0.02 * len(small_cpu)):
+    agree = _check_agreement("reference", small_gpu, small_cpu,
+                             scales=[100, 300])
+    if not agree:
         raise AssertionError("GPU detections disagree with the CPU path")
     cfg.TEST.SCALES = [100, 300, 600, 1000, 1400]
 
-    set_counts_zero(stem.fused_stem, stem.fused_stem_grad, iou.max_iou)
+    vote_fns = (nms_device.bbox_vote_device, nms_device.nms_device)
+    set_counts_zero(stem.fused_stem, stem.fused_stem_grad, iou.max_iou,
+                    *vote_fns)
     torch.cuda.reset_peak_memory_stats()
-    n_forward = 0
+    n_forward = n_detect = 0
+    card_dets = []
     for i, im in enumerate(images):
         runs, walls = [], []
         for _ in range(2):
@@ -475,6 +500,8 @@ def main():
             walls.append(time.perf_counter() - t)
             runs.append(dets)
             n_forward += len(cfg.TEST.SCALES)
+            n_detect += 1
+        card_dets.append(runs[0])
         h, w = im.shape[:2]
         slack = 0.5 * max(1.0 / s for s in _pyramid_scales(im.shape))
         dets = runs[0]
@@ -490,15 +517,42 @@ def main():
         same = np.array_equal(runs[0], runs[1])
         say("detect", image=i, hw=[h, w], dets=int(dets.shape[0]),
             walls_s=walls, deterministic=same, checks_ok=bool(ok))
+        if i == 0:
+            first_walls = walls
         if not (ok and same):
             raise AssertionError(f"detections of image {i} fail the checks")
     detect_counts = {"fused_stem": stem.fused_stem.launches,
                      "fused_stem_grad": stem.fused_stem_grad.launches,
-                     "max_iou": iou.max_iou.launches}
-    say("detect_path", forward_passes=n_forward, launches=detect_counts,
+                     "max_iou": iou.max_iou.launches,
+                     "bbox_vote": nms_device.bbox_vote_device.launches,
+                     "nms": nms_device.nms_device.launches}
+    say("detect_path", forward_passes=n_forward, detects=n_detect,
+        launches=detect_counts,
         max_memory_allocated_bytes=torch.cuda.max_memory_allocated())
     if detect_counts["fused_stem"] != n_forward:
         raise AssertionError("the stem kernel did not run once per forward")
+    if detect_counts["bbox_vote"] != n_detect or detect_counts["nms"]:
+        raise AssertionError("the vote kernel did not run once per detect")
+
+    # the float64 host vote of the JAX DEVICE_VOTE=false path, for its time
+    cfg.TPU.DEVICE_VOTE = False
+    host_det = TorchDetector(params, spec, dev)
+    host_walls = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        host_dets = host_det.detect(images[0], THRESH)[0][0]
+        torch.cuda.synchronize()
+        host_walls.append(time.perf_counter() - t)
+    cfg.TPU.DEVICE_VOTE = True
+    say("detect_host_vote", image=0, dets=int(host_dets.shape[0]),
+        walls_s=host_walls, device_vote_walls_s=first_walls)
+    del host_det
+
+    detect_split(det, images[0], nms_device, float(cfg.TEST.NMS_THRESH))
+    vote_entry = vote_phase(det, images, nms_device, float(
+        cfg.TEST.NMS_THRESH))
+    pyramid_card_vs_cpu(params, spec, images[0], card_dets[0], TorchDetector)
     del det
     torch.cuda.empty_cache()
 
@@ -630,6 +684,9 @@ def main():
         full_grad_counts = full_tree_grad(cfg, tdm, stem, iou, dev, work)
         train_counts = train_path(cfg, tdm, stem, iou, dev, work)
         cpu_vs_card(cfg, tdm, dev, work)
+        cfg.clear()
+        cfg.update(copy.deepcopy(pristine))
+        eval_counts = eval_cli(cfg, stem, iou, nms_device, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -641,6 +698,12 @@ def main():
                     ("fused_stem_grad", "train_full_grad")):
         kernels[k]["launches_path"] = path
     kernels["fused_stem"]["launches_detect"] = detect_counts["fused_stem"]
+    kernels["bbox_vote"] = vote_entry
+    kernels["bbox_vote"]["launches"] = eval_counts["bbox_vote"]
+    kernels["bbox_vote"]["launches_path"] = "eval_cli"
+    kernels["bbox_vote"]["launches_detect"] = detect_counts["bbox_vote"]
+    for k in ("fused_stem", "fused_stem_grad", "max_iou"):
+        kernels[k]["launches_eval_cli"] = eval_counts[k]
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib",
                                             "smallhardface_tpu"))
@@ -648,7 +711,8 @@ def main():
         raise AssertionError(f"the port imported {foreign}")
 
     print(json.dumps({"kernels": [kernels[k] for k in (
-        "fused_stem", "fused_stem_grad", "max_iou")]}), flush=True)
+        "fused_stem", "fused_stem_grad", "max_iou", "bbox_vote")]}),
+        flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
@@ -753,7 +817,7 @@ def train_path(cfg, tdm, stem, iou, dev, work):
                      "cls_loss": m["cls_loss"].ravel().tolist(),
                      "reg_loss": m["reg_loss"].ravel().tolist(),
                      "n_fg": m["n_fg"].ravel().tolist(),
-                     "wall_s": now - clock["t"],
+                     "hook_interval_s": now - clock["t"],
                      "max_memory_allocated_bytes":
                          torch.cuda.max_memory_allocated()})
         say("train_iter", **rows[-1])
@@ -765,10 +829,11 @@ def train_path(cfg, tdm, stem, iou, dev, work):
     os.makedirs(second)
     set_counts_zero(stem.fused_stem, stem.fused_stem_grad, iou.max_iou)
     torch.cuda.reset_peak_memory_stats()
-    clock["t"] = time.perf_counter()
+    clock["t"] = t_start = time.perf_counter()
     model = train_loop.train_net(roidb, first, None, TRAIN_ITERS, device=dev,
                                  progress_hook=hook)
     torch.cuda.synchronize()
+    train_wall = time.perf_counter() - t_start
     counts = {"fused_stem": stem.fused_stem.launches,
               "fused_stem_grad": stem.fused_stem_grad.launches,
               "max_iou": iou.max_iou.launches}
@@ -783,7 +848,11 @@ def train_path(cfg, tdm, stem, iou, dev, work):
                 frozen_moved.append(f"{name}/{k}")
             elif lr_mults[name][k] > 0 and same:
                 trainable_still.append(f"{name}/{k}")
+    # the loop hands an iteration's metrics to the hook one iteration late
+    # (at once on a snapshot iteration), so the hook's intervals pair up
+    # around snapshots; the run's wall is the number to read
     say("train_path", iterations=TRAIN_ITERS, micro_batches=micro,
+        wall_s=train_wall, s_per_iteration=train_wall / TRAIN_ITERS,
         scales_visited=sorted({r["scale"] for r in rows}), launches=counts,
         losses_finite=all(math.isfinite(v) for v in losses),
         frozen_changed=frozen_moved, trainable_unchanged=trainable_still)
@@ -866,6 +935,209 @@ def cpu_vs_card(cfg, tdm, dev, work):
     if abs(l_gpu - l_cpu) > 1e-4 * abs(l_cpu) or worst > 1.0:
         raise AssertionError("the card's training step disagrees with the "
                              "CPU's")
+
+
+def _check_agreement(phase, card, cpu, **fields):
+    """Print the golden tests' match rule between the card's and the CPU's
+    detections; returns whether it holds."""
+    fwd, bwd = _match_fraction(card, cpu), _match_fraction(cpu, card)
+    ok = (min(fwd, bwd) >= MATCH_MIN and abs(len(card) - len(cpu))
+          <= max(2, COUNT_SLACK * len(cpu)))
+    say(phase, dets_gpu=len(card), dets_cpu=len(cpu), match_gpu_in_cpu=fwd,
+        match_cpu_in_gpu=bwd, rule_holds=ok, **fields)
+    return ok
+
+
+def detect_split(det, image, nms_device, thresh, reps=3):
+    """Where one image's detect goes, each stage timed on the host clock
+    after a synchronisation, medians of reps: the pyramid (preprocess,
+    forward, decode, merge), the top-VOTE_CAP selection, V1 and the copy of
+    its rows; beside them the host path's copy of every kept row and its
+    float64 vote."""
+    from smallhardface_tpu_torch.detect import _host_vote, top_rows
+    stages = {k: [] for k in ("pyramid", "top_rows", "vote_device",
+                              "readback", "host_readback", "host_vote")}
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        marks = [time.perf_counter()]
+
+        def mark():
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+        boxes, scores, keep = det.merged_candidates(image, THRESH)
+        mark()
+        dets, n = top_rows(boxes, scores, keep, det.vote_cap)
+        mark()
+        out, n_out = nms_device.bbox_vote_device(dets, n, thresh)
+        mark()
+        voted = out[:int(n_out)].cpu().numpy()
+        mark()
+        rows = torch.cat([boxes, scores[:, None]], 1)[keep].cpu().numpy()
+        mark()
+        host = _host_vote(rows)
+        mark()
+        for k, a, b in zip(stages, marks, marks[1:]):
+            stages[k].append(b - a)
+    say("detect_split", image=0, above_thresh=len(rows),
+        voted_rows=len(voted), host_voted_rows=len(host),
+        **{f"{k}_s": float(np.median(v)) for k, v in stages.items()},
+        timing=f"host clock after torch.cuda.synchronize(), median of {reps}")
+
+
+def vote_phase(det, images, nms_device, thresh):
+    """V1 against its plain version on the card: integer boxes with dyadic
+    scores (equal to the bit), the top-VOTE_CAP candidates of each image as
+    the detection path votes them, and a crowd. Comparison launches: the
+    wrapper's count is not read here. Returns V1's entry of the kernels
+    line, timed on the first image's candidates."""
+    from smallhardface_tpu_torch.detect import top_rows
+    from smallhardface_tpu_torch.ops.vote_cases import crowd_dets, integer_dets
+    dev = det.device
+    rng = np.random.RandomState(SEED + 6)
+    cases = [("integer", torch.from_numpy(integer_dets(rng, 512)).to(dev),
+              512, thresh)]
+    for i, im in enumerate(images):
+        boxes, scores, keep = det.merged_candidates(im, THRESH)
+        dets, n = top_rows(boxes, scores, keep, det.vote_cap)
+        cases.append((f"image{i}", dets, int(n), thresh))
+    cases.append(("crowd", torch.from_numpy(crowd_dets(rng, 2048)).to(dev),
+                  2048, thresh))
+    # boxes spread over 200 centres, many short clusters, at the IoU
+    # threshold 0.4 of tests/test_nms_device.py
+    for v in (2048, 512):
+        cases.append((f"scattered{v}", torch.from_numpy(crowd_dets(
+            np.random.RandomState(1), v, centres=200, spread=40)).to(dev), v,
+            0.4))
+    entry, worst = None, 0.0
+    for name, dets, n, thresh in cases:
+        n_t = torch.tensor(n, dtype=torch.int32, device=dev)
+        got, n_got = nms_device.bbox_vote_device(dets, n_t, thresh)
+        want, n_want, steps, pairs = nms_device.greedy_steps(
+            dets, n_t, thresh, vote=True)
+        torch.cuda.synchronize()
+        k = int(n_want)
+        same_n = int(n_got) == k
+        scores_equal = same_n and torch.equal(got[:k, 4], want[:k, 4])
+        peak = float(dets[:n, :4].abs().max()) if n else 1.0
+        err = float((got[:k, :4] - want[:k, :4]).abs().max()) if (
+            same_n and k) else 0.0
+        bit_equal = torch.equal(got, want)
+        call = lambda: nms_device.bbox_vote_device(dets, n_t, thresh)  # noqa: E731
+        ms = median_ms(call)
+        device_ms = graph_ms(call, reps=20)
+        plain_ms = median_ms(lambda: nms_device.bbox_vote_device_reference(
+            dets, n_t, thresh), n=3, warmup=1)
+        v = dets.shape[0]
+        # each row read once and each output row written once; about 25
+        # fp32 operations for each remaining row of each step
+        bnd, by = bound_ms(40 * v + 8, 25 * pairs)
+        say("vote_vs_plain", case=name, rows=v, candidates=n, iou_thresh=thresh,
+            n_out=int(n_got), n_out_plain=k, clusters=steps,
+            iou_pairs=pairs, bit_equal=bit_equal, scores_equal=scores_equal,
+            max_abs_box_err=err, box_tol=VOTE_BOX_TOL * peak,
+            kernel_ms=ms, device_ms=device_ms, plain_ms=plain_ms,
+            us_per_cluster=1e3 * device_ms / max(steps, 1), bound_ms=bnd,
+            bound_by=by, library_ms=None,
+            timing="wall: median of 20 CUDA-event walls of one wrapper "
+                   "call; device: 20 calls in one CUDA graph, median of 5 "
+                   "replays, per call; plain: median of 3 walls")
+        if not (same_n and scores_equal and err <= VOTE_BOX_TOL * peak):
+            raise AssertionError(f"V1 disagrees with its plain version on "
+                                 f"{name}")
+        if name == "integer" and not bit_equal:
+            raise AssertionError("V1 is not equal to the bit on integers")
+        if name.startswith("image"):
+            worst = max(worst, err)
+        if name == "image0":
+            entry = {"name": "bbox_vote", "route": "cuda",
+                     "source": "smallhardface_tpu_torch/csrc/vote.cu",
+                     "replaces": "smallhardface_tpu/ops/nms_jax.py:70",
+                     "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
+                     "bound_ms": bnd, "bound_by": by, "library_ms": None,
+                     "clusters": steps}
+    entry["max_abs_err"] = worst
+    return entry
+
+
+def pyramid_card_vs_cpu(params, spec, image, card, detector_cls):
+    """The full five-level pyramid with flip of one image: the card's
+    detections (from the detection phase) against the port's CPU path, by
+    the golden tests' rule."""
+    t = time.perf_counter()
+    cpu = detector_cls(params, spec, "cpu").detect(image, THRESH)[0][0]
+    ok = _check_agreement("pyramid_card_vs_cpu", card, cpu,
+                          hw=list(image.shape[:2]),
+                          cpu_seconds=time.perf_counter() - t)
+    if not ok:
+        raise AssertionError("the card's full pyramid disagrees with the "
+                             "CPU path")
+
+
+def eval_cli(cfg, stem, iou, nms_device, work):
+    """Train-then-test from the command line on a synthetic WIDER tree:
+    the files and the result line it must give, the seconds per image of
+    test_net and the launch counts. Returns the counts."""
+    sys.path.insert(0, os.path.join(REPO, "scripts"))
+    import synth_wider
+    from smallhardface_tpu_torch import __main__ as cli
+    from smallhardface_tpu_torch import test_runner
+    from smallhardface_tpu_torch.config import CONFIG_DIR
+    root = os.path.join(work, "wider")
+    synth_wider.build(root, n_images=EVAL_IMAGES, im_size=EVAL_SIZE,
+                      seed=SEED)
+    exp_dir = f"chip_smoke_eval_{os.getpid()}"
+    stats = {}
+    run_inference = test_runner.run_inference
+
+    def timed(imdb, *args, **kwargs):
+        t = time.perf_counter()
+        dets = run_inference(imdb, *args, **kwargs)
+        torch.cuda.synchronize()
+        stats["test_net_s_per_image"] = (time.perf_counter() - t) / len(imdb)
+        return dets
+
+    fns = (stem.fused_stem, stem.fused_stem_grad, iou.max_iou,
+           nms_device.bbox_vote_device, nms_device.nms_device)
+    test_runner.run_inference = timed
+    set_counts_zero(*fns)
+    t = time.perf_counter()
+    try:
+        result = cli.main([
+            "--train", "true", "--test", "true", "--device", "cuda",
+            "--conf", os.path.join(CONFIG_DIR, "smallhardface.toml"),
+            "--amend", "DATA_DIR", root, "EXP_DIR", exp_dir,
+            "TRAIN.ITERS", str(EVAL_ITERS), "TEST.DB", "wider_val",
+            "TEST.NO_CACHE", "False"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        counts = dict(zip(("fused_stem", "fused_stem_grad", "max_iou",
+                           "bbox_vote", "nms"), (f.launches for f in fns)))
+        out = os.path.join(REPO, "output", exp_dir)
+        found = {name: sorted(os.path.relpath(os.path.join(r, name), out)
+                              for r, _, files in os.walk(out)
+                              if name in files)
+                 for name in ("final.npz", "detections.pkl", "result.tar.gz",
+                              "cfgs.txt", "stderr.log")}
+    finally:
+        test_runner.run_inference = run_inference
+        shutil.rmtree(os.path.join(REPO, "output", exp_dir),
+                      ignore_errors=True)
+    micro = EVAL_ITERS * int(cfg.TRAIN.ITERSIZE)
+    want = {"fused_stem": micro + len(cfg.TEST.SCALES) * EVAL_IMAGES,
+            "fused_stem_grad": 0, "max_iou": micro, "bbox_vote": EVAL_IMAGES,
+            "nms": 0}
+    say("eval_cli", result=result, files=found, launches=counts,
+        launches_expected=want, wall_s=wall, **stats)
+    if not re.fullmatch(r"Easy: [0-9.]+, Medium: [0-9.]+, Hard: [0-9.]+",
+                        str(result)):
+        raise AssertionError(f"eval_cli gave no Easy/Medium/Hard line: "
+                             f"{result!r}")
+    if not all(found[n] for n in ("final.npz", "detections.pkl",
+                                  "result.tar.gz")):
+        raise AssertionError(f"eval_cli is missing files: {found}")
+    if counts != want:
+        raise AssertionError(f"eval_cli launches {counts}, expected {want}")
+    return counts
 
 
 def _match_fraction(a, b):

@@ -1,8 +1,9 @@
 """Per-image detection: multi-scale pyramid + flip TTA + merge + vote.
 
 Counterpart of ``smallhardface_tpu/detect.py``: ``compute_scaling_factor``
-and ``_pyramid_scales`` (:38-73), and ``TPUDetector``'s device path
-(``_build_run``, :159-351) as ``TorchDetector``:
+and ``_pyramid_scales`` (:38-73), and ``TPUDetector`` (``_build_run``,
+``forward_scale``, ``detect_async``, ``finalize_async``, ``detect``) as
+``TorchDetector``:
 
 - the raw uint8 image, edge-padded to ×16, is uploaded once;
 - every pyramid level is derived on the device: a linear resize with the
@@ -11,14 +12,20 @@ and ``_pyramid_scales`` (:38-73), and ``TPUDetector``'s device path
   extent, and the mirrored copy for flip TTA;
 - each level runs at its exact ×16 shape (the JAX ``"exact"`` mask mode),
   image and mirror as a batch of 2, then softmax and decode;
-- levels merge in original-image coordinates, the strict ``> thresh`` cut
-  applies, and only the kept rows are copied to the host;
-- the final BBOX_VOTE / NMS runs on the host in float64 through
-  ``ops/native`` (the port's copy of the JAX package's loader for the
-  repo-root ``csrc/shf_host.cpp``; the JAX DEVICE_VOTE=false path).
+- levels merge in original-image coordinates and the strict ``> thresh``
+  cut applies;
+- under ``TPU.DEVICE_VOTE`` (the default) the top ``TPU.VOTE_CAP`` rows
+  above the cut are voted on the device (``ops/nms_device``, the CUDA
+  kernel V1 on the card) and only the voted rows are copied to the host;
+  otherwise the kept rows (the top ``TPU.MERGED_DET_CAP`` when that is
+  > 0) are copied and voted on the host in float64 through ``ops/native``
+  (the port's copy of the JAX package's loader for the repo-root
+  ``csrc/shf_host.cpp``).
 
-Only ``TPU.PRECISION = "float32"`` is ported. ``TPU.HOST_PREPROC``,
-``detect_many``, int8 calibration and spatial meshes wait (ROADMAP).
+``TPU.HOST_PREPROC`` is the reference-exact parity path: a cv2 resize per
+level on the host, one float32 upload per level, and the float64 host
+vote. Only ``TPU.PRECISION = "float32"`` is ported; ``detect_many``, int8
+calibration and spatial meshes wait (ROADMAP).
 """
 
 from __future__ import annotations
@@ -34,6 +41,7 @@ from smallhardface_tpu_torch.models import detector as detector_mod
 from smallhardface_tpu_torch.ops import anchors as anchors_mod
 from smallhardface_tpu_torch.ops import decode as decode_mod
 from smallhardface_tpu_torch.ops import native as nms_host
+from smallhardface_tpu_torch.ops import nms_device
 from smallhardface_tpu_torch.utils.device import resolve_device
 from smallhardface_tpu_torch.utils.timer import Timer
 
@@ -58,10 +66,6 @@ IGNORED_TPU_KNOBS = {
                      "sorts once per level",
     "SPATIAL_DEVICES": "spatial sharding is not ported yet",
     "EVAL_BATCH": "batched evaluation (detect_many) is not ported yet",
-    "DEVICE_VOTE": "the final vote runs on the host in float64 (the JAX "
-                   "DEVICE_VOTE=false path); the device vote is not "
-                   "ported yet",
-    "VOTE_CAP": "it bounds only the device vote, which is not ported",
 }
 
 
@@ -147,15 +151,6 @@ class TorchDetector:
             raise NotImplementedError(
                 f"TPU.PRECISION={precision!r}: the PyTorch port runs "
                 "float32 only; bfloat16 and int8 are on ROADMAP queue 1")
-        if cfg.TPU.HOST_PREPROC:
-            raise NotImplementedError(
-                "TPU.HOST_PREPROC is not ported yet (ROADMAP queue 1, "
-                "'HOST_PREPROC'); the port preprocesses on the device")
-        if int(cfg.TPU.MERGED_DET_CAP) > 0:
-            raise NotImplementedError(
-                "TPU.MERGED_DET_CAP > 0 is not ported yet; the port keeps "
-                "every detection above the threshold (the reference "
-                "semantics, MERGED_DET_CAP = -1)")
         for knob, why in IGNORED_TPU_KNOBS.items():
             logger.debug("TPU.%s=%r ignored: %s", knob, cfg.TPU[knob], why)
         self.device = resolve_device(device)
@@ -170,6 +165,11 @@ class TorchDetector:
         self.capacity = cap if cap > 0 else int(cfg.TEST.N_DETS_PER_MODULE)
         self.mean = torch.tensor(np.asarray(cfg.PIXEL_MEANS, np.float32)
                                  .reshape(3), device=self.device)
+        self.host_preproc = bool(cfg.TPU.HOST_PREPROC)
+        # the final vote on the device: only voted rows cross to the host
+        self.device_vote = bool(cfg.TPU.DEVICE_VOTE) and not self.host_preproc
+        self.vote_cap = int(cfg.TPU.VOTE_CAP)
+        self.merged_cap = int(cfg.TPU.MERGED_DET_CAP)
 
     def _prep(self, im):
         """The edge-padded raw image and the per-level metadata, all host
@@ -218,10 +218,12 @@ class TorchDetector:
             ims.append(torch.where(valid, resized[:, idx], 0.0))
         return torch.stack(ims, dim=0).contiguous()
 
-    def detect_async(self, im, thresh=0.05, score_thresh=None):
+    def merged_candidates(self, im, thresh=0.05, score_thresh=None):
         """Upload one image and enqueue its whole pyramid on the device.
-        ``thresh`` is the detect-level cut (probs > thresh). Returns a
-        handle for ``finalize_async``; nothing waits for the device here."""
+        Returns the merged rows of every level (boxes (R, 4) in
+        original-image coordinates, scores (R,), -inf on empty slots) and
+        which of them pass the detect-level cut (scores > thresh), all on
+        the device; nothing waits for it."""
         p = self._prep(im)
         st = float(score_thresh if score_thresh is not None
                    else cfg.TEST.SCORE_THRESH)
@@ -253,24 +255,101 @@ class TorchDetector:
                 all_boxes.append(boxes.reshape(-1, 4))
                 all_scores.append(scores.reshape(-1))
             cat_scores = torch.cat(all_scores)
-            rows = torch.cat([torch.cat(all_boxes), cat_scores[:, None]],
-                             dim=1)
             # the strict > of the reference (lib/test.py:163)
-            keep = cat_scores > thresh
-        return {"rows": rows, "keep": keep}
+            return torch.cat(all_boxes), cat_scores, cat_scores > thresh
+
+    def detect_async(self, im, thresh=0.05, score_thresh=None):
+        """Enqueue one image's pyramid and, under the device vote, its vote
+        on the device. ``thresh`` is the detect-level cut (probs > thresh).
+        Returns a handle for ``finalize_async``; nothing waits for the
+        device here."""
+        boxes, scores, keep = self.merged_candidates(im, thresh,
+                                                     score_thresh)
+        with torch.inference_mode():
+            if self.device_vote:
+                dets, n = top_rows(boxes, scores, keep, self.vote_cap)
+                vote = (nms_device.bbox_vote_device
+                        if cfg.TEST.NMS_METHOD == "BBOX_VOTE"
+                        else nms_device.nms_device)
+                out, n_out = vote(dets, n, float(cfg.TEST.NMS_THRESH))
+                return {"packed": out, "n": n_out, "voted": True}
+            if self.merged_cap > 0:
+                dets, n = top_rows(boxes, scores, keep, self.merged_cap)
+                return {"packed": dets, "n": n, "voted": False}
+            rows = torch.cat([boxes, scores[:, None]], dim=1)
+        return {"packed": rows, "keep": keep, "voted": False}
 
     def finalize_async(self, handle, thresh=0.05):
-        """Compact the kept rows on the device, copy only them to the host,
-        and run the float64 host vote (or NMS). Returns cls_dets like
-        ``detect``. (``thresh`` was applied in ``detect_async``.)"""
-        dets = handle["rows"][handle["keep"]].cpu().numpy()
-        if cfg.TEST.NMS_METHOD == "BBOX_VOTE":
-            return [nms_host.bbox_vote(dets, cfg.TEST.NMS_THRESH)]
-        if cfg.TEST.NMS_METHOD == "NMS":
-            keep = nms_host.nms(dets, cfg.TEST.NMS_THRESH)
-            return [dets[keep, :]]
-        raise NotImplementedError(
-            f"Unknown NMS method: {cfg.TEST.NMS_METHOD}")
+        """Copy one image's rows to the host: the voted rows under the
+        device vote (with the reference's dummy row when there are none),
+        else the kept rows, voted on the host in float64. Returns cls_dets
+        like ``detect``. (``thresh`` was applied in ``detect_async``.)"""
+        if "keep" in handle:
+            dets = handle["packed"][handle["keep"]].cpu().numpy()
+        else:
+            n = int(handle["n"])
+            dets = handle["packed"][:n].cpu().numpy()
+        if handle["voted"]:
+            if cfg.TEST.NMS_METHOD == "BBOX_VOTE" and len(dets) == 0:
+                # the reference's dummy detection for an empty input
+                # (lib/test.py:183-185)
+                dets = np.array([[10, 10, 20, 20, 0.0001]], np.float32)
+            return [dets]
+        return [_host_vote(dets)]
+
+    def forward_scale(self, ims, im_h, im_w, score_thresh=None):
+        """Host-preprocessing path: one pyramid level from resized,
+        mean-subtracted host images of one (im_h, im_w) (the image and its
+        mirror), zero-padded to ×16 and uploaded as float32. Returns numpy
+        (boxes (B, cap, 4), scores (B, cap), counts (B,))."""
+        h16 = _round_up(im_h, cfg.MAX_RESOLUTION)
+        w16 = _round_up(im_w, cfg.MAX_RESOLUTION)
+        x = np.zeros((len(ims), h16, w16, 3), np.float32)
+        for i, im in enumerate(ims):
+            x[i, :im_h, :im_w] = im
+        st = float(score_thresh if score_thresh is not None
+                   else cfg.TEST.SCORE_THRESH)
+        with torch.inference_mode():
+            out = self.model(torch.from_numpy(x).to(self.device))
+            probs = torch.softmax(out["cls_logits"], dim=-1)[..., 1]
+            boxes, scores, counts = decode_mod.decode_proposals_batch(
+                probs, out["bbox_deltas"], self.base_anchors,
+                feat_stride=detector_mod.FEAT_STRIDE,
+                im_h=float(im_h), im_w=float(im_w),
+                valid_h=h16 // detector_mod.FEAT_STRIDE,
+                valid_w=w16 // detector_mod.FEAT_STRIDE,
+                score_thresh=st, min_size=0.0, capacity=self.capacity)
+        return boxes.cpu().numpy(), scores.cpu().numpy(), counts.cpu().numpy()
+
+    def _detect_host_preproc(self, im, thresh):
+        """JAX ``detect.py:733-785``: cv2 INTER_LINEAR resize of the
+        mean-subtracted image per level on the host, the mirror as a second
+        batch item, merge in float64, the cut and the float64 host vote."""
+        import cv2      # the host resize of the parity path
+        all_boxes, all_scores = [], []
+        im_f = im.astype(np.float32) - np.asarray(cfg.PIXEL_MEANS,
+                                                  np.float32)
+        for scale in _pyramid_scales(im.shape):
+            resized = im_f if scale == 1.0 else cv2.resize(
+                im_f, None, None, fx=scale, fy=scale,
+                interpolation=cv2.INTER_LINEAR)
+            h, w = resized.shape[:2]
+            ims = [resized]
+            if cfg.TEST.FLIP:
+                ims.append(resized[:, ::-1])
+            boxes, scores, counts = self.forward_scale(ims, h, w)
+            for i in range(boxes.shape[0]):
+                bx = boxes[i, :int(counts[i])].astype(np.float64)
+                if i == 1:      # mirrored: flip x in network-input space
+                    bx[:, 0], bx[:, 2] = w - bx[:, 2], w - bx[:, 0]
+                all_boxes.append(bx / scale)
+                all_scores.append(scores[i, :int(counts[i])].astype(
+                    np.float64))
+        probs = np.concatenate(all_scores)
+        boxes = np.concatenate(all_boxes)
+        inds = np.where(probs > thresh)[0]
+        dets = np.hstack((boxes[inds], probs[inds, None])).astype(np.float32)
+        return [_host_vote(dets)]
 
     def detect(self, im, thresh=0.05, timers=None):
         """Full-pyramid detection on one BGR uint8 image (or path).
@@ -278,6 +357,13 @@ class TorchDetector:
         the single 'face' class, like the JAX ``TPUDetector.detect``."""
         if timers is None:
             timers = {"detect": Timer(), "misc": Timer()}
+        if self.host_preproc:
+            if isinstance(im, str):
+                im = _imread(im)
+            timers["detect"].tic()
+            cls_dets = self._detect_host_preproc(im, thresh)
+            timers["detect"].toc()
+            return cls_dets, timers
         timers["detect"].tic()
         handle = self.detect_async(im, thresh)
         timers["detect"].toc()
@@ -285,3 +371,26 @@ class TorchDetector:
         cls_dets = self.finalize_async(handle, thresh)
         timers["misc"].toc()
         return cls_dets, timers
+
+
+def top_rows(boxes, scores, keep, cap):
+    """The top min(cap, total) rows (k, 5) by score among the kept ones,
+    in descending score order with the lower index first among ties (as
+    ``lax.top_k`` orders them), and how many of them are kept (0-d int32,
+    on the device)."""
+    sortable = torch.where(keep, scores, -torch.inf)
+    k = min(cap, sortable.shape[0])
+    top, idx = torch.sort(sortable, descending=True, stable=True)
+    top, idx = top[:k], idx[:k]
+    dets = torch.cat([boxes[idx], top[:, None]], dim=1).contiguous()
+    n = keep.sum().clamp(max=k).to(torch.int32)
+    return dets, n
+
+
+def _host_vote(dets):
+    """The reference's float64 host BBOX_VOTE or NMS over (N, 5) rows."""
+    if cfg.TEST.NMS_METHOD == "BBOX_VOTE":
+        return nms_host.bbox_vote(dets, cfg.TEST.NMS_THRESH)
+    if cfg.TEST.NMS_METHOD == "NMS":
+        return dets[nms_host.nms(dets, cfg.TEST.NMS_THRESH), :]
+    raise NotImplementedError(f"Unknown NMS method: {cfg.TEST.NMS_METHOD}")

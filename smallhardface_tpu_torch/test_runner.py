@@ -1,15 +1,31 @@
-"""Test-phase orchestration of the PyTorch port.
+"""Test-phase orchestration of the PyTorch port: dataset evaluation and the
+demo.
 
 Counterpart of ``smallhardface_tpu/test_runner.py``: ``_load_params``
-(:31-43) and ``demo`` (:225-241). Dataset evaluation (``test_net`` over an
-imdb, ``detections.pkl``, the evaluators) waits: ROADMAP queue 1,
-'test_net and eval on every dataset config'.
+(:31-43), ``inference_worker`` (:46-145), ``run_inference`` (:178-222),
+``demo`` (:225-241), ``get_testing_roidb`` (:244-252) and ``test_net``
+(:255-324), on one device:
+
+- one worker runs every image of the imdb through ``TorchDetector``, three
+  images in flight (``detect_async`` enqueues an image's pyramid and vote
+  on the device, ``finalize_async`` reads one back), or one at a time
+  under ``TPU.HOST_PREPROC``;
+- ``test_net`` caches the detections in ``detections.pkl`` and hands them
+  to the imdb's evaluator.
+
+Batched evaluation (``TPU.EVAL_BATCH > 1``), spatial meshes
+(``TPU.SPATIAL_DEVICES > 1``) and more than one process raise: they wait
+for ``detect_many``, spatial sharding and multi-GPU evaluation (ROADMAP
+queue 1).
 """
 
 from __future__ import annotations
 
 import logging
+import os
 import os.path as osp
+import pickle
+from collections import deque
 
 import numpy as np
 import torch
@@ -18,8 +34,13 @@ from smallhardface_tpu_torch.config import cfg
 from smallhardface_tpu_torch.detect import TorchDetector, _imread
 from smallhardface_tpu_torch.io import weights
 from smallhardface_tpu_torch.models import detector as detector_mod
+from smallhardface_tpu_torch.utils.tensorboard import tb
+from smallhardface_tpu_torch.utils.timer import Timer
 
 logger = logging.getLogger(__name__)
+
+# images in flight on the device in inference_worker's pipeline
+PIPELINE_DEPTH = 3
 
 
 def _load_params(spec):
@@ -33,9 +54,84 @@ def _load_params(spec):
     if path.endswith(".caffemodel"):
         raise NotImplementedError(
             ".caffemodel loading is not ported yet (ROADMAP queue 1, "
-            "'.caffemodel loading'); convert it to .npz with the JAX "
-            "package")
+            "'.caffemodel import and export'); convert it to .npz with the "
+            "JAX package")
     return weights.load_params(path)
+
+
+def _check_single_device():
+    """The evaluation settings that need more than one device raise."""
+    if int(cfg.TPU.EVAL_BATCH) > 1:
+        raise NotImplementedError(
+            f"TPU.EVAL_BATCH={cfg.TPU.EVAL_BATCH}: batched evaluation needs "
+            "detect_many, which is not ported yet (ROADMAP queue 1, "
+            "'detect_many')")
+    if int(cfg.TPU.SPATIAL_DEVICES) > 1:
+        raise NotImplementedError(
+            f"TPU.SPATIAL_DEVICES={cfg.TPU.SPATIAL_DEVICES}: spatial "
+            "sharding is not ported yet (ROADMAP queue 1, 'Spatial "
+            "H-sharding')")
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1 or (
+            torch.distributed.is_available()
+            and torch.distributed.is_initialized()
+            and torch.distributed.get_world_size() > 1):
+        raise NotImplementedError(
+            "evaluation in more than one process is not ported yet (ROADMAP "
+            "queue 1, 'Multi-GPU')")
+
+
+def inference_worker(rank, device, imdb, params, spec, start, end, thresh):
+    """Detections of images [start, end) of the imdb on ``device``, as
+    ``dets[class][image - start]``. Up to PIPELINE_DEPTH images wait on the
+    device while the host reads back and stores the oldest; under
+    TPU.HOST_PREPROC the images run one at a time."""
+    det = TorchDetector(params, spec, device)
+    timers = {"detect": Timer(), "misc": Timer()}
+    dets = [[[] for _ in range(start, end)]
+            for _ in range(imdb.num_classes)]
+
+    def store(i, dets_):
+        for c in range(imdb.num_classes - 1):
+            dets[c + 1][i - start] = dets_[c]
+        if rank == 0 and (i - start) % 20 == 0:
+            done, total = i + 1 - start, end - start
+            avg = timers["detect"].average_time + timers["misc"].average_time
+            logger.info(
+                "%02d%% detect-time: %.3fs, misc-time: %.3fs, "
+                "remain-time: %.1fs", int(100 * done / total),
+                timers["detect"].average_time, timers["misc"].average_time,
+                (total - done) * avg)
+            tb.sess.add_scalar_value(
+                "detect-time", timers["detect"].average_time, step=i - start)
+
+    if det.host_preproc:
+        for i in range(start, end):
+            dets_, _ = det.detect(imdb.image_path_at(i), thresh,
+                                  timers=timers)
+            store(i, dets_)
+        return rank, dets
+    pending = deque()       # (image index, device handle)
+    for i in range(start, end):
+        timers["detect"].tic()
+        pending.append((i, det.detect_async(imdb.image_path_at(i), thresh)))
+        timers["detect"].toc()
+        if len(pending) > PIPELINE_DEPTH:
+            j, handle = pending.popleft()
+            timers["misc"].tic()
+            store(j, det.finalize_async(handle, thresh))
+            timers["misc"].toc()
+    while pending:
+        j, handle = pending.popleft()
+        store(j, det.finalize_async(handle, thresh))
+    return rank, dets
+
+
+def run_inference(imdb, params, spec, thresh, device=None):
+    """Every image of the imdb on one device: ``dets[class][image]``."""
+    _check_single_device()
+    _, dets = inference_worker(0, device, imdb, params, spec, 0, len(imdb),
+                               thresh)
+    return dets
 
 
 def demo(params, spec, thresh, output_dir, device=None):
@@ -60,3 +156,54 @@ def demo(params, spec, thresh, output_dir, device=None):
     logger.info("Demo result written to %s (%d detections)", out,
                 dets.shape[0])
     return np.asarray(dets)
+
+
+def get_testing_roidb(imdb):
+    """Prepare the testing roidb (reference lib/test.py:359-371; evaluation
+    itself reads images by path and needs no roidb)."""
+    logger.info("Preparing testing data...")
+    imdb.prepare_roidb()
+    logger.info("done")
+    return imdb.roidb
+
+
+def test_net(imdb, output_dir, thresh=0.05, no_cache=False, step=0,
+             params=None, spec=None, device=None):
+    """Evaluate on the imdb (the demo when it is None): detections of every
+    image, cached in ``<output_dir>/detections.pkl`` unless ``no_cache``,
+    then the imdb's ``evaluate_detections``. Returns its result string.
+    Runs on ``device``, the CUDA card when None."""
+    if cfg.TEST.LEVEL:
+        logger.warning("TEST.LEVEL=%s ignored: the different-dilation "
+                       "model has a single proposal module", cfg.TEST.LEVEL)
+    spec = spec or detector_mod.build_spec(cfg)
+    if params is None:
+        params = _load_params(spec)
+    if imdb is None:
+        assert cfg.TEST.DEMO.ENABLE, "check your config and stderr!"
+        return demo(params, spec, thresh, output_dir, device)
+    logger.info("Evaluating %s on %s", cfg.NAME, imdb.name)
+    dets = None
+    det_file = osp.join(output_dir, "detections.pkl")
+    if not no_cache and osp.exists(det_file):
+        try:
+            with open(det_file, "rb") as f:
+                dets = pickle.load(f)
+            logger.info("Loading detections from cache: %s", det_file)
+        except Exception:
+            logger.warning("Could not load the cached detections file, "
+                           "detecting from scratch!")
+            dets = None
+    if dets is None:
+        dets = run_inference(imdb, params, spec, thresh, device)
+        assert len(dets[0]) == len(imdb), "Detection result compromised"
+        if not no_cache:
+            with open(det_file, "wb") as f:
+                pickle.dump(dets, f, pickle.HIGHEST_PROTOCOL)
+    logger.info("Evaluating detections")
+    result = imdb.evaluate_detections(
+        all_boxes=dets, output_dir=output_dir, method_name=cfg.NAME,
+        step=step)
+    logger.info(result)
+    logger.info("All Done!")
+    return result

@@ -4,7 +4,8 @@ Counterpart of the single-device parts of
 ``smallhardface_tpu/train/train_loop.py``: ``BUCKET``, ``_snap``,
 ``_snap_gt``, ``_batch_dims`` and ``assemble_batch`` (:417-493),
 ``preprocess_image`` (:97-114), the loss of ``_make_loss_fn`` (:138-181)
-and ``train_net`` (:514), with the mesh replaced by one ``device``:
+``get_training_roidb`` (:75-95) and ``train_net`` (:514), with the mesh
+replaced by one ``device``:
 
 - each iteration takes ``TRAIN.ITERSIZE`` images from the loader at one
   scale of a sequence drawn from ``RandomState(RNG_SEED)``, pads them to a
@@ -13,9 +14,10 @@ and ``train_net`` (:514), with the mesh replaced by one ``device``:
   forward in the ``"where"`` mask mode, anchor targets with OHEM on the
   detached background probability (the JAX ``stop_gradient``), and the
   softmax and smooth-L1 losses; ``backward`` accumulates the gradients;
-- the gradients are divided by iter_size (one device), the solver steps in
-  place, the easy-image flags go back to the loader, and the losses are
-  logged;
+- the gradients are divided by iter_size (one device) and the solver steps
+  in place; the easy-image flags go back to the loader and the losses are
+  logged one iteration later, after the next batch is fetched, as in the
+  JAX loop (at once on a snapshot iteration);
 - snapshots ``{prefix}_iter_{k}.npz`` and ``final.npz`` carry the weights
   (HWIO, the JAX package's layout, so either package loads them), the
   optimizer slots, the iteration and the pickled loader state;
@@ -209,6 +211,28 @@ def grad_step(model, loss_fn, batch, out_shape, iter_size):
     return torch.stack(rows, dim=1)
 
 
+def get_training_roidb(imdb):
+    """Flip-augment, prepare and filter the roidb
+    (reference lib/train.py:181-227)."""
+    if cfg.TRAIN.USE_FLIPPED:
+        logger.info("Appending horizontally-flipped training examples...")
+        imdb.append_flipped_images()
+        logger.info("done")
+    logger.info("Preparing training data...")
+    imdb.prepare_roidb()
+
+    def is_valid(entry):
+        overlaps = entry["max_overlaps"]
+        fg = np.where(overlaps >= cfg.TRAIN.ANCHOR_POSITIVE_OVERLAP)[0]
+        bg = np.where((overlaps < cfg.TRAIN.BG_THRESH_HI) &
+                      (overlaps >= cfg.TRAIN.BG_THRESH_LOW))[0]
+        return len(fg) > 0 or len(bg) > 0
+
+    final = [e for e in imdb.roidb if is_valid(e)]
+    logger.info("done")
+    return final
+
+
 def _init_params(spec, pretrained_model):
     params = detector_mod.init_params(
         torch.Generator().manual_seed(int(cfg.RNG_SEED)), spec)
@@ -346,6 +370,40 @@ def train_net(roidb, output_dir, pretrained_model, max_iter, device=None,
     loss_fn = LossFn(tc, device)
     loss_window = deque(maxlen=100)   # the solver's average_loss display
     t = Timer()
+
+    def process_metrics(rec):
+        """Read one step's metrics back, give its easy-image marks to the
+        loader, log, and call the hook."""
+        it1, metrics_dev, m_idx, m_rate, m_bucket = rec
+        m = metrics_dev.cpu().numpy()
+        metrics = {k: m[j][None] for j, k in enumerate(METRIC_KEYS)}
+        metrics["easy"] = metrics["easy"] > 0.5
+        if cfg.TRAIN.DISABLE_EASY_IMAGE.ENABLE:
+            for k, flag in enumerate(metrics["easy"].reshape(-1)):
+                if flag:
+                    loader.mark_easy(m_idx[k])
+        cls_l = float(metrics["cls_loss"].mean())
+        reg_l = float(metrics["reg_loss"].mean())
+        loss_window.append(cls_l + reg_l)
+        if it1 % 20 == 0 or it1 == max_iter or it1 == start_iter + 1:
+            logger.info(
+                "iter %d/%d cls_loss: %.5f reg_loss: %.5f smoothed_loss: "
+                "%.5f accuracy: %.5f lr: %.2e bucket: %s speed: %.3f iter/s",
+                it1, max_iter, cls_l, reg_l,
+                sum(loss_window) / len(loss_window),
+                float(metrics["accuracy"].mean()), m_rate, m_bucket,
+                1.0 / max(t.average_time, 1e-9))
+        if progress_hook is not None:
+            metrics["bucket"] = m_bucket
+            progress_hook(it1, metrics)
+
+    # The JAX loop's schedule (its train_loop.py:881-922): iteration it
+    # fetches batch it + 1, then applies the easy-image marks of iteration
+    # it - 1, so the marks of step k reach the loader after the fetch of
+    # batch k + 2 (they act at an epoch reshuffle). A snapshot iteration
+    # applies every mark up to its own before it captures the sampler and
+    # fetches the next batch, so a resume replays the same stream.
+    deferred = None
     pending = build_batch(start_iter)
     for it in range(start_iter, max_iter):
         t.tic()
@@ -363,45 +421,28 @@ def train_net(roidb, output_dir, pretrained_model, max_iter, device=None,
             weight_decay=float(cfg.TRAIN.WEIGHT_DECAY),
             momentum=float(cfg.TRAIN.MOMENTUM), iteration=it)
         if not will_snap:
-            # the host builds the next batch while the device runs this
-            # step; the easy-image marks of this step reach the loader
-            # after that fetch (they act at the next epoch reshuffle)
+            # the host builds the next batch while the device runs this step
             pending = build_batch(it1)
-        m = metrics_dev.cpu().numpy()                  # waits for the step
-        metrics = {k: m[j][None] for j, k in enumerate(METRIC_KEYS)}
-        metrics["easy"] = metrics["easy"] > 0.5
-        if cfg.TRAIN.DISABLE_EASY_IMAGE.ENABLE:
-            for k, flag in enumerate(metrics["easy"].reshape(-1)):
-                if flag:
-                    loader.mark_easy(im_idx[k])
-        if will_snap:
-            # the sampler state after every mark up to it1, before the next
-            # fetch: a resume from this snapshot replays the same stream
-            extra = {"loader_state": np.frombuffer(
-                pickle.dumps([loader.state_dict()]), dtype=np.uint8)}
-            _save(osp.join(output_dir, f"{snapshot_prefix}_iter_{it1}.npz"),
-                  model, opt_state, it1, extra)
-            if it1 == max_iter:
-                _save(osp.join(output_dir, "final.npz"), model, opt_state,
-                      it1, extra)
-                logger.warning("final.caffemodel not written: the port has "
-                               "no .caffemodel writer yet (ROADMAP queue 1)")
-            else:
-                pending = build_batch(it1)
+        if deferred is not None:
+            process_metrics(deferred)
+            deferred = None
+        record = (it1, metrics_dev, im_idx, rate, bucket)
+        if not will_snap:
+            deferred = record
+            t.toc()
+            continue
+        process_metrics(record)
+        extra = {"loader_state": np.frombuffer(
+            pickle.dumps([loader.state_dict()]), dtype=np.uint8)}
+        _save(osp.join(output_dir, f"{snapshot_prefix}_iter_{it1}.npz"),
+              model, opt_state, it1, extra)
+        if it1 == max_iter:
+            _save(osp.join(output_dir, "final.npz"), model, opt_state, it1,
+                  extra)
+            logger.warning("final.caffemodel not written: the port has no "
+                           ".caffemodel writer yet (ROADMAP queue 1)")
+        else:
+            pending = build_batch(it1)
         t.toc()
-        cls_l = float(metrics["cls_loss"].mean())
-        reg_l = float(metrics["reg_loss"].mean())
-        loss_window.append(cls_l + reg_l)
-        if it1 % 20 == 0 or it1 == max_iter or it1 == start_iter + 1:
-            logger.info(
-                "iter %d/%d cls_loss: %.5f reg_loss: %.5f smoothed_loss: "
-                "%.5f accuracy: %.5f lr: %.2e bucket: %s speed: %.3f iter/s",
-                it1, max_iter, cls_l, reg_l,
-                sum(loss_window) / len(loss_window),
-                float(metrics["accuracy"].mean()), rate, bucket,
-                1.0 / max(t.average_time, 1e-9))
-        if progress_hook is not None:
-            metrics["bucket"] = bucket
-            progress_hook(it1, metrics)
     logger.info("done solving!")
     return model

@@ -18,7 +18,12 @@ a machine that has only PyTorch:
   the CPU tests hold a numpy model of the culling to the same cases),
   including a crowd of 2048 small faces over the 90,000 anchors of a
   1200×1600 image, and a band of 2048 faces that one block of anchors
-  keeps beyond its list, with ties on both sides of the list's walk.
+  keeps beyond its list, with ties on both sides of the list's walk;
+- V1 (the final vote, csrc/vote.cu): BBOX_VOTE and NMS equal to the bit to
+  their plain versions on integer boxes with dyadic scores (every sum
+  exact), for no candidate, one, padding rows and 512 candidates; on a
+  crowd of 2048 float boxes the same rows out, the scores equal to the bit
+  and the boxes within VOTE_BOX_TOL of the largest coordinate.
 """
 
 import numpy as np
@@ -26,9 +31,10 @@ import pytest
 import torch
 
 from smallhardface_tpu_torch.ops import anchors as anchors_mod
-from smallhardface_tpu_torch.ops import iou, stem
+from smallhardface_tpu_torch.ops import iou, nms_device, stem
 from smallhardface_tpu_torch.ops.iou_cases import (BASE, K3_CASES, band_gt,
                                                   crowd_gt, k3_case)
+from smallhardface_tpu_torch.ops.vote_cases import crowd_dets, integer_dets
 
 VALID = (24, 96)
 # K2 on float inputs against the plain backward, max |Δ| / peak: pool and
@@ -38,6 +44,9 @@ GRAD_TOL = 1e-3
 # keeps about 22 bits of each operand; one TF32 product would miss this by
 # an order of magnitude (tests/test_torch_port_tf32x3.py)
 PRODUCT_TOL = 1e-5
+# V1's merged boxes on float inputs, max |Δ| / largest coordinate: the same
+# members, summed in another order in float32
+VOTE_BOX_TOL = 1e-5
 
 
 @pytest.fixture
@@ -193,3 +202,40 @@ def test_max_iou_kernel_vs_plain(cuda, case):
     torch.cuda.synchronize()
     assert iou.max_iou.launches == before + 1
     assert torch.equal(idx, want_idx) and torch.equal(best, want_best)
+
+
+def _vote_pair(method, dets, n_valid, device):
+    fn = (nms_device.bbox_vote_device if method == "BBOX_VOTE"
+          else nms_device.nms_device)
+    plain = (nms_device.bbox_vote_device_reference if method == "BBOX_VOTE"
+             else nms_device.nms_device_reference)
+    d = torch.from_numpy(dets).to(device)
+    n = torch.tensor(n_valid, dtype=torch.int32, device=device)
+    before = fn.launches
+    got, n_got = fn(d, n, 0.4)
+    want, n_want = plain(d, n, 0.4)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    assert int(n_got) == int(n_want)
+    return got.cpu().numpy(), want.cpu().numpy(), int(n_got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["BBOX_VOTE", "NMS"])
+@pytest.mark.parametrize("v,n_valid", [(8, 0), (1, 1), (64, 40), (512, 512)])
+def test_vote_kernel_vs_plain_on_integers(cuda, method, v, n_valid):
+    dets = integer_dets(np.random.RandomState(v + n_valid), v)
+    dets[n_valid:, 4] = -np.inf
+    got, want, _ = _vote_pair(method, dets, n_valid, cuda)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["BBOX_VOTE", "NMS"])
+def test_vote_kernel_vs_plain_on_a_crowd(cuda, method):
+    dets = crowd_dets(np.random.RandomState(5), 2048)
+    got, want, n = _vote_pair(method, dets, 2048, cuda)
+    assert 1 < n < 2048
+    np.testing.assert_array_equal(got[:, 4], want[:, 4])
+    np.testing.assert_allclose(got[:, :4], want[:, :4], rtol=0,
+                               atol=VOTE_BOX_TOL * np.abs(dets[:, :4]).max())

@@ -38,12 +38,20 @@ def test_port_imports_no_jax():
         "smoke = runpy.run_path('chip_smoke.py')\n"
         "assert smoke['main']() != 0\n"
         "assert not foreign(), foreign()\n"
+        "print(' '.join(names))\n"
         "print(len(names))\n")
     proc = _run(code)
     assert proc.returncode == 0, proc.stderr[-3000:]
     import smallhardface_tpu_torch as p
     n = len(list(pkgutil.walk_packages(p.__path__, p.__name__ + ".")))
-    assert int(proc.stdout.strip().splitlines()[-1]) == n >= 25
+    *_, names, count = proc.stdout.strip().splitlines()
+    assert int(count) == n >= 25
+    # the evaluation slice's modules are among those imported
+    for mod in ("datasets.factory", "datasets.wider", "datasets.fddb",
+                "datasets.afw", "datasets.pascalface", "datasets.general",
+                "evals.wider_eval", "evals.face_eval", "ops.nms_device",
+                "utils.tensorboard", "test_runner", "__main__"):
+        assert f"smallhardface_tpu_torch.{mod}" in names.split(), mod
 
 
 def test_chip_smoke_fails_without_a_card():

@@ -68,13 +68,19 @@ def test_port_matches_golden_fixture(port_dets):
     _agree(dets, golden)
 
 
-def test_port_matches_jax_detector(port_dets):
-    """Same fixture through the JAX TPUDetector with the host vote
-    (TPU.DEVICE_VOTE = False), the path the port implements."""
-    im, spec, params, dets = port_dets
+def test_port_matches_jax_detector(port_cfg):
+    """Same fixture through the JAX TPUDetector and the port with the
+    float64 host vote (TPU.DEVICE_VOTE = False) on both sides; the device
+    vote is compared in tests/test_torch_port_vote.py."""
+    im, spec, params = _fixture_inputs()
     from smallhardface_tpu.detect import TPUDetector
-    cfg.TPU.DEVICE_VOTE = False
+    cfg.TPU.DEVICE_VOTE = tcfg.TPU.DEVICE_VOTE = False
     want = TPUDetector(params, spec).detect(im, thresh=THRESH)[0][0]
+    tree = {k: {kk: np.asarray(vv) for kk, vv in v.items()}
+            for k, v in params.items()}
+    dets = TorchDetector(params_from_numpy(tree),
+                         tdm.ModelSpec(different_dilation=True),
+                         "cpu").detect(im, thresh=THRESH)[0][0]
     _agree(dets, want)
 
 
@@ -161,14 +167,28 @@ def test_demo_cli():
 
 
 @pytest.mark.parametrize("args,what", [
-    (["--train", "true", "--test", "false"], "training"),
-    (["--train", "false", "--test", "true"], "dataset evaluation"),
-])
-def test_cli_unported_branches_raise(args, what):
+    (["--train", "true", "--test", "false", "--amend",
+      "TPU.SPATIAL_DEVICES", "2"], "spatial"),
+    (["--train", "false", "--test", "true", "--amend", "TPU.EVAL_BATCH",
+      "2"], "detect_many"),
+], ids=["args0-training", "args1-dataset evaluation"])
+def test_cli_unported_branches_raise(args, what, tmp_path):
+    """Both branches of the command line are ported; what they do not
+    cover yet raises: spatial training (TPU.SPATIAL_DEVICES > 1) and
+    batched evaluation (TPU.EVAL_BATCH > 1, which needs detect_many)."""
     from smallhardface_tpu_torch.__main__ import main
-    saved = tcfg.TEST.NO_CACHE
+    import copy
+    saved = copy.deepcopy(tcfg)
+    exp_dir = f"torch_port_raise_{os.getpid()}"
     try:
+        sys.path.insert(0, os.path.join(REPO, "scripts"))
+        import synth_wider
+        synth_wider.build(str(tmp_path), n_images=1, im_size=64)
         with pytest.raises(NotImplementedError, match=what):
-            main(args)
+            main(["--device", "cpu"] + args
+                 + ["EXP_DIR", exp_dir, "DATA_DIR", str(tmp_path)])
     finally:
-        tcfg.TEST.NO_CACHE = saved
+        tcfg.clear()
+        tcfg.update(saved)
+        shutil.rmtree(os.path.join(REPO, "output", exp_dir),
+                      ignore_errors=True)

@@ -195,3 +195,55 @@ def test_resume_is_bit_identical(tmp_path, port_cfg):
     c = tckpt.load(os.path.join(done, "final.npz"))
     assert c[2] == 4
     np.testing.assert_array_equal(c[0]["head"]["w"], a["params//head//w"])
+
+
+class _InlineExecutor:
+    """A ThreadPoolExecutor stand-in that runs each job at submit."""
+
+    def __init__(self, *args, **kwargs):
+        pass
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def submit(self, fn, *args, **kwargs):
+        from concurrent.futures import Future
+        fut = Future()
+        fut.set_result(fn(*args, **kwargs))
+        return fut
+
+    def shutdown(self, *args, **kwargs):
+        pass
+
+
+def test_mining_marks_at_epoch_boundary_match_jax(tmp_path, port_cfg,
+                                                  monkeypatch):
+    """With every image marked easy (threshold 0) and no snapshot to drain
+    the marks, both loops sample the same images across the epoch
+    boundaries of a 5-image roidb. The JAX loop applies iteration k's
+    marks on the main thread while its prefetch thread fetches batch k + 2
+    (train_loop.py:881-922); its executor runs here inline, so the fetch
+    always comes first, as it does when the thread wins that race."""
+    from smallhardface_tpu.train import loader as jloader
+    from smallhardface_tpu_torch.train import loader as tloader
+    monkeypatch.setattr(jtl, "ThreadPoolExecutor", _InlineExecutor)
+    drawn = {"jax": [], "port": []}
+    for key, mod in (("jax", jloader), ("port", tloader)):
+        orig = mod.RoIDataLoader._next_index
+
+        def record(self, orig=orig, key=key):
+            idx = orig(self)
+            drawn[key].append(int(idx))
+            return idx
+        monkeypatch.setattr(mod.RoIDataLoader, "_next_index", record)
+    for c in (jcfg, tcfg):
+        monkeypatch.setitem(c.TRAIN.DISABLE_EASY_IMAGE, "THRESHOLD", 0.0)
+        monkeypatch.setitem(c.TRAIN.DISABLE_EASY_IMAGE, "PROB", 0.3)
+        monkeypatch.setitem(c.TRAIN, "SNAPSHOT", 100)
+    roidb = _tiny_roidb(tmp_path, n=5)
+    _run_both(tmp_path, roidb, 13)
+    assert len(drawn["port"]) == len(drawn["jax"]) >= 13
+    assert drawn["port"] == drawn["jax"]
