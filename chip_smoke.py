@@ -8,13 +8,21 @@ at once: the fused VGG stem (K1, csrc/stem.cu), its backward (K2,
 csrc/stem_grad.cu), the anchor max-IoU (K3, csrc/iou.cu) and the final
 vote (V1, csrc/vote.cu). Then, each phase printing one line:
 
-1. K1 against its plain version at the shapes of the detection path;
+1. K1 against its plain version at the shapes of the detection path: on
+   small-integer inputs its output equal to the bit to the plain forward
+   in float64 and its pool routing to ``fused_stem_route_reference``'s; on
+   floats within RTOL; at the largest level its wrapper's wall, its device
+   time (CUDA graph), the plain time and two bounds: all on the CUDA
+   cores, and its own split (conv1_1 on the CUDA cores, conv1_2 as three
+   TF32 products on the tensor cores);
 2. full-pyramid detection at the flagship configuration (VGG-16 at full
    width, TEST.SCALES 100..1400, flip TTA, BBOX_VOTE on the device with
    VOTE_CAP 2048, the default) on three seeded synthetic images with
    random weights, twice each, and against the same detector on the CPU at
    a small pyramid; one image again with the float64 host vote
-   (DEVICE_VOTE = false);
+   (DEVICE_VOTE = false); no launch of K1 there writes a routing; K1's
+   device time summed over the five launches of one warm ``detect``
+   (torch.profiler);
 3. V1 against its plain version: equal to the bit on integer boxes with
    dyadic scores; on the real top-2048 candidate sets of the three images,
    on a crowd and on boxes scattered over many centres, the same rows out, the scores equal to the bit and the
@@ -24,9 +32,10 @@ vote (V1, csrc/vote.cu). Then, each phase printing one line:
    the port's CPU path, by the golden tests' match rule;
 5. K2 against its plain version (equal to the bit on small-integer inputs,
    within a stated tolerance on float inputs, equal to itself from run to
-   run) and its tensor-core products against the same products in float64
-   on its own routing (its scratch c1 and dpre2), at four shapes up to the
-   1200 training scale; at that scale its wrapper's wall, its device time
+   run; K1 writes the routing it reads) and its tensor-core products
+   against the same products in float64 on its own routing (its scratch c1
+   and dpre2), at four shapes up to the 1200 training scale; at that scale,
+   on a routing K1 wrote beforehand, its wrapper's wall, its device time
    (20 calls in one CUDA graph) and each of its five launches' device
    time (torch.profiler), beside two bounds: all on the CUDA cores, and its
    own split between the CUDA cores and the tensor cores;
@@ -37,10 +46,12 @@ vote (V1, csrc/vote.cu). Then, each phase printing one line:
    CUDA graph, replayed between two CUDA events), beside the same device
    time of an empty kernel on the same grid;
 7. one training micro-batch with every parameter requiring a gradient
-   (K2 runs), its stem gradients against the plain stem's;
+   (K1 writes the routing, K2 runs on it), its stem gradients against the
+   plain stem's;
 8. training: ``train_net`` for 6 iterations of the flagship configuration
    over all three scales on four seeded synthetic images and their
-   mirrors, then a resume from the iteration-3 snapshot that must reach
+   mirrors (conv1 frozen: K1 writes no routing, K2 never runs), then a
+   resume from the iteration-3 snapshot that must reach
    the same final.npz to the bit;
 9. one training iteration of a small skeletal network on the CPU and on
    the card from the same weights;
@@ -84,14 +95,14 @@ STEM_SHAPES = (((1, 32, 128, 3), None), ((2, 112, 144, 3), None),
                ((2, 64, 128, 3), (48, 96)), ((2, 1408, 1872, 3), None))
 GRAD_SHAPES = (((1, 32, 128, 3), None), ((2, 112, 144, 3), None),
                ((2, 64, 128, 3), (48, 96)), ((1, 1200, 1600, 3), None))
-RTOL = 1e-4                 # fp32 kernel vs fp32 cuDNN: fp32 rounding only
+RTOL = 1e-4                 # 3xTF32 kernel vs fp32 cuDNN: fp32-grade rounding
 # K2 on float inputs, max |Δ| / peak |grad| against the plain version in
-# float64: the kernel's conv1_2 rounds in fp32, so a window whose two
-# largest activations (or an activation near 0) lie within that rounding
-# sends its gradient elsewhere (a pool or ReLU flip). Flips grow with the
-# pixel count N and the peak with √N: 1e-3 holds with room at the small
-# shapes, and 2.4e-3 was measured at 1×1200×1600 with this script's
-# inputs (H100 80GB HBM3, 700 W).
+# float64: the routing comes from K1's conv1_2 (3xTF32, fp32-grade
+# rounding), so a window whose two largest activations (or an activation
+# near 0) lie within that rounding sends its gradient elsewhere (a pool or
+# ReLU flip). Flips grow with the pixel count N and the peak with √N: 1e-3
+# holds with room at the small shapes, and 3.8e-3 was measured at
+# 1×1200×1600 with this script's inputs (H100 80GB HBM3, 700 W).
 GRAD_TOL = {False: 1e-3, True: 5e-3}        # keyed by "full training size"
 # K2's products (3xTF32 on the tensor cores) on its own routing, max |Δ| /
 # peak against the same products in float64: no pool or ReLU flip enters,
@@ -122,9 +133,11 @@ IOU_TIMED = ((64, 0, "uniform"), (2048, 500, "uniform"), (2048, 0, "crowd"),
 BAND = (0, 0, 600, 40)
 GRAPH_REPS = 200
 # K2's launches (csrc/stem_grad.cu) in order, by the stage each runs
-GRAD_KERNELS = {"dpre2": "dpre2_kernel", "split_w2f": "split_w2f_kernel",
+GRAD_KERNELS = {"c1_route": "c1_route_kernel", "split_w2f": "split_w2f_kernel",
                 "dc1": "dc1_kernel", "wgrad": "wgrad_kernel",
                 "reduce": "reduce_kernel"}
+# K1's launches (csrc/stem.cu)
+STEM_KERNELS = {"split_w2": "split_w2_kernel", "stem": "stem_kernel"}
 # an empty kernel, launched on K3's grid: the floor of a launch
 EMPTY_CU = r"""
 #include <cuda_runtime.h>
@@ -163,8 +176,10 @@ def stem_inputs(rng, shape, valid_hw, device):
 
 
 def grad_inputs(rng, shape, valid_hw, integer):
-    """x, dy and OIHW weights for K2 (the small-integer recipe of
-    tests/test_pallas_stem.py:192-213, or floats), as float64 numpy."""
+    """x, dy and OIHW weights for K2, and without dy for K1 (the
+    small-integer recipe of tests/test_pallas_stem.py:192-213, every
+    product and sum exact in fp32 and in 3xTF32, or floats), as float64
+    numpy."""
     B, H, W, _ = shape
     if integer:
         arrs = [rng.randint(-3, 4, shape), rng.randint(-3, 4, (B, H // 2,
@@ -258,31 +273,71 @@ def kernel_ms(fn, kernels, n=10, warmup=3):
     return {label: t / n / 1e3 for label, t in us.items()}
 
 
-def stem_grad_time(stem, args, grad_err, prod_err, reps=20):
-    """K2 at the training scale: its wrapper's wall, its device time, each
-    launch's device time and its bounds. Returns its entry of the kernels
+def split_bound_ms(n_bytes, cuda_core_ops, tf32_products):
+    """The bound of a design that runs `cuda_core_ops` fp32 operations on
+    the CUDA cores and `tf32_products` FLOP of fp32-grade products on the
+    tensor cores as three TF32 products each (3xTF32)."""
+    t_ops = (cuda_core_ops / PEAK_FP32 + 3 * tf32_products / PEAK_TF32) * 1e3
+    t_bytes = n_bytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), "bytes" if t_bytes > t_ops else "operations"
+
+
+def stem_time(stem, args, err, err_over_peak):
+    """K1 at the largest detection level: its wrapper's wall, its device
+    time, the plain time and its bounds. Returns its entry of the kernels
     line."""
     B, H, W, _ = args[0].shape
-    ms = median_ms(lambda: stem.fused_stem_grad(*args))
-    device_ms = graph_ms(lambda: stem.fused_stem_grad(*args), reps=reps)
-    stage_ms = kernel_ms(lambda: stem.fused_stem_grad(*args), GRAD_KERNELS)
-    plain_ms = median_ms(lambda: stem.fused_stem_grad_reference(*args))
+    call = lambda: stem.fused_stem(*args)   # noqa: E731 (no routing)
+    ms = median_ms(call)
+    device_ms = graph_ms(call, reps=20)
+    plain_ms = median_ms(lambda: stem.fused_stem_reference(*args))
     p = B * H * W
     n_bytes = 4 * (3 * p + 64 * p // 4)
-    # all on the CUDA cores: recompute (conv1_2, conv1_1), the data
-    # gradient, dw2, dw1 (the first design's bound)
-    cores_ms, cores_by = bound_ms(n_bytes, 2 * (3 * 576 + 2 * 27) * 64 * p)
-    # this design: the recompute and the dw1 job on the CUDA cores, then the
-    # data gradient and dw2 as three TF32 products each on the tensor cores
-    t_ops = (2 * (576 + 2 * 27) * 64 * p / PEAK_FP32
-             + 3 * 2 * (2 * 576) * 64 * p / PEAK_TF32) * 1e3
-    t_bytes = n_bytes / PEAK_BYTES * 1e3
-    bnd, by = max(t_ops, t_bytes), "bytes" if t_bytes > t_ops else "operations"
+    conv1_1, conv1_2 = 2 * 27 * 64 * p, 2 * 576 * 64 * p
+    cores_ms, cores_by = bound_ms(n_bytes, conv1_1 + conv1_2)
+    bnd, by = split_bound_ms(n_bytes, conv1_1, conv1_2)
+    say("stem_time", shape=[B, H, W, 3], kernel_ms=ms, device_ms=device_ms,
+        plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
+        bound_cuda_cores_ms=cores_ms, bound_cuda_cores_by=cores_by,
+        of_bound=bnd / device_ms, of_cuda_cores_bound=cores_ms / device_ms,
+        timing="wall: median of 20 CUDA-event walls; device: 20 calls in "
+               "one CUDA graph, median of 5 replays, per call")
+    return {"name": "fused_stem", "route": "cuda",
+            "source": "smallhardface_tpu_torch/csrc/stem.cu",
+            "replaces": "smallhardface_tpu/ops/pallas_stem.py:69",
+            "max_abs_err": err, "max_err_over_peak": err_over_peak,
+            "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
+            "bound_ms": bnd, "bound_by": by, "library_ms": None}
+
+
+def stem_grad_time(stem, args, valid_hw, grad_err, prod_err, reps=20):
+    """K2 at the training scale, on a routing K1 wrote beforehand (so that
+    K1 is not inside K2's CUDA graph): its wrapper's wall, its device time,
+    each launch's device time and its bounds. Returns its entry of the
+    kernels line."""
+    B, H, W, _ = args[0].shape
+    x, dy, w1, b1, w2, b2 = args
+    _, route = stem._stem_kernel(x, w1, b1, w2, b2, valid_hw, with_route=True)
+    call = lambda: stem.fused_stem_grad(  # noqa: E731
+        *args, valid_hw=valid_hw, route=route)
+    ms = median_ms(call)
+    device_ms = graph_ms(call, reps=reps)
+    stage_ms = kernel_ms(call, GRAD_KERNELS)
+    plain_ms = median_ms(lambda: stem.fused_stem_grad_reference(
+        *args, valid_hw=valid_hw))
+    p = B * H * W
+    n_bytes = 4 * (3 * p + 64 * p // 4) + 64 * p // 4      # x, dy, route
+    # all on the CUDA cores: conv1_1, the data gradient, dw2, dw1
+    cores_ms, cores_by = bound_ms(n_bytes, 2 * (2 * 576 + 2 * 27) * 64 * p)
+    # this design: conv1_1 and the dw1 job on the CUDA cores, the data
+    # gradient and dw2 as three TF32 products each on the tensor cores
+    bnd, by = split_bound_ms(n_bytes, 2 * (2 * 27) * 64 * p,
+                             2 * (2 * 576) * 64 * p)
     say("stem_grad_time", shape=[B, H, W, 3], kernel_ms=ms,
         device_ms=device_ms, stage_device_ms=stage_ms,
         stage_sum_ms=sum(stage_ms.values()), plain_ms=plain_ms,
         bound_ms=bnd, bound_by=by, bound_cuda_cores_ms=cores_ms,
-        bound_cuda_cores_by=cores_by,
+        bound_cuda_cores_by=cores_by, of_bound=bnd / device_ms,
         timing=f"wall: median of 20 CUDA-event walls; device: {reps} calls "
                "in one CUDA graph, median of 5 replays, per call; a stage: "
                "its kernel's durations in 10 calls under torch.profiler, "
@@ -373,6 +428,8 @@ def face_roidb(rng, sizes, n_faces=(1, 30)):
 def set_counts_zero(*fns):
     for fn in fns:
         fn.launches = 0
+        if hasattr(fn, "route_writes"):
+            fn.route_writes = 0
 
 
 def main():
@@ -420,8 +477,28 @@ def main():
     kernels = {}
 
     # ---- K1 against its plain version ----
+    # small integers: the output and the routing equal to the bit
+    rng = np.random.RandomState(SEED + 7)
+    for shape, valid_hw in STEM_SHAPES:
+        x, _, *ws = grad_inputs(rng, shape, valid_hw, integer=True)
+        wide = [torch.from_numpy(a).to(dev) for a in [x] + ws]
+        out, route = stem._stem_kernel(*[a.float() for a in wide], valid_hw,
+                                       with_route=True)
+        same_out = torch.equal(out.double(), stem.fused_stem_reference(
+            *wide, valid_hw))
+        same_route = torch.equal(route, stem.fused_stem_route_reference(
+            *wide, valid_hw))
+        codes = torch.bincount(route.flatten().long(), minlength=5)
+        say("stem_int_vs_plain", shape=list(shape), valid_hw=valid_hw,
+            out_bit_equal=same_out, route_bit_equal=same_route,
+            route_codes=codes.tolist(), reference="plain forward in float64")
+        if not (same_out and same_route):
+            raise AssertionError(f"K1 is not equal to the bit at {shape}")
+        del x, ws, wide, out, route
+    torch.cuda.empty_cache()
+    # floats: within RTOL; the timing at the largest level
     rng = np.random.RandomState(SEED)
-    max_err = 0.0
+    max_err = max_ratio = 0.0
     for shape, valid_hw in STEM_SHAPES:
         x, w1, b1, w2, b2 = stem_inputs(rng, shape, valid_hw, dev)
         got = stem.fused_stem(x, w1, b1, w2, b2, valid_hw=valid_hw)
@@ -434,28 +511,16 @@ def main():
         scale = want.abs().max().item()
         bad = (err > RTOL * want.abs() + RTOL * scale).sum().item()
         max_err = max(max_err, err.max().item())
+        max_ratio = max(max_ratio, err.max().item() / scale)
         say("stem_vs_plain", shape=list(shape), valid_hw=valid_hw,
-            max_abs_err=err.max().item(), max_abs_ref=scale, n_outside_tol=bad,
+            max_abs_err=err.max().item(), max_abs_ref=scale,
+            max_err_over_peak=err.max().item() / scale, n_outside_tol=bad,
             rtol=RTOL, atol=f"{RTOL}*max|ref|")
         if bad or not torch.isfinite(got).all():
             raise AssertionError(f"stem kernel disagrees at {shape}")
         if shape == STEM_SHAPES[-1][0]:
-            B, H, W, _ = shape
-            ms = median_ms(lambda: stem.fused_stem(x, w1, b1, w2, b2))
-            plain_ms = median_ms(
-                lambda: stem.fused_stem_reference(x, w1, b1, w2, b2))
-            p = B * H * W
-            bnd, by = bound_ms(4 * (3 * p + 64 * p // 4),
-                               2 * (27 + 576) * 64 * p)
-            say("stem_time", shape=list(shape), kernel_ms=ms,
-                plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
-                timing="median of 20 CUDA-event walls")
-            kernels["fused_stem"] = {
-                "name": "fused_stem", "route": "cuda",
-                "source": "smallhardface_tpu_torch/csrc/stem.cu",
-                "replaces": "smallhardface_tpu/ops/pallas_stem.py:69",
-                "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": bnd, "bound_by": by, "library_ms": None}
+            kernels["fused_stem"] = stem_time(stem, [x, w1, b1, w2, b2],
+                                              max_err, max_ratio)
         del x, got, want, err
     torch.cuda.empty_cache()
 
@@ -522,6 +587,7 @@ def main():
         if not (ok and same):
             raise AssertionError(f"detections of image {i} fail the checks")
     detect_counts = {"fused_stem": stem.fused_stem.launches,
+                     "route_writes": stem.fused_stem.route_writes,
                      "fused_stem_grad": stem.fused_stem_grad.launches,
                      "max_iou": iou.max_iou.launches,
                      "bbox_vote": nms_device.bbox_vote_device.launches,
@@ -531,6 +597,8 @@ def main():
         max_memory_allocated_bytes=torch.cuda.max_memory_allocated())
     if detect_counts["fused_stem"] != n_forward:
         raise AssertionError("the stem kernel did not run once per forward")
+    if detect_counts["route_writes"]:
+        raise AssertionError("K1 wrote a pool routing under inference")
     if detect_counts["bbox_vote"] != n_detect or detect_counts["nms"]:
         raise AssertionError("the vote kernel did not run once per detect")
 
@@ -549,6 +617,8 @@ def main():
         walls_s=host_walls, device_vote_walls_s=first_walls)
     del host_det
 
+    kernels["fused_stem"]["device_ms_per_detect"] = stem_per_detect(
+        det, images[0], stem)
     detect_split(det, images[0], nms_device, float(cfg.TEST.NMS_THRESH))
     vote_entry = vote_phase(det, images, nms_device, float(
         cfg.TEST.NMS_THRESH))
@@ -609,7 +679,8 @@ def main():
             del scratch, prods, own
         if full:
             kernels["fused_stem_grad"] = stem_grad_time(
-                stem, [a.contiguous() for a in args], grad_err, prod_err)
+                stem, [a.contiguous() for a in args], valid_hw, grad_err,
+                prod_err)
         del args, arrs_t, got, again, want
     torch.cuda.empty_cache()
 
@@ -766,6 +837,7 @@ def full_tree_grad(cfg, tdm, stem, iou, dev, work):
             tdm.fused_stem = saved
         if which == "kernel":
             counts = {"fused_stem": stem.fused_stem.launches,
+                      "route_writes": stem.fused_stem.route_writes,
                       "fused_stem_grad": stem.fused_stem_grad.launches,
                       "max_iou": iou.max_iou.launches}
         grads[which] = {
@@ -779,7 +851,8 @@ def full_tree_grad(cfg, tdm, stem, iou, dev, work):
         bucket=list(bucket), loss=losses, launches=counts,
         max_err_over_peak=ratio, tol_over_peak=GRAD_TOL[True],
         reference="the same step with the plain stem, fp32")
-    if counts != {"fused_stem": 1, "fused_stem_grad": 1, "max_iou": 1}:
+    if counts != {"fused_stem": 1, "route_writes": 1, "fused_stem_grad": 1,
+                  "max_iou": 1}:
         raise AssertionError(f"full-tree step launches: {counts}")
     if not all(math.isfinite(r) and r <= GRAD_TOL[True]
                for r in ratio.values()):
@@ -835,6 +908,7 @@ def train_path(cfg, tdm, stem, iou, dev, work):
     torch.cuda.synchronize()
     train_wall = time.perf_counter() - t_start
     counts = {"fused_stem": stem.fused_stem.launches,
+              "route_writes": stem.fused_stem.route_writes,
               "fused_stem_grad": stem.fused_stem_grad.launches,
               "max_iou": iou.max_iou.launches}
     micro = TRAIN_ITERS * int(cfg.TRAIN.ITERSIZE)
@@ -861,7 +935,7 @@ def train_path(cfg, tdm, stem, iou, dev, work):
     if frozen_moved or trainable_still:
         raise AssertionError("frozen or trainable leaves misbehaved")
     if (counts["fused_stem"] != micro or counts["max_iou"] != micro
-            or counts["fused_stem_grad"] != 0):
+            or counts["fused_stem_grad"] != 0 or counts["route_writes"] != 0):
         raise AssertionError(f"training launches: {counts}")
     del model
     torch.cuda.empty_cache()
@@ -946,6 +1020,21 @@ def _check_agreement(phase, card, cpu, **fields):
     say(phase, dets_gpu=len(card), dets_cpu=len(cpu), match_gpu_in_cpu=fwd,
         match_cpu_in_gpu=bwd, rule_holds=ok, **fields)
     return ok
+
+
+def stem_per_detect(det, image, stem, n=3):
+    """K1's device time in one warm ``detect`` of `image`: its launches'
+    durations under torch.profiler, per detect, by kernel and summed.
+    Returns the sum."""
+    before = stem.fused_stem.launches
+    ms = kernel_ms(lambda: det.detect(image, THRESH), STEM_KERNELS, n=n,
+                   warmup=1)
+    per_detect = (stem.fused_stem.launches - before) // (n + 1)
+    say("stem_per_detect", image=0, launches_per_detect=per_detect,
+        device_ms=ms, device_ms_sum=sum(ms.values()),
+        timing=f"K1's kernels' durations in {n} detects under "
+               "torch.profiler, per detect")
+    return sum(ms.values())
 
 
 def detect_split(det, image, nms_device, thresh, reps=3):

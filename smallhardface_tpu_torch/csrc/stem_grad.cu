@@ -11,42 +11,44 @@
 // and called through ctypes; shf_stem_grad below is the whole interface.
 //
 // Layouts (the forward kernel's, csrc/stem.cu). x: NHWC (B, H, W, 3).
-// dy: NHWC (B, H/2, W/2, 64). w1: HWIO (3, 3, 3, 64). w2: HWIO
-// (3, 3, 64, 64). w2f: w2 flipped in both spatial axes with ci and co
-// swapped, (3, 3, 64 co, 64 ci), the weights of the data gradient as a
-// correlation. Scratch c1, dpre2, dpre1: NHWC (B, H, W, 64) each; wsplit:
-// W2F_SPLIT words, w2f cut into TF32 halves in mma fragment order.
-// partial: (10, n_chunk, 64, 64). out: (10, 64, 64), laid out as
+// dy: NHWC (B, H/2, W/2, 64). route: NHWC (B, H/2, W/2, 64) uint8, the
+// forward kernel's pool routing. w1: HWIO (3, 3, 3, 64). w2f: w2 flipped
+// in both spatial axes with ci and co swapped, (3, 3, 64 co, 64 ci), the
+// weights of the data gradient as a correlation. Scratch c1, dpre2, dpre1:
+// NHWC (B, H, W, 64) each; wsplit: W2F_SPLIT words, w2f cut into TF32
+// halves in mma fragment order. partial: (10, n_chunk, 64, 64). out:
+// (10, 64, 64), laid out as
 //   out[t]       t < 9: dw2 tap t = (ky, kx), a (64 ci, 64 co) matrix;
 //   out[9][i]    i < 27: dw1 row (ky, kx, ci); out[9][27] = db1;
 //                out[9][28] = db2.
-// All fp32, contiguous. H and W even.
+// All fp32 but route, contiguous. H and W even.
 //
 // Semantics (those of the TPU kernel and of autograd through the plain
 // stem): x and conv1_1 read exact zeros outside [0, min(H, vh)) x
-// [0, min(W, vw)); conv1_2 is recomputed before its ReLU; the pool sends
-// dy to the FIRST maximal element of each 2x2 window in row-major order;
-// the ReLU backward passes where the activation is > 0; dy is zero at
-// pooled positions (q, p) with 2q >= vh or 2p >= vw. Then
+// [0, min(W, vw)); the pool sends dy to the FIRST maximal element of each
+// 2x2 window in row-major order; the ReLU backward passes where the
+// activation is > 0; dy is zero at pooled positions (q, p) with 2q >= vh
+// or 2p >= vw. Then
 //   dpre1 = (sum over taps of w2^T dpre2) * (c1 > 0),
 //   dw2 = sum c1 (x) dpre2, db2 = sum dpre2, dw1 = sum x (x) dpre1,
 //   db1 = sum dpre1.
-// conv1_1 and conv1_2 are recomputed with the forward kernel's arithmetic,
-// in the same order, so the pool routing sees the very values the forward
-// pooled.
+// The pool and ReLU routing comes from the forward kernel: route[b][q][p]
+// [co] is 0..3, the window element that takes dy, or 4, none (see
+// stem.cu). So conv1_2 is not recomputed here and shares no arithmetic
+// with the forward. conv1_1 is recomputed, with conv1_1_tile below, a
+// copy of the one in stem.cu that must stay the same fmaf by fmaf: the
+// c1 > 0 mask and dw2 then read the very values the forward's conv1_2 read.
 //
-// What bounds it. Three 64x64x9 products per pixel: recomputing conv1_2,
-// the data gradient into conv1_1 and the weight gradient of conv1_2. At
-// 1x1200x1600 all on the CUDA cores in fp32 that is 4.38e11 FLOP with
-// conv1_1 and dw1, 6.54 ms at the H100's 67 TFLOP/s (the bound of the
-// first design, which did just that). Here the recompute stays on the CUDA
-// cores (it decides the pool and ReLU routing, so it keeps K1's fmaf
-// order: 1.55e11 FLOP with conv1_1 and the dw1 job, 2.31 ms), and the two
-// products that read dpre2 run on the tensor cores in error-compensated
-// TF32: three TF32 products each, 8.49e11 FLOP, 1.72 ms at 495 TFLOP/s.
-// The bound of this design is their sum, 4.03 ms. The three 64-channel
-// intermediates (c1, dpre2, dpre1) go through device memory once each
-// (about 3 GB of traffic at that size, under 1 ms at 3.35 TB/s).
+// What bounds it. Two 64x64x9 products per pixel, the data gradient into
+// conv1_1 and the weight gradient of conv1_2, on the tensor cores in
+// error-compensated TF32: three TF32 products each, 8.49e11 FLOP at
+// 1x1200x1600, 1.72 ms at 495 TFLOP/s; conv1_1 and the dw1 job, 1.33e10
+// fp32 FLOP on the CUDA cores, 0.20 ms at 67 TFLOP/s. The bound of this
+// design is their sum, 1.91 ms (4.42 ms all in fp32 on the CUDA cores).
+// The three 64-channel intermediates (c1, dpre2, dpre1) go through device
+// memory once each (about 3 GB of traffic at that size, under 1 ms at
+// 3.35 TB/s), so the first stage, which writes c1 and dpre2, is bound by
+// memory.
 //
 // Error-compensated TF32 ("3xTF32"). mma reads 19 bits of each fp32
 // operand. Each operand a is cut into hi = cvt.rna.tf32(a) and
@@ -63,13 +65,11 @@
 // no mma waits on the one before it.
 //
 // Design, five launches on one stream:
-//   1. dpre2_kernel, one block per (image, 8-row strip, 32-column tile),
-//      the forward kernel's tiling: input tile and conv1_1 tile in shared
-//      memory, conv1_2 in registers (warp g owns channels 8g..8g+7, lane l
-//      owns column l and 8 rows), fp32 on the CUDA cores. It writes the
-//      conv1_1 tile to c1, then routes dy through the pool (row pairs in
-//      registers, column pairs across neighbouring lanes) and the ReLU into
-//      dpre2.
+//   1. c1_route_kernel, one block per (image, 8-row strip, 32-column tile),
+//      the forward kernel's tiling: the input tile and the conv1_1 tile in
+//      shared memory (fp32, CUDA cores). It writes the tile's own conv1_1
+//      positions to c1, then scatters dy by route into dpre2 (each window's
+//      routed element gets dy, the other three 0).
 //   2. split_w2f_kernel cuts w2f into TF32 hi/lo halves, once per call,
 //      in the order the B fragments of mma.m16n8k8 read them.
 //   3. dc1_kernel, same tiling, as an implicit GEMM on the tensor cores:
@@ -107,33 +107,28 @@
 namespace {
 
 constexpr int TH = 8;                   // rows per tile
-constexpr int TW = 32;                  // columns per tile (one lane each)
+constexpr int TW = 32;                  // columns per tile
 constexpr int C = 64;                   // stem channels
 constexpr int NT = 256;                 // threads: 8 warps
 constexpr int XR = TH + 4, XC = TW + 4; // haloed input tile
 constexpr int CR = TH + 2, CC = TW + 2; // haloed 64-channel tile
-constexpr int CS = C + 1;               // position stride (bank-conflict free)
-constexpr int T_FLOATS = CR * CC * CS;
-constexpr int W2_FLOATS = C * C;        // one tap of w2
-constexpr int XS_FLOATS = XR * XC * 3;
+constexpr int T_FLOATS = CR * CC * C;   // stage 1's conv1_1 tile
+constexpr int XS_FLOATS = XR * XC * 4;  // 4 floats a pixel: one 16-byte load
 constexpr int W1_FLOATS = 27 * C;
-constexpr size_t SMEM_BYTES = (T_FLOATS + W2_FLOATS + 2 * C) * sizeof(float);
+constexpr size_t SMEM_BYTES = (T_FLOATS + XS_FLOATS + W1_FLOATS + C) * sizeof(float);
 constexpr int KT = 32;                  // pixels per step of the weight gradient
 constexpr int JOBS = 10;                // 9 taps of dw2, then dw1/db1/db2
 // data gradient on the tensor cores
 constexpr int DS = C + 4;               // dpre2 tile stride: A fragments conflict-free
 constexpr int D_FLOATS = CR * CC * DS;
-constexpr int TAP_WORDS = W2_FLOATS * 2;   // one tap of w2f as hi and lo
+constexpr int TAP_WORDS = C * C * 2;    // one tap of w2f as hi and lo
 constexpr int W2F_SPLIT = 9 * TAP_WORDS;
 constexpr size_t DC1_SMEM_BYTES = (D_FLOATS + 2 * TAP_WORDS) * sizeof(float);
 // weight gradient on the tensor cores
 constexpr int GS = C + 8;               // row stride: A and B fragments conflict-free
 
-static_assert(XS_FLOATS + W1_FLOATS <= W2_FLOATS,
-              "the input tile and w1 share the w2 tap buffer");
-static_assert((T_FLOATS * sizeof(float)) % 16 == 0,
-              "the w2 tap buffer must be 16-byte aligned for float4 loads");
-static_assert(NT == 32 * (C / 8) && TW == 32, "warp g owns channels 8g..8g+7");
+static_assert(NT % C == 0 && (T_FLOATS * sizeof(float)) % 16 == 0,
+              "stage 1: a thread owns one channel; 16-byte aligned input tile");
 static_assert(NT == 32 * TH, "dc1: warp w owns tile row w");
 static_assert((D_FLOATS * sizeof(float)) % 16 == 0 && DS % 32 == 4,
               "dc1: 16-byte aligned tap buffers, pixel stride 4 mod 32 banks");
@@ -184,69 +179,77 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
-// ---- stage 1: recompute and routing (fp32, CUDA cores) ----
+// ---- conv1_1, the arithmetic K1 and K2 share (keep equal to stem.cu) ----
 
-// acc[r][j] += sum over taps t and input channels ci of
-//   tile[(r + t/3) * CC + lane + t%3][ci] * w[t][ci][cg*8 + j],
-// the forward kernel's conv1_2 loop (same order of fmaf), staging each
-// 64x64 tap of w from device memory into wsm.
-__device__ __forceinline__ void conv64(const float* tile, const float* __restrict__ w,
-                                       float* wsm, float (&acc)[TH][8], int tid) {
-  const int lane = tid & 31;
-  const int cg = tid >> 5;
-  for (int t = 0; t < 9; ++t) {
-    __syncthreads();  // previous readers of the tap buffer are done
-    const float4* src = reinterpret_cast<const float4*>(w + (size_t)t * W2_FLOATS);
-    float4* dst = reinterpret_cast<float4*>(wsm);
-    for (int i = tid; i < W2_FLOATS / 4; i += NT) dst[i] = src[i];
-    __syncthreads();
-    const int dy = t / 3, dx = t % 3;
-    const float* cp = tile + (dy * CC + lane + dx) * CS;
-#pragma unroll 4
-    for (int ci = 0; ci < C; ++ci) {
-      const float4 wa = *reinterpret_cast<const float4*>(wsm + ci * C + cg * 8);
-      const float4 wb = *reinterpret_cast<const float4*>(wsm + ci * C + cg * 8 + 4);
+// The haloed input tile (rows r0-2 .. r0+TH+1, cols c0-2 .. c0+TW+1, zero
+// outside [0, rl) x [0, cl)), 4 floats a pixel (the fourth 0), w1 and b1
+// into shared memory.
+__device__ __forceinline__ void load_stem_inputs(const float* __restrict__ xb,
+                                                 const float* __restrict__ w1,
+                                                 const float* __restrict__ b1, float* xs,
+                                                 float* w1s, float* b1s, int W, int r0,
+                                                 int c0, int rl, int cl, int tid) {
+  for (int i = tid; i < XS_FLOATS; i += NT) {
+    const int ci = i % 4, p = i / 4;
+    const int gr = r0 - 2 + p / XC, gc = c0 - 2 + p % XC;
+    float v = 0.f;
+    if (ci < 3 && gr >= 0 && gr < rl && gc >= 0 && gc < cl)
+      v = xb[((size_t)gr * W + gc) * 3 + ci];
+    xs[i] = v;
+  }
+  for (int i = tid; i < W1_FLOATS; i += NT) w1s[i] = w1[i];
+  if (tid < C) b1s[tid] = b1[tid];
+}
+
+// conv1_1 + ReLU at rows r0-1 .. r0+TH, cols c0-1 .. c0+TW: tile position
+// p = r * CC + c, channel co goes to dst[p * STRIDE + co], zero outside
+// [0, rl) x [0, cl). Each value is b1 then 27 fmaf in (ky, kx, ci) order.
+// Thread tid owns channel tid % 64 (its 27 weights in registers) and every
+// fourth position from tid / 64; a warp's lanes share the position, so
+// each input pixel is one broadcast 16-byte load.
+template <int STRIDE>
+__device__ __forceinline__ void conv1_1_tile(const float* xs, const float* w1s,
+                                             const float* b1s, float* dst, int r0, int c0,
+                                             int rl, int cl, int tid) {
+  const int co = tid % C;
+  float w[27];
 #pragma unroll
-      for (int r = 0; r < TH; ++r) {
-        const float a = cp[r * CC * CS + ci];
-        acc[r][0] = fmaf(a, wa.x, acc[r][0]);
-        acc[r][1] = fmaf(a, wa.y, acc[r][1]);
-        acc[r][2] = fmaf(a, wa.z, acc[r][2]);
-        acc[r][3] = fmaf(a, wa.w, acc[r][3]);
-        acc[r][4] = fmaf(a, wb.x, acc[r][4]);
-        acc[r][5] = fmaf(a, wb.y, acc[r][5]);
-        acc[r][6] = fmaf(a, wb.z, acc[r][6]);
-        acc[r][7] = fmaf(a, wb.w, acc[r][7]);
-      }
+  for (int k = 0; k < 27; ++k) w[k] = w1s[k * C + co];
+  const float bias = b1s[co];
+  for (int p = tid / C; p < CR * CC; p += NT / C) {
+    const int r = p / CC, c = p % CC;
+    const int gr = r0 - 1 + r, gc = c0 - 1 + c;
+    float v = 0.f;
+    if (gr >= 0 && gr < rl && gc >= 0 && gc < cl) {
+      float acc = bias;
+#pragma unroll
+      for (int ky = 0; ky < 3; ++ky)
+#pragma unroll
+        for (int kx = 0; kx < 3; ++kx) {
+          const float4 a = *reinterpret_cast<const float4*>(xs + ((r + ky) * XC + c + kx) * 4);
+          const float* wk = w + (ky * 3 + kx) * 3;
+          acc = fmaf(a.x, wk[0], acc);
+          acc = fmaf(a.y, wk[1], acc);
+          acc = fmaf(a.z, wk[2], acc);
+        }
+      v = fmaxf(acc, 0.f);
     }
+    dst[p * STRIDE + co] = v;
   }
 }
 
-__device__ __forceinline__ void store8(float* p, const float (&v)[8]) {
-  reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
-  reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
-}
-
-__device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
-  const float4 a = reinterpret_cast<const float4*>(p)[0];
-  const float4 b = reinterpret_cast<const float4*>(p)[1];
-  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
-}
+// ---- stage 1: conv1_1 and the routed gradient (fp32, CUDA cores) ----
 
 __global__ void __launch_bounds__(NT, 2)
-dpre2_kernel(const float* __restrict__ x, const float* __restrict__ w1,
-             const float* __restrict__ b1, const float* __restrict__ w2,
-             const float* __restrict__ b2, const float* __restrict__ dy,
-             float* __restrict__ c1, float* __restrict__ dpre2,
-             int H, int W, int vh, int vw) {
+c1_route_kernel(const float* __restrict__ x, const float* __restrict__ w1,
+                const float* __restrict__ b1, const float* __restrict__ dy,
+                const unsigned char* __restrict__ route, float* __restrict__ c1,
+                float* __restrict__ dpre2, int H, int W, int vh, int vw) {
   extern __shared__ __align__(16) float smem[];
-  float* c1s = smem;                    // [CR * CC][CS]
-  float* w2s = smem + T_FLOATS;         // [64 ci][64 co], step 3
-  float* xs = w2s;                      // [XR][XC][3], steps 1-2
-  float* w1s = w2s + XS_FLOATS;         // [27][64], steps 1-2
-  float* b1s = w2s + W2_FLOATS;
-  float* b2s = b1s + C;
+  float* c1s = smem;                    // [CR * CC][C]
+  float* xs = smem + T_FLOATS;          // [XR][XC][4]
+  float* w1s = xs + XS_FLOATS;          // [27][64]
+  float* b1s = w1s + W1_FLOATS;
 
   const int tid = threadIdx.x;
   const int b = blockIdx.z;
@@ -254,102 +257,39 @@ dpre2_kernel(const float* __restrict__ x, const float* __restrict__ w1,
   const int c0 = blockIdx.x * TW;
   const int rl = min(H, vh);
   const int cl = min(W, vw);
-  const float* xb = x + (size_t)b * H * W * 3;
-
-  // 1. input tile, rows r0-2 .. r0+TH+1, cols c0-2 .. c0+TW+1, masked
-  for (int i = tid; i < XS_FLOATS; i += NT) {
-    const int ci = i % 3, p = i / 3;
-    const int gr = r0 - 2 + p / XC, gc = c0 - 2 + p % XC;
-    float v = 0.f;
-    if (gr >= 0 && gr < rl && gc >= 0 && gc < cl)
-      v = xb[((size_t)gr * W + gc) * 3 + ci];
-    xs[i] = v;
-  }
-  for (int i = tid; i < W1_FLOATS; i += NT) w1s[i] = w1[i];
-  if (tid < C) {
-    b1s[tid] = b1[tid];
-    b2s[tid] = b2[tid];
-  }
+  load_stem_inputs(x + (size_t)b * H * W * 3, w1, b1, xs, w1s, b1s, W, r0, c0, rl, cl, tid);
+  __syncthreads();
+  conv1_1_tile<C>(xs, w1s, b1s, c1s, r0, c0, rl, cl, tid);
   __syncthreads();
 
-  // 2. conv1_1 + ReLU at rows r0-1 .. r0+TH, cols c0-1 .. c0+TW, masked
-  for (int i = tid; i < CR * CC * C; i += NT) {
-    const int co = i % C, p = i / C;
-    const int r = p / CC, c = p % CC;
-    const int gr = r0 - 1 + r, gc = c0 - 1 + c;
-    float v = 0.f;
-    if (gr >= 0 && gr < rl && gc >= 0 && gc < cl) {
-      float acc = b1s[co];
-#pragma unroll
-      for (int ky = 0; ky < 3; ++ky)
-#pragma unroll
-        for (int kx = 0; kx < 3; ++kx)
-#pragma unroll
-          for (int ci = 0; ci < 3; ++ci)
-            acc = fmaf(xs[((r + ky) * XC + c + kx) * 3 + ci],
-                       w1s[((ky * 3 + kx) * 3 + ci) * C + co], acc);
-      v = fmaxf(acc, 0.f);
-    }
-    c1s[p * CS + co] = v;
-  }
-
-  // 3. conv1_2 before its ReLU (the forward kernel's order of operations)
-  const int lane = tid & 31;
-  const int cg = tid >> 5;
-  float acc[TH][8];
-#pragma unroll
-  for (int r = 0; r < TH; ++r)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[r][j] = b2s[cg * 8 + j];
-  conv64(c1s, w2, w2s, acc, tid);
-
-  // the tile's own conv1_1 positions go to device memory for passes 3-4
-  const float* c1b = c1s + (CC + 1) * CS;          // tile position (1, 1)
-  for (int i = tid; i < TH * TW * C; i += NT) {
-    const int co = i % C, p = i / C;
-    const int r = p / TW, c = p % TW;
-    const int gr = r0 + r, gc = c0 + c;
+  // the tile's own conv1_1 positions go to device memory for stages 3-4
+  const float* c1b = c1s + (CC + 1) * C;           // tile position (1, 1)
+  for (int i = tid; i < TH * TW * (C / 4); i += NT) {
+    const int f = (i % (C / 4)) * 4, p = i / (C / 4);
+    const int gr = r0 + p / TW, gc = c0 + p % TW;
     if (gr < H && gc < W)
-      c1[(((size_t)b * H + gr) * W + gc) * C + co] = c1b[(r * CC + c) * CS + co];
+      *reinterpret_cast<float4*>(c1 + (((size_t)b * H + gr) * W + gc) * C + f) =
+          *reinterpret_cast<const float4*>(c1b + ((p / TW) * CC + p % TW) * C + f);
   }
 
-  // 4. pool and ReLU backward. Window (2pr, 2pr+1) x (even lane, odd lane);
-  // row-major order is (top, left), (top, right), (bottom, left),
-  // (bottom, right); the first maximal element takes dy.
-  const int half = lane & 1;
-  const int gc = c0 + lane;
+  // dy of pooled position (q, p) goes to window element route (0..3,
+  // row-major) of channel co, nowhere where route is 4; dy is zero where
+  // 2q >= vh or 2p >= vw. Four channels a thread.
   const int Hp = H / 2, Wp = W / 2;
-  const int p = gc / 2;
-  for (int pr = 0; pr < TH / 2; ++pr) {
-    const int gr = r0 + 2 * pr;
-    const int q = gr / 2;
-    float dv[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    if (gr < H && gc < W && 2 * q < vh && 2 * p < vw)
-      load8(dy + (((size_t)b * Hp + q) * Wp + p) * C + cg * 8, dv);
-    float top[8], bot[8];
+  for (int i = tid; i < (TH / 2) * (TW / 2) * (C / 4); i += NT) {
+    const int f = (i % (C / 4)) * 4, pp = i / (C / 4);
+    const int q = r0 / 2 + pp / (TW / 2), p = c0 / 2 + pp % (TW / 2);
+    if (q >= Hp || p >= Wp) continue;
+    const size_t o = (((size_t)b * Hp + q) * Wp + p) * C + f;
+    float4 d = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (2 * q < vh && 2 * p < vw) d = *reinterpret_cast<const float4*>(dy + o);
+    const uchar4 k = *reinterpret_cast<const uchar4*>(route + o);
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float vt = fmaxf(acc[2 * pr][j], 0.f);
-      const float vb = fmaxf(acc[2 * pr + 1][j], 0.f);
-      const float ot = __shfl_xor_sync(0xffffffffu, vt, 1);
-      const float ob = __shfl_xor_sync(0xffffffffu, vb, 1);
-      const float v00 = half ? ot : vt, v01 = half ? vt : ot;
-      const float v10 = half ? ob : vb, v11 = half ? vb : ob;
-      const float m = fmaxf(fmaxf(v00, v01), fmaxf(v10, v11));
-      const bool e00 = v00 == m;
-      const bool e01 = !e00 && v01 == m;
-      const bool e10 = !e00 && !e01 && v10 == m;
-      const bool e11 = !e00 && !e01 && !e10;
-      const bool take_t = half ? e01 : e00;
-      const bool take_b = half ? e11 : e10;
-      top[j] = (take_t && vt > 0.f) ? dv[j] : 0.f;
-      bot[j] = (take_b && vb > 0.f) ? dv[j] : 0.f;
-    }
-    // H and W are even and r0, c0 are even: a window is in or out whole
-    if (gr < H && gc < W) {
-      store8(dpre2 + (((size_t)b * H + gr) * W + gc) * C + cg * 8, top);
-      store8(dpre2 + (((size_t)b * H + gr + 1) * W + gc) * C + cg * 8, bot);
-    }
+    for (int e = 0; e < 4; ++e)
+      *reinterpret_cast<float4*>(
+          dpre2 + (((size_t)b * H + 2 * q + e / 2) * W + 2 * p + e % 2) * C + f) =
+          make_float4(k.x == e ? d.x : 0.f, k.y == e ? d.y : 0.f, k.z == e ? d.z : 0.f,
+                      k.w == e ? d.w : 0.f);
   }
 }
 
@@ -363,7 +303,7 @@ __global__ void split_w2f_kernel(const float* __restrict__ w2f, uint4* __restric
   if (i >= W2F_SPLIT / 4) return;
   const int lane = i & 31, nt = (i >> 5) & 7, ks = (i >> 8) & 7, tap = i >> 11;
   const int g = lane >> 2, t = lane & 3;
-  const float* w = w2f + (size_t)tap * W2_FLOATS + (ks * 8 + t) * C + nt * 8 + g;
+  const float* w = w2f + (size_t)tap * C * C + (ks * 8 + t) * C + nt * 8 + g;
   unsigned h0, l0, h1, l1;
   split_tf32(w[0], h0, l0);
   split_tf32(w[4 * C], h1, l1);
@@ -802,9 +742,9 @@ __global__ void reduce_kernel(const float* __restrict__ partial, float* __restri
 // n_chunk * chunk_len >= B*H*W); partial holds 10 * n_chunk * 64 * 64
 // floats, wsplit W2F_SPLIT (9 * 8192) 32-bit words. Returns a cudaError_t:
 // 0 when every launch succeeded. Does not synchronise.
-extern "C" int shf_stem_grad(const float* x, const float* dy, const float* w1,
-                             const float* b1, const float* w2, const float* b2,
-                             const float* w2f, unsigned* wsplit, float* c1, float* dpre2,
+extern "C" int shf_stem_grad(const float* x, const float* dy, const unsigned char* route,
+                             const float* w1, const float* b1, const float* w2f,
+                             unsigned* wsplit, float* c1, float* dpre2,
                              float* dpre1, float* partial, float* out, int B, int H, int W,
                              int vh, int vw, int n_chunk, int chunk_len, void* stream) {
   const long long n_pix = (long long)B * H * W;
@@ -820,7 +760,7 @@ extern "C" int shf_stem_grad(const float* x, const float* dy, const float* w1,
   cudaError_t e = cudaStreamIsCapturing(s, &capturing);
   if (e != cudaSuccess) return (int)e;
   if (capturing == cudaStreamCaptureStatusNone) {
-    e = cudaFuncSetAttribute(dpre2_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    e = cudaFuncSetAttribute(c1_route_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)SMEM_BYTES);
     if (e != cudaSuccess) return (int)e;
     e = cudaFuncSetAttribute(dc1_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -828,7 +768,7 @@ extern "C" int shf_stem_grad(const float* x, const float* dy, const float* w1,
     if (e != cudaSuccess) return (int)e;
   }
   const dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, B);
-  dpre2_kernel<<<grid, NT, SMEM_BYTES, s>>>(x, w1, b1, w2, b2, dy, c1, dpre2, H, W, vh, vw);
+  c1_route_kernel<<<grid, NT, SMEM_BYTES, s>>>(x, w1, b1, dy, route, c1, dpre2, H, W, vh, vw);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   split_w2f_kernel<<<(W2F_SPLIT / 4 + NT - 1) / NT, NT, 0, s>>>(
       w2f, reinterpret_cast<uint4*>(wsplit));

@@ -7,15 +7,25 @@ Counterpart of ``smallhardface_tpu/ops/pallas_stem.py``: the TPU kernel
 (K1), and its backward ``_grad_kernel`` (pallas_stem.py:460, reached through
 ``_stem_grad_call`` / ``_stem_op_bwd``) becomes ``csrc/stem_grad.cu`` (K2),
 both for Hopper (sm_90a). Each source's header says what bounds it on an
-H100 and what the design does about that.
+H100 and what the design does about that. K1 runs conv1_1 in fp32 on the
+CUDA cores and conv1_2 on the tensor cores in error-compensated TF32
+(3xTF32); where a weight needs a gradient it also writes the pool's
+routing, which K2 reads instead of recomputing conv1_2. K2 recomputes
+conv1_1 with K1's very loop (the one piece of arithmetic they share) and
+runs its two 64-channel products in 3xTF32 too.
 
 - ``fused_stem_reference``: the plain PyTorch forward (two ``F.conv2d``,
   the masks, ``max_pool2d``). The CPU path and K1's oracle.
+- ``fused_stem_route_reference``: the pool's routing codes of the plain
+  forward (0..3 the window element that takes the gradient, 4 none), K1's
+  oracle for its ``route`` output; ``route_scatter_reference``: dy scattered
+  by those codes, the plain version of K2's first stage.
 - ``fused_stem``: the differentiable wrapper. On a CPU tensor it is the
   plain version and autograd differentiates it. On a CUDA tensor it runs
-  ``StemFunction``: the forward launches K1, the backward launches K2
-  (only when a weight needs a gradient), or it raises; it never falls
-  back. ``fused_stem.launches`` counts K1's launches.
+  ``StemFunction``: the forward launches K1 (writing the routing only when
+  grad mode is on and a weight needs a gradient), the backward launches
+  K2, or it raises; it never falls back. ``fused_stem.launches`` counts
+  K1's launches, ``fused_stem.route_writes`` those that wrote a routing.
 - ``fused_stem_grad_reference``: the plain backward, ``torch.autograd.grad``
   through ``fused_stem_reference`` with dy zeroed beyond the pooled valid
   extent. K2's oracle.
@@ -39,12 +49,25 @@ from smallhardface_tpu_torch.models.layers import zero_outside
 from smallhardface_tpu_torch.ops.cuda_build import CI, VP, CudaLibrary
 
 STEM = CudaLibrary("stem", "stem.cu",
-                   {"shf_stem_forward": [VP] * 6 + [CI] * 5 + [VP]})
+                   {"shf_stem_forward": [VP] * 8 + [CI] * 5 + [VP]})
 STEM_GRAD = CudaLibrary("stem_grad", "stem_grad.cu",
-                        {"shf_stem_grad": [VP] * 13 + [CI] * 7 + [VP]})
+                        {"shf_stem_grad": [VP] * 12 + [CI] * 7 + [VP]})
 GRAD_CHUNKS = 256       # pixel chunks of K2's weight gradient (fixed order)
 _KT = 32                # pixels per step of that gradient (stem_grad.cu)
-_W2F_SPLIT = 9 * 64 * 64 * 2   # w2f as TF32 hi/lo fragments (stem_grad.cu)
+_W2_SPLIT = 9 * 64 * 64 * 2    # w2 (K1) or w2f (K2) as TF32 hi/lo fragments
+NO_ROUTE = 4            # route code: no element of the window takes dy
+
+
+def conv1_1_reference(x, w1, b1, valid_hw=None):
+    """conv1_1 + ReLU of the plain stem, NCHW (B, 64, H, W), zero outside
+    the valid extent (and its input masked the same way before the conv)."""
+    h = x.permute(0, 3, 1, 2)
+    if valid_hw is not None:
+        h = zero_outside(h, *valid_hw)
+    h = F.relu(F.conv2d(h, w1, b1, padding=1))
+    if valid_hw is not None:
+        h = zero_outside(h, *valid_hw)
+    return h
 
 
 def fused_stem_reference(x, w1, b1, w2, b2, valid_hw=None):
@@ -53,15 +76,44 @@ def fused_stem_reference(x, w1, b1, w2, b2, valid_hw=None):
     conv1_1 activations are zero outside [0, vh) × [0, vw) before each conv
     reads them (pallas_stem.py:98-104, :120-123). Pooling keeps Caffe's
     ceil mode, so odd sizes work here. Returns NHWC (B, ⌈H/2⌉, ⌈W/2⌉, 64)."""
-    h = x.permute(0, 3, 1, 2)
-    if valid_hw is not None:
-        h = zero_outside(h, *valid_hw)
-    h = F.relu(F.conv2d(h, w1, b1, padding=1))
-    if valid_hw is not None:
-        h = zero_outside(h, *valid_hw)
+    h = conv1_1_reference(x, w1, b1, valid_hw)
     h = F.relu(F.conv2d(h, w2, b2, padding=1))
     h = F.max_pool2d(h, 2, 2, ceil_mode=True)
     return h.permute(0, 2, 3, 1).contiguous()
+
+
+def fused_stem_route_reference(x, w1, b1, w2, b2, valid_hw=None):
+    """The pool's routing of the plain stem, uint8 NHWC (B, H/2, W/2, 64),
+    H and W even: for each 2×2 window and channel, the row-major index
+    (0..3) of the FIRST maximal element of relu(conv1_2), if that element's
+    pre-activation is > 0, else ``NO_ROUTE`` (4). That is where autograd
+    through max_pool2d and ReLU sends the window's gradient, and what K1
+    writes as its ``route``."""
+    B, H, W = _kernel_shapes(x, "fused_stem_route_reference")
+    h = F.relu(F.conv2d(conv1_1_reference(x, w1, b1, valid_hw), w2, b2,
+                        padding=1))
+    win = h.reshape(B, 64, H // 2, 2, W // 2, 2).permute(0, 2, 4, 1, 3, 5)
+    win = win.reshape(B, H // 2, W // 2, 64, 4)
+    top = win.amax(-1)
+    eq = win == top[..., None]
+    first = torch.where(eq[..., 0], 0, torch.where(
+        eq[..., 1], 1, torch.where(eq[..., 2], 2, 3)))
+    return torch.where(top > 0, first, NO_ROUTE).to(torch.uint8)
+
+
+def route_scatter_reference(dy, route, valid_hw=None):
+    """The plain version of K2's first stage: dpre2 NHWC (B, H, W, 64), the
+    gradient before conv1_2's ReLU. dy (B, H/2, W/2, 64) goes to the window
+    element its route code names, nowhere for ``NO_ROUTE``; dy is zero at
+    pooled positions (q, p) with 2q >= vh or 2p >= vw."""
+    B, Hp, Wp, C = dy.shape
+    if valid_hw is not None:
+        dy = zero_outside(dy.permute(0, 3, 1, 2), (valid_hw[0] + 1) // 2,
+                          (valid_hw[1] + 1) // 2).permute(0, 2, 3, 1)
+    codes = torch.arange(4, device=dy.device)
+    win = torch.where(route[..., None].long() == codes, dy[..., None], 0.0)
+    win = win.reshape(B, Hp, Wp, C, 2, 2).permute(0, 1, 4, 2, 5, 3)
+    return win.reshape(B, 2 * Hp, 2 * Wp, C)
 
 
 def fused_stem_grad_reference(x, dy, w1, b1, w2, b2, valid_hw=None):
@@ -80,9 +132,9 @@ def fused_stem_grad_reference(x, dy, w1, b1, w2, b2, valid_hw=None):
         return tuple(torch.autograd.grad(out, ws, dy))
 
 
-def _check(t, name, shape, what="fused_stem"):
-    if t.device.type != "cuda" or t.dtype != torch.float32:
-        raise ValueError(f"{what}: {name} must be a CUDA float32 tensor, "
+def _check(t, name, shape, what="fused_stem", dtype=torch.float32):
+    if t.device.type != "cuda" or t.dtype != dtype:
+        raise ValueError(f"{what}: {name} must be a CUDA {dtype} tensor, "
                          f"got {t.dtype} on {t.device}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{what}: {name} has shape {tuple(t.shape)}, "
@@ -115,8 +167,10 @@ def _valid(H, W, valid_hw):
                                             int(valid_hw[1]))
 
 
-def _stem_kernel(x, w1, b1, w2, b2, valid_hw):
-    """Launch K1 on the current stream."""
+def _stem_kernel(x, w1, b1, w2, b2, valid_hw, with_route=False):
+    """Launch K1 on the current stream. Returns (out, route): route is the
+    pool's routing (uint8 NHWC) when ``with_route``, else None and K1 gets
+    a null pointer and writes none."""
     B, H, W = _kernel_shapes(x, "fused_stem")
     w1k, w2k = _hwio(w1, w2)
     b1, b2 = b1.detach(), b2.detach()
@@ -129,31 +183,42 @@ def _stem_kernel(x, w1, b1, w2, b2, valid_hw):
     lib = STEM.load()
     out = torch.empty((B, H // 2, W // 2, 64), dtype=torch.float32,
                       device=x.device)
+    route = (torch.empty((B, H // 2, W // 2, 64), dtype=torch.uint8,
+                         device=x.device) if with_route else None)
+    wsplit = torch.empty(_W2_SPLIT, dtype=torch.int32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     STEM.check(lib.shf_stem_forward(
         x.data_ptr(), w1k.data_ptr(), b1.data_ptr(), w2k.data_ptr(),
-        b2.data_ptr(), out.data_ptr(), B, H, W, vh, vw, stream),
-        "fused_stem")
+        b2.data_ptr(), wsplit.data_ptr(), out.data_ptr(),
+        None if route is None else route.data_ptr(), B, H, W, vh, vw,
+        stream), "fused_stem")
     fused_stem.launches += 1
-    return out
+    fused_stem.route_writes += with_route
+    return out, route
 
 
 class StemFunction(torch.autograd.Function):
     """The stem on the card: K1 forward, K2 backward. The image carries no
-    gradient (conv1_1 reads the input; pallas_stem.py:753-756)."""
+    gradient (conv1_1 reads the input; pallas_stem.py:753-756). K1 writes
+    the pool's routing, saved for K2, only when ``grad_enabled`` (grad mode
+    outside ``apply``; inside forward it is always off) and a weight needs
+    a gradient: detection under ``no_grad``/``inference_mode`` and a step
+    with conv1 frozen write none."""
 
     @staticmethod
-    def forward(ctx, x, w1, b1, w2, b2, valid_hw):
-        ctx.save_for_backward(x, w1, b1, w2, b2)
+    def forward(ctx, x, w1, b1, w2, b2, valid_hw, grad_enabled):
+        with_route = grad_enabled and any(ctx.needs_input_grad[1:5])
+        out, route = _stem_kernel(x, w1, b1, w2, b2, valid_hw, with_route)
+        ctx.save_for_backward(x, w1, b1, w2, b2, route)
         ctx.valid_hw = valid_hw
-        return _stem_kernel(x, w1, b1, w2, b2, valid_hw)
+        return out
 
     @staticmethod
     def backward(ctx, dy):
-        x, w1, b1, w2, b2 = ctx.saved_tensors
+        x, w1, b1, w2, b2, route = ctx.saved_tensors
         grads = fused_stem_grad(x, dy.contiguous(), w1, b1, w2, b2,
-                                ctx.valid_hw)
-        return (None, *grads, None)
+                                ctx.valid_hw, route)
+        return (None, *grads, None, None)
 
 
 def fused_stem(x, w1, b1, w2, b2, valid_hw=None):
@@ -168,10 +233,12 @@ def fused_stem(x, w1, b1, w2, b2, valid_hw=None):
     """
     if x.device.type != "cuda":
         return fused_stem_reference(x, w1, b1, w2, b2, valid_hw)
-    return StemFunction.apply(x, w1, b1, w2, b2, valid_hw)
+    return StemFunction.apply(x, w1, b1, w2, b2, valid_hw,
+                              torch.is_grad_enabled())
 
 
 fused_stem.launches = 0
+fused_stem.route_writes = 0
 
 
 def fused_stem_grad_products(x, c1, dpre2, w2, valid_hw=None):
@@ -208,36 +275,40 @@ def _grad_scratch(B, H, W, device):
                                      device=device)
     return {"c1": new(B, H, W, 64), "dpre2": new(B, H, W, 64),
             "dpre1": new(B, H, W, 64),
-            "w2f_split": torch.empty(_W2F_SPLIT, dtype=torch.int32,
+            "w2f_split": torch.empty(_W2_SPLIT, dtype=torch.int32,
                                      device=device),
             "partial": new(10, n_chunk, 64, 64), "out": new(10, 64, 64),
             "n_chunk": n_chunk, "chunk_len": chunk_len}
 
 
-def _stem_grad_launch(x, dy, w1, b1, w2, b2, valid_hw=None):
-    """Launch K2 on the current stream; counts nothing. Returns
-    ((dw1, db1, dw2, db2) OIHW, its scratch from ``_grad_scratch``)."""
+def _stem_grad_launch(x, dy, w1, b1, w2, b2, valid_hw=None, route=None):
+    """Launch K2 on the current stream, and K1 before it to make the pool's
+    routing when ``route`` is None (that launch counts in
+    ``fused_stem.launches``); counts no K2 launch. Returns ((dw1, db1, dw2,
+    db2) OIHW, its scratch from ``_grad_scratch``)."""
     B, H, W = _kernel_shapes(x, "fused_stem_grad")
-    w1k, w2k = _hwio(w1, w2)
+    if route is None:
+        _, route = _stem_kernel(x, w1, b1, w2, b2, valid_hw, with_route=True)
+    w1k = w1.detach().permute(2, 3, 1, 0).contiguous()
     # data-gradient weights: w2 flipped in both spatial axes, ci ↔ co
     w2f = w2.detach().flip(2, 3).permute(2, 3, 0, 1).contiguous()
-    b1, b2 = b1.detach(), b2.detach()
+    b1 = b1.detach()
     what = "fused_stem_grad"
     _check(x, "x", (B, H, W, 3), what)
     _check(dy, "dy", (B, H // 2, W // 2, 64), what)
+    _check(route, "route", (B, H // 2, W // 2, 64), what, torch.uint8)
     _check(w1k, "w1", (3, 3, 3, 64), what)
     _check(b1, "b1", (64,), what)
-    _check(w2k, "w2", (3, 3, 64, 64), what)
-    _check(b2, "b2", (64,), what)
+    _check(w2f, "w2", (3, 3, 64, 64), what)
     vh, vw = _valid(H, W, valid_hw)
     lib = STEM_GRAD.load()
     s = _grad_scratch(B, H, W, x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     STEM_GRAD.check(lib.shf_stem_grad(
-        x.data_ptr(), dy.data_ptr(), w1k.data_ptr(), b1.data_ptr(),
-        w2k.data_ptr(), b2.data_ptr(), w2f.data_ptr(),
-        s["w2f_split"].data_ptr(), s["c1"].data_ptr(), s["dpre2"].data_ptr(),
-        s["dpre1"].data_ptr(), s["partial"].data_ptr(), s["out"].data_ptr(),
+        x.data_ptr(), dy.data_ptr(), route.data_ptr(), w1k.data_ptr(),
+        b1.data_ptr(), w2f.data_ptr(), s["w2f_split"].data_ptr(),
+        s["c1"].data_ptr(), s["dpre2"].data_ptr(), s["dpre1"].data_ptr(),
+        s["partial"].data_ptr(), s["out"].data_ptr(),
         B, H, W, vh, vw, s["n_chunk"], s["chunk_len"], stream), what)
     out = s["out"]
     dw2 = out[:9].reshape(3, 3, 64, 64).permute(3, 2, 0, 1).contiguous()
@@ -245,15 +316,19 @@ def _stem_grad_launch(x, dy, w1, b1, w2, b2, valid_hw=None):
     return (dw1, out[9, 27].clone(), dw2, out[9, 28].clone()), s
 
 
-def fused_stem_grad(x, dy, w1, b1, w2, b2, valid_hw=None):
+def fused_stem_grad(x, dy, w1, b1, w2, b2, valid_hw=None, route=None):
     """(dw1, db1, dw2, db2), OIHW like the weights: the stem's weight
     gradients given dy (B, H/2, W/2, 64) NHWC. On a CPU tensor this is
-    ``fused_stem_grad_reference``; on a CUDA tensor it launches K2 on the
-    current stream or raises. The result is the same to the bit from run
-    to run: K2 sums across blocks in a fixed order."""
+    ``fused_stem_grad_reference`` (``route`` is not read). On a CUDA tensor
+    it launches K2 on the current stream or raises, routing dy by
+    ``route``, K1's routing of the same inputs (``StemFunction`` passes the
+    one its forward wrote); without it, K1 is launched first to write one,
+    and that launch counts in ``fused_stem.launches``. The result is the
+    same to the bit from run to run: K2 sums across blocks in a fixed
+    order."""
     if x.device.type != "cuda":
         return fused_stem_grad_reference(x, dy, w1, b1, w2, b2, valid_hw)
-    grads, _ = _stem_grad_launch(x, dy, w1, b1, w2, b2, valid_hw)
+    grads, _ = _stem_grad_launch(x, dy, w1, b1, w2, b2, valid_hw, route)
     fused_stem_grad.launches += 1
     return grads
 

@@ -6,6 +6,12 @@ a machine that has only PyTorch:
 
     python -m pytest --noconftest tests/test_torch_port_cuda.py -q
 
+- K1 (stem forward, csrc/stem.cu, conv1_2 in 3xTF32 on the tensor cores):
+  its output equal to the bit to the plain forward in float64 on
+  small-integer inputs, and its pool routing to
+  ``fused_stem_route_reference``'s; on float inputs within RTOL, and the
+  same output whether it writes the routing or not; under ``no_grad`` it
+  writes none;
 - K2 (stem backward, csrc/stem_grad.cu): equal to the bit to the plain
   backward in float64 on small-integer inputs (every product and sum exact),
   and to itself from run to run; the stem's autograd backward launches it;
@@ -37,6 +43,9 @@ from smallhardface_tpu_torch.ops.iou_cases import (BASE, K3_CASES, band_gt,
 from smallhardface_tpu_torch.ops.vote_cases import crowd_dets, integer_dets
 
 VALID = (24, 96)
+# K1 on float inputs against the plain forward (fp32 cuDNN): fp32 rounding,
+# sums in another order (chip_smoke.py's RTOL)
+RTOL = 1e-4
 # K2 on float inputs against the plain backward, max |Δ| / peak: pool and
 # ReLU near-ties flip with fp32 rounding (chip_smoke.py's GRAD_TOL)
 GRAD_TOL = 1e-3
@@ -85,6 +94,48 @@ def _float_grad_inputs(seed, shape, valid):
 def _on(arrays, device, dtype=torch.float32):
     return [torch.from_numpy(np.ascontiguousarray(a)).to(device, dtype)
             for a in arrays]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,valid", [
+    ((1, 32, 128, 3), None),
+    ((2, 64, 128, 3), (48, 96)),
+    ((1, 34, 70, 3), (30, 50)),       # ragged tiles, non-×16 even sizes
+])
+def test_stem_kernel_and_route_vs_plain_on_integers(cuda, shape, valid):
+    x, _, *ws = _int_grad_inputs(15, shape, valid or shape[1:3])
+    args = _on([x] + ws, cuda)
+    wide = _on([x] + ws, cuda, torch.float64)
+    before = stem.fused_stem.launches, stem.fused_stem.route_writes
+    out, route = stem._stem_kernel(*args, valid, with_route=True)
+    want = stem.fused_stem_reference(*wide, valid)
+    want_route = stem.fused_stem_route_reference(*wide, valid)
+    torch.cuda.synchronize()
+    assert (stem.fused_stem.launches, stem.fused_stem.route_writes) == (
+        before[0] + 1, before[1] + 1)
+    assert torch.equal(out.double(), want)
+    assert torch.equal(route, want_route)
+    assert (torch.bincount(route.flatten().long(), minlength=5) > 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,valid", [
+    ((2, 112, 144, 3), None),
+    ((1, 34, 70, 3), (30, 50)),
+])
+def test_stem_kernel_vs_plain_on_floats(cuda, shape, valid):
+    """Within RTOL of the fp32 plain forward on the valid extent; writing
+    the routing does not change the output."""
+    x, _, *ws = _on(_float_grad_inputs(16, shape, valid or shape[1:3]), cuda)
+    out, route = stem._stem_kernel(x, *ws, valid, with_route=True)
+    bare, none = stem._stem_kernel(x, *ws, valid)
+    want = stem.fused_stem_reference(x, *ws, valid)
+    torch.cuda.synchronize()
+    assert none is None and torch.equal(out, bare)
+    vh, vw = valid or shape[1:3]
+    got, want = out[:, :vh // 2, :vw // 2], want[:, :vh // 2, :vw // 2]
+    torch.testing.assert_close(got, want, rtol=RTOL,
+                               atol=RTOL * want.abs().max().item())
 
 
 @pytest.mark.cuda
@@ -147,10 +198,42 @@ def test_stem_grad_products_on_own_routing(cuda, shape, valid):
 
 
 @pytest.mark.cuda
+def test_stem_grad_kernel_with_given_route(cuda):
+    """With K1's routing passed in, K2 launches alone and gives what the
+    standalone call (which launches K1 for the routing) gives."""
+    args = _on(_int_grad_inputs(17), cuda)
+    x, dy, *ws = args
+    _, route = stem._stem_kernel(x, *ws, VALID, with_route=True)
+    alone = stem.fused_stem_grad(*args, valid_hw=VALID)
+    k1 = stem.fused_stem.launches
+    given = stem.fused_stem_grad(*args, valid_hw=VALID, route=route)
+    torch.cuda.synchronize()
+    assert stem.fused_stem.launches == k1
+    for a, b in zip(alone, given):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_stem_under_no_grad_writes_no_route(cuda):
+    x, _, *ws = _on(_int_grad_inputs(18), cuda)
+    ws = [w.requires_grad_() for w in ws]
+    before = stem.fused_stem.launches, stem.fused_stem.route_writes
+    with torch.no_grad():
+        stem.fused_stem(x, *ws, valid_hw=VALID)
+    with torch.inference_mode():
+        stem.fused_stem(x, *ws, valid_hw=VALID)
+    stem.fused_stem(x, *[w.detach() for w in ws], valid_hw=VALID)
+    assert (stem.fused_stem.launches, stem.fused_stem.route_writes) == (
+        before[0] + 3, before[1])
+
+
+@pytest.mark.cuda
 def test_stem_autograd_launches_both_kernels(cuda):
+    """The forward launches K1 with a routing, the backward K2 once on it."""
     x, dy, *ws = _on(_int_grad_inputs(12), cuda)
     ws = [w.requires_grad_() for w in ws]
-    counts = stem.fused_stem.launches, stem.fused_stem_grad.launches
+    counts = (stem.fused_stem.launches, stem.fused_stem_grad.launches,
+              stem.fused_stem.route_writes)
     out = stem.fused_stem(x, *ws, valid_hw=VALID)
     rows = torch.arange(out.shape[1], device=cuda) < VALID[0] // 2
     cols = torch.arange(out.shape[2], device=cuda) < VALID[1] // 2
@@ -160,8 +243,9 @@ def test_stem_autograd_launches_both_kernels(cuda):
         x.double(), dy.double(), *[w.detach().double() for w in ws],
         valid_hw=VALID)
     torch.cuda.synchronize()
-    assert (stem.fused_stem.launches, stem.fused_stem_grad.launches) == (
-        counts[0] + 1, counts[1] + 1)
+    assert (stem.fused_stem.launches, stem.fused_stem_grad.launches,
+            stem.fused_stem.route_writes) == (counts[0] + 1, counts[1] + 1,
+                                              counts[2] + 1)
     for w, g in zip(ws, want):
         assert torch.equal(w.grad.double(), g)
 

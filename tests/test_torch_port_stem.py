@@ -9,7 +9,11 @@ JAX package's.
   cannot take;
 - on the card, the CUDA kernel against the plain version: rtol 1e-4, atol
   1e-4·max (fp32 both, sums in another order). That test skips without a
-  card.
+  card;
+- ``StemFunction`` asks K1 for the pool's routing only when grad mode is on
+  and a weight needs a gradient, and hands it to the backward (K1 stubbed
+  with the plain version);
+- K1 and K2 carry the same conv1_1 code, character for character.
 """
 
 import numpy as np
@@ -109,6 +113,62 @@ def test_cpu_tensor_takes_plain_version_without_counting(weights):
 def test_odd_size_reference_keeps_ceil_mode(weights):
     x = np.random.RandomState(4).randn(1, 9, 11, 3).astype(np.float32)
     assert _port(x, weights).shape == (1, 5, 6, 64)
+
+
+@pytest.mark.parametrize("mode", ["train", "no_grad", "inference_mode",
+                                  "frozen"])
+def test_stem_function_writes_route_only_for_weight_grads(weights, mode,
+                                                          monkeypatch):
+    """Detection (no_grad, inference_mode) and a step with conv1 frozen
+    pass K1 a null route; a step that trains a stem weight gets one, and
+    its backward routes dy by it."""
+    kernel_calls, grad_routes = [], []
+
+    def kernel(x, w1, b1, w2, b2, valid_hw, with_route=False):
+        kernel_calls.append(with_route)
+        ws = [w.detach() for w in (w1, b1, w2, b2)]
+        route = (stem.fused_stem_route_reference(x, *ws, valid_hw)
+                 if with_route else None)
+        return stem.fused_stem_reference(x, *ws, valid_hw), route
+
+    def grad(x, dy, w1, b1, w2, b2, valid_hw=None, route=None):
+        grad_routes.append(route)
+        return stem.fused_stem_grad_reference(x, dy, w1, b1, w2, b2, valid_hw)
+
+    monkeypatch.setattr(stem, "_stem_kernel", kernel)
+    monkeypatch.setattr(stem, "fused_stem_grad", grad)
+    x = torch.from_numpy(np.random.RandomState(6).randn(1, 16, 32, 3).astype(
+        np.float32))
+    w = [a.requires_grad_(mode != "frozen") for a in _torch_w(weights)]
+    ctx = {"no_grad": torch.no_grad, "inference_mode": torch.inference_mode}
+    with ctx.get(mode, torch.enable_grad)():
+        # the call fused_stem makes on a CUDA tensor
+        out = stem.StemFunction.apply(x, *w, (12, 24), torch.is_grad_enabled())
+    assert kernel_calls == [mode == "train"]
+    assert out.requires_grad == (mode == "train")
+    if mode == "train":
+        out.sum().backward()
+        want = stem.fused_stem_route_reference(
+            x, *[a.detach() for a in w], (12, 24))
+        assert len(grad_routes) == 1 and torch.equal(grad_routes[0], want)
+        assert all(a.grad is not None for a in w)
+
+
+def test_conv1_1_code_is_the_same_in_k1_and_k2():
+    """K2's c1 > 0 mask and dw2 must read the very bits K1's conv1_2 read,
+    so both sources carry one copy each of the same conv1_1 code."""
+    from smallhardface_tpu_torch.ops.cuda_build import CSRC
+
+    def shared(name):
+        with open(f"{CSRC}/{name}") as f:
+            src = f.read()
+        start = src.index("// ---- conv1_1, the arithmetic K1 and K2 share")
+        start = src.index("\n", start)
+        return src[start:src.index("// ---- ", start)]
+
+    k1, k2 = shared("stem.cu"), shared("stem_grad.cu")
+    assert "fmaf(" in k1 and "conv1_1_tile" in k1
+    assert k1 == k2
 
 
 def test_library_path_is_keyed_by_source():

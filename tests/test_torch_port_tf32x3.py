@@ -1,13 +1,14 @@
-"""A numpy model of K2's error-compensated TF32 products (csrc/stem_grad.cu).
+"""A numpy model of the stem kernels' error-compensated TF32 products: K1's
+conv1_2 (csrc/stem.cu) and K2's two gradients (csrc/stem_grad.cu).
 
-K2 runs its data gradient (dpre1, K = 9 taps x 64 channels) and its dw2
-weight gradient (K = the pixels of one chunk) on the tensor cores as
-"3xTF32": each fp32 operand a is cut into hi = cvt.rna.tf32(a) and
-lo = cvt.rna.tf32(a - hi), and each product takes a_lo*b_hi, a_hi*b_lo and
-a_hi*b_hi, in that order, into an fp32 accumulator, 8 values of K per mma.
-The accumulator runs for one tap (dpre1) or one 32-pixel step (dw2) and is
-then added to a second fp32 sum. The model here does the same in numpy and
-shows:
+K1 runs conv1_2 (K = 9 taps x 64 channels) and K2 its data gradient (dpre1,
+the same K) and its dw2 weight gradient (K = the pixels of one chunk) on
+the tensor cores as "3xTF32": each fp32 operand a is cut into
+hi = cvt.rna.tf32(a) and lo = cvt.rna.tf32(a - hi), and each product takes
+a_lo*b_hi, a_hi*b_lo and a_hi*b_hi, in that order, into an fp32
+accumulator, 8 values of K per mma. The accumulator runs for one tap
+(conv1_2, dpre1) or one 32-pixel step (dw2) and is then added to a second
+fp32 sum. The model here does the same in numpy and shows:
 
 1. on the small-integer recipe of the bit-exact tests every operand is its
    own hi (or hi + lo, for the dw1 job's dpre1), so the products stay exact;
@@ -19,7 +20,12 @@ shows:
    sum toward zero, one accumulator over a whole chunk would miss it too,
    while the per-step sums hold it;
 4. composed with the plain stem's routing at (2, 32, 128, 3), the model's
-   dpre1 and dw2 match ``fused_stem_grad_products`` within the same bound.
+   dpre1 and dw2 match ``fused_stem_grad_products`` within the same bound;
+5. K1's conv1_2 the same way: exact on the integer recipe (conv1_1's
+   activations up to 246 against w2 in ±2), within the bound of the float64
+   convolution on floats at K = 576 with per-tap folding, where 1xTF32
+   misses it, and within it on the plain stem's conv1_1 at
+   (2, 32, 128, 3).
 """
 
 import numpy as np
@@ -144,6 +150,28 @@ def test_split_is_exact_on_the_integer_recipe():
     assert np.array_equal(tc_product(a, b, fold=4), want)
 
 
+def test_split_is_exact_on_the_k1_integer_recipe():
+    """K1's conv1_2: conv1_1's activations (0..246 on the recipe: 27
+    products of ±3 by ±3 and a bias in ±3, after the ReLU) against w2 in
+    ±2, K = 576 folded per tap, sums below 2^24: exact."""
+    rng = np.random.RandomState(6)
+    a = np.full((4, 576), 246.0, np.float32)
+    a[1:] = rng.randint(0, 247, (3, 576))
+    b = np.full((576, 64), 2.0, np.float32)
+    b[:, 1:] = rng.randint(-2, 3, (576, 63))
+    want = a.astype(np.float64) @ b
+    assert np.abs(want).max() == 246 * 2 * 576 < 2 ** 24
+    assert np.array_equal(tc_product(a, b, fold=8), want)
+
+
+def _forward_operands(rng, m=1024):
+    """conv1_1's activations (after a ReLU) against w2 at He scale: K1's
+    conv1_2 product, K = 576."""
+    a = np.maximum(rng.randn(m, 576) * 3 + 1, 0)
+    b = rng.randn(576, 64) * np.sqrt(2 / 576)
+    return a.astype(np.float32), b.astype(np.float32)
+
+
 def _data_grad_operands(rng, m=1024):
     """dpre2 rows (a quarter nonzero, as the pool routes them) against
     w2f at He scale: the data gradient's product, K = 576."""
@@ -159,11 +187,12 @@ def _weight_grad_operands(rng, k=CHUNK):
     return a.astype(np.float32), b.astype(np.float32)
 
 
-@pytest.mark.parametrize("which,fold", [("data", 8), ("weight", 4)])
+@pytest.mark.parametrize("which,fold", [("data", 8), ("weight", 4),
+                                        ("forward", 8)])
 def test_3xtf32_meets_the_bound_and_1xtf32_misses_it(which, fold):
     rng = np.random.RandomState(2)
-    a, b = (_data_grad_operands if which == "data"
-            else _weight_grad_operands)(rng)
+    a, b = {"data": _data_grad_operands, "weight": _weight_grad_operands,
+            "forward": _forward_operands}[which](rng)
     want = a.astype(np.float64) @ b.astype(np.float64)
     three = rel_err(tc_product(a, b, 3, fold), want)
     one = rel_err(tc_product(a, b, 1, fold), want)
@@ -260,3 +289,24 @@ def test_model_on_plain_routing_matches_the_products_reference():
                 total = (total + p).astype(np.float32)
             dw2[:, :, ky, kx] = total.T                      # (co, ci)
     assert rel_err(dw2, want[3].numpy()) <= BOUND
+
+
+def test_model_of_k1_conv1_2_on_the_plain_conv1_1():
+    """K1's conv1_2 before its ReLU as an implicit GEMM over 9 taps x 64
+    channels in 3xTF32, folded per tap, on the plain stem's conv1_1 at
+    (2, 32, 128, 3): within the bound of the float64 convolution."""
+    rng = np.random.RandomState(7)
+    B, H, W, _ = SHAPE
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32))  # noqa: E731
+    x = t(rng.randn(*SHAPE) * 50)
+    w1, b1 = t(rng.randn(64, 3, 3, 3) * np.sqrt(2 / 27)), t(rng.randn(64) * 0.5)
+    w2, b2 = t(rng.randn(64, 64, 3, 3) * np.sqrt(2 / 576)), t(rng.randn(64) * 0.5)
+    c1 = stem.conv1_1_reference(x, w1, b1, VALID)
+    want = F.conv2d(c1.double(), w2.double(), b2.double(), padding=1)
+    want = want.permute(0, 2, 3, 1).numpy()
+    pad = np.pad(c1.permute(0, 2, 3, 1).numpy(), ((0, 0), (1, 1), (1, 1), (0, 0)))
+    a = np.concatenate([pad[:, ky:ky + H, kx:kx + W] for ky in range(3)
+                        for kx in range(3)], -1).reshape(-1, 576)
+    w = w2.permute(2, 3, 1, 0).reshape(576, 64).numpy()       # (tap, ci) x co
+    got = (tc_product(a, w, fold=8) + b2.numpy()).reshape(B, H, W, 64)
+    assert rel_err(got, want) <= BOUND
