@@ -29,8 +29,26 @@ vote (V1, csrc/vote.cu). Then, each phase printing one line:
    boxes within VOTE_BOX_TOL; its device time (CUDA graph), wrapper wall,
    plain time, clusters and bound;
 4. the full five-level pyramid with flip of one image on the card against
-   the port's CPU path, by the golden tests' match rule;
-5. K2 against its plain version (equal to the bit on small-integer inputs,
+   the port's CPU path, by the golden tests' match rule; the device memory
+   peak of a warm ``detect`` of that image (under DETECT_PEAK_LIMIT); V1
+   over the three images' candidate sets as one launch against three
+   single launches (equal to the bit, device times side by side); K1 on
+   an 8-image batch with eight valid extents in one launch against its
+   plain version and eight single-image launches;
+5. the slice's path: ``detect_many`` on eight WIDER-sized images in three
+   bucket groups at max_batch 1, 2 and 4 against per-image ``detect``
+   (counts within max(2, 2 %), each side matched at DM_MATCH_MIN), with
+   images per second and peak memory beside sequential ``detect`` and
+   test_net's three-in-flight pipeline, and K1's and V1's launches in one
+   max_batch 4 run; then the HTTP service (``serve.DetectorService``
+   behind ``serve.serve`` on 127.0.0.1:0): healthz, four concurrent
+   requests micro-batched against the per-request service, a bad body,
+   and the request latencies;
+6. the cliff map: every 3×3 convolution of the forward, as the forward
+   runs it, at the pyramid levels of five WIDER-sized images, exact and
+   bucketed, at batch 2, 4 and 8 (``tools/conv_map.py``): each distinct
+   shape's device time against its fp32 bound and the memory it adds;
+7. K2 against its plain version (equal to the bit on small-integer inputs,
    within a stated tolerance on float inputs, equal to itself from run to
    run; K1 writes the routing it reads) and its tensor-core products
    against the same products in float64 on its own routing (its scratch c1
@@ -39,28 +57,30 @@ vote (V1, csrc/vote.cu). Then, each phase printing one line:
    (20 calls in one CUDA graph) and each of its five launches' device
    time (torch.profiler), beside two bounds: all on the CUDA cores, and its
    own split between the CUDA cores and the tensor cores;
-6. K3 against its plain version (equal to the bit) on the 90,000 anchors of
+8. K3 against its plain version (equal to the bit) on the 90,000 anchors of
    a 1200×1600 image for 0 to 2048 gt boxes: uniform, a crowd, and a band
    of faces that overfills one block's list of gt; its wrapper's wall, and
    its device time with the host taken out (200 launches captured in a
    CUDA graph, replayed between two CUDA events), beside the same device
    time of an empty kernel on the same grid;
-7. one training micro-batch with every parameter requiring a gradient
+9. one training micro-batch with every parameter requiring a gradient
    (K1 writes the routing, K2 runs on it), its stem gradients against the
    plain stem's;
-8. training: ``train_net`` for 6 iterations of the flagship configuration
+10. training: ``train_net`` for 6 iterations of the flagship configuration
    over all three scales on four seeded synthetic images and their
    mirrors (conv1 frozen: K1 writes no routing, K2 never runs), then a
    resume from the iteration-3 snapshot that must reach
    the same final.npz to the bit;
-9. one training iteration of a small skeletal network on the CPU and on
+11. one training iteration of a small skeletal network on the CPU and on
    the card from the same weights;
-10. the slice's path, train-then-test from the command line:
+12. train-then-test from the command line:
    ``smallhardface_tpu_torch.__main__.main`` with the flagship config,
    ``--train true --test true``, 2 iterations, on a seeded synthetic WIDER
    tree (scripts/synth_wider.py), evaluated on its 6 val images of
    1024×1024: final.npz, detections.pkl, result.tar.gz and the
-   Easy/Medium/Hard line.
+   Easy/Medium/Hard line; then the same evaluation with TPU.EVAL_BATCH 2
+   (three detect_many batches), whose detections.pkl must agree with the
+   first image by image by the detect_many rule.
 
 Each main path runs with the launch counts set to 0 just before it and read
 just after. The second-to-last line is a JSON summary of the kernels; the
@@ -118,6 +138,21 @@ VOTE_BOX_TOL = 1e-5
 MATCH_MIN, COUNT_SLACK = 0.97, 0.02
 EVAL_IMAGES, EVAL_SIZE, EVAL_ITERS = 6, 1024, 2
 THRESH = 0.05
+# detect_many's images: width 1024, heights that make bucket groups of
+# four, three and one under TPU.TEST_BUCKET 128 (detect._prep's key)
+DM_HEIGHTS = (768, 760, 754, 748, 1024, 1022, 1020, 683)
+DM_MAX_BATCH = (1, 2, 4)
+# detect_many against per-image detect: the bucketed shapes may run other
+# cuDNN algorithms and sum the resize in another order, so a box near the
+# threshold may flip; each side matched at 99 %, counts within max(2, 2 %)
+DM_MATCH_MIN = 0.99
+DETECT_PEAK_LIMIT = 8e9     # bytes a warm detect of image 0 may peak at
+SERVE_WINDOW_MS = 50
+# the cliff map's limits: no 3×3 convolution of the forward may add more
+# than 4 GB or take more than 5× its fp32 bound. Below CLIFF_FLOOR_MS of
+# bound a convolution is a few kernels' latency (the smallest levels),
+# which no library call brings within 5×: those are reported, not held
+CLIFF_MAX_OF_BOUND, CLIFF_MAX_ADDED, CLIFF_FLOOR_MS = 5.0, 4e9, 0.05
 # published H100 SXM rates (NVIDIA H100 datasheet): fp32 on the CUDA
 # cores and device-memory bandwidth
 PEAK_FP32, PEAK_BYTES = 67e12, 3.35e12
@@ -623,7 +658,18 @@ def main():
     vote_entry = vote_phase(det, images, nms_device, float(
         cfg.TEST.NMS_THRESH))
     pyramid_card_vs_cpu(params, spec, images[0], card_dets[0], TorchDetector)
+    detect_peak(det, images[0])
+    kernels["bbox_vote_batched_device_ms"] = v1_batched(
+        det, images, nms_device, float(cfg.TEST.NMS_THRESH))
+    k1_batched_extents(stem, dev)
+
+    # ---- the slice's path: detect_many and the service ----
+    many_counts, dm_images = detect_many_phase(det, stem, nms_device)
     del det
+    torch.cuda.empty_cache()
+    serve_phase(params, spec, dm_images, dev)
+    torch.cuda.empty_cache()
+    cliff_map(dev)
     torch.cuda.empty_cache()
 
     # ---- K2 against its plain version ----
@@ -769,7 +815,11 @@ def main():
                     ("fused_stem_grad", "train_full_grad")):
         kernels[k]["launches_path"] = path
     kernels["fused_stem"]["launches_detect"] = detect_counts["fused_stem"]
+    kernels["fused_stem"]["launches_detect_many"] = many_counts["fused_stem"]
+    vote_entry["batched_device_ms"] = kernels.pop(
+        "bbox_vote_batched_device_ms")
     kernels["bbox_vote"] = vote_entry
+    kernels["bbox_vote"]["launches_detect_many"] = many_counts["bbox_vote"]
     kernels["bbox_vote"]["launches"] = eval_counts["bbox_vote"]
     kernels["bbox_vote"]["launches_path"] = "eval_cli"
     kernels["bbox_vote"]["launches_detect"] = detect_counts["bbox_vote"]
@@ -1162,6 +1212,350 @@ def pyramid_card_vs_cpu(params, spec, image, card, detector_cls):
                              "CPU path")
 
 
+def detect_peak(det, image):
+    """The device memory peak of one warm ``detect`` of `image` (after a
+    first one), beside its wall."""
+    det.detect(image, THRESH)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    det.detect(image, THRESH)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated()
+    say("detect_peak", image=0, wall_s=wall, max_memory_allocated_bytes=peak,
+        limit_bytes=DETECT_PEAK_LIMIT)
+    if peak >= DETECT_PEAK_LIMIT:
+        raise AssertionError(f"a warm detect peaks at {peak} bytes")
+
+
+def k1_batched_extents(stem, dev):
+    """K1 on an 8-image batch with eight extents in one launch against its
+    plain version (equal to the bit on the small-integer recipe, within
+    RTOL on floats) and against eight single-image launches (equal to the
+    bit), at a small shape on integers and at the 600 level's bucket
+    (640×896) on floats, where it is timed beside the eight launches."""
+    rng = np.random.RandomState(SEED + 8)
+    for shape, integer in (((8, 64, 128, 3), True), ((8, 640, 896, 3), False)):
+        B, H, W, _ = shape
+        ext = [(int(rng.randint(0, H // 16 + 1)) * 16 - 2 * (i % 2),
+                int(rng.randint(0, W // 16 + 1)) * 16) for i in range(B)]
+        ext = [(max(h, 0), w) for h, w in ext]
+        ext[0] = (H, W)
+        x, _, *ws = grad_inputs(rng, shape, None, integer)
+        args = [torch.from_numpy(a).to(dev, torch.float32) for a in [x] + ws]
+        vh = torch.tensor([e[0] for e in ext], device=dev)
+        vw = torch.tensor([e[1] for e in ext], device=dev)
+        with torch.no_grad():
+            got = stem.fused_stem(*args, valid_hw=(vh, vw))
+            singles = [stem.fused_stem(args[0][i:i + 1].contiguous(),
+                                       *args[1:], valid_hw=e)
+                       for i, e in enumerate(ext)]
+        same_singles = all(torch.equal(got[i:i + 1], one)
+                           for i, one in enumerate(singles))
+        fields = {}
+        if integer:
+            want = stem.fused_stem_reference(
+                *[torch.from_numpy(a).to(dev) for a in [x] + ws], (vh, vw))
+            ok = torch.equal(got.double(), want)
+            fields["bit_equal_plain"] = ok
+        else:
+            want = stem.fused_stem_reference(*args, (vh, vw))
+            scale = max(want.abs().max().item(), 1.0)
+            bad = 0
+            for i, (h, w) in enumerate(ext):
+                g, r = got[i, :h // 2, :w // 2], want[i, :h // 2, :w // 2]
+                bad += int(((g - r).abs() > RTOL * r.abs()
+                            + RTOL * scale).sum())
+            ok = bad == 0
+            args_c = [a.contiguous() for a in args]
+            fields.update(
+                n_outside_tol=bad, rtol=RTOL,
+                batched_device_ms=graph_ms(lambda: stem.fused_stem(
+                    *args_c, valid_hw=(vh, vw)), reps=20),
+                single_launches_device_ms=graph_ms(lambda: [
+                    stem.fused_stem(args_c[0][i:i + 1], *args_c[1:],
+                                    valid_hw=e)
+                    for i, e in enumerate(ext)], reps=5))
+        say("k1_batched_extents", shape=list(shape), extents=ext,
+            inputs="small integers" if integer else "floats",
+            bit_equal_single_launches=same_singles, **fields,
+            timing="device: calls in one CUDA graph, median of 5 replays, "
+                   "per call")
+        if not (ok and same_singles):
+            raise AssertionError(f"K1 with per-image extents disagrees at "
+                                 f"{shape}")
+        del args, got, want, singles
+    torch.cuda.empty_cache()
+
+
+def v1_batched(det, images, nms_device, thresh):
+    """V1 over the three detection images' real top-VOTE_CAP candidate sets
+    as one launch, equal to the bit to three single launches, with its
+    device time beside theirs. Comparison launches."""
+    from smallhardface_tpu_torch.detect import top_rows
+    sets = []
+    for im in images:
+        boxes, scores, keep = det.merged_candidates(im, THRESH)
+        sets.append(top_rows(boxes, scores, keep, det.vote_cap))
+    v = max(d.shape[0] for d, _ in sets)        # rows beyond n are not read
+    sets = [(torch.nn.functional.pad(d, (0, 0, 0, v - d.shape[0])), c)
+            for d, c in sets]
+    dets = torch.stack([d for d, _ in sets]).contiguous()
+    n = torch.stack([c for _, c in sets]).contiguous()
+    got, n_got = nms_device.bbox_vote_device(dets, n, thresh)
+    singles = [nms_device.bbox_vote_device(d, c, thresh) for d, c in sets]
+    torch.cuda.synchronize()
+    same = all(torch.equal(o, got[i]) and int(c) == int(n_got[i])
+               for i, (o, c) in enumerate(singles))
+    batched_ms = graph_ms(lambda: nms_device.bbox_vote_device(
+        dets, n, thresh), reps=20)
+    single_ms = [graph_ms(lambda d=d, c=c: nms_device.bbox_vote_device(
+        d, c, thresh), reps=20) for d, c in sets]
+    say("v1_batched", images=len(images), rows=list(dets.shape[:2]),
+        candidates=n.tolist(), n_out=n_got.tolist(),
+        bit_equal_single_launches=same, batched_device_ms=batched_ms,
+        single_device_ms=single_ms, single_device_ms_sum=sum(single_ms),
+        timing="20 calls in one CUDA graph, median of 5 replays, per call")
+    if not same:
+        raise AssertionError("V1 batched disagrees with single launches")
+    return batched_ms
+
+
+def _rule(a, b, min_match):
+    """Counts within max(2, 2 %) and each side matched at min_match."""
+    fwd, bwd = _match_fraction(a, b), _match_fraction(b, a)
+    return (abs(len(a) - len(b)) <= max(2, COUNT_SLACK * len(b))
+            and min(fwd, bwd) >= min_match), fwd, bwd
+
+
+def detect_many_phase(det, stem, nms_device):
+    """The slice's main path: ``detect_many`` on eight seeded synthetic
+    WIDER-sized images (width 1024; DM_HEIGHTS make a bucket group of four,
+    one of three and one of one) at max_batch 1, 2 and 4, against
+    per-image ``detect`` on the card, with images per second and peak
+    memory beside sequential ``detect`` and test_net's three-in-flight
+    pipeline. The launch counts of the first max_batch 4 run are read.
+    Returns them."""
+    from collections import deque
+    from smallhardface_tpu_torch.test_runner import PIPELINE_DEPTH
+    rng = np.random.RandomState(SEED + 9)
+    images = [make_image(rng, h, 1024) for h in DM_HEIGHTS]
+    keys = [det._prep(im)["key"] for im in images]
+    groups = sorted(sum(k == key for k in keys) for key in set(keys))
+    if groups[-1] < 4 or len(groups) < 2:
+        raise AssertionError(f"detect_many's images form groups {groups}")
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t, torch.cuda.max_memory_allocated()
+
+    def pipelined():
+        out, pending = [None] * len(images), deque()
+        for i, im in enumerate(images):
+            pending.append((i, det.detect_async(im, THRESH)))
+            if len(pending) > PIPELINE_DEPTH:
+                j, h = pending.popleft()
+                out[j] = det.finalize_async(h, THRESH)[0]
+        while pending:
+            j, h = pending.popleft()
+            out[j] = det.finalize_async(h, THRESH)[0]
+        return out
+
+    singles = [det.detect(im, THRESH)[0][0] for im in images]   # warm
+    runs = {"sequential": lambda: [det.detect(im, THRESH)[0][0]
+                                   for im in images],
+            "pipelined_3": pipelined}
+    for mb in DM_MAX_BATCH:
+        runs[f"max_batch_{mb}"] = lambda mb=mb: [
+            d[0] for d in det.detect_many(images, THRESH, max_batch=mb)]
+    stats, counts, worst = {}, None, 0
+    for name, fn in runs.items():
+        fn()                                                   # warm
+        if name == f"max_batch_{DM_MAX_BATCH[-1]}":
+            set_counts_zero(stem.fused_stem, nms_device.bbox_vote_device,
+                            nms_device.nms_device)
+            fn()
+            counts = {"fused_stem": stem.fused_stem.launches,
+                      "route_writes": stem.fused_stem.route_writes,
+                      "bbox_vote": nms_device.bbox_vote_device.launches,
+                      "nms": nms_device.nms_device.launches}
+        walls, peaks = [], []
+        for _ in range(2):
+            out, wall, peak = timed(fn)
+            walls.append(wall)
+            peaks.append(peak)
+        stats[name] = {"walls_s": walls,
+                       "images_per_s": len(images) / min(walls),
+                       "max_memory_allocated_bytes": max(peaks)}
+        if name.startswith("max_batch"):
+            diffs, ok, fwd, bwd = [], True, 1.0, 1.0
+            for a, b in zip(out, singles):
+                good, f, bk = _rule(a, b, DM_MATCH_MIN)
+                ok, fwd, bwd = ok and good, min(fwd, f), min(bwd, bk)
+                diffs.append(len(a) - len(b))
+            stats[name].update(rule_holds=ok, min_match_batched_in_single=fwd,
+                               min_match_single_in_batched=bwd,
+                               count_diffs=diffs)
+            worst = max(worst, max(abs(d) for d in diffs))
+            if not ok:
+                raise AssertionError(f"detect_many at {name} disagrees with "
+                                     "per-image detect")
+    groups_of = {mb: sum(-(-keys.count(k) // mb) for k in set(keys))
+                 for mb in DM_MAX_BATCH}
+    want = {"fused_stem": len(det._prep(images[0])["levels"])
+            * groups_of[DM_MAX_BATCH[-1]],
+            "route_writes": 0, "bbox_vote": groups_of[DM_MAX_BATCH[-1]],
+            "nms": 0}
+    say("detect_many", heights=list(DM_HEIGHTS), width=1024,
+        group_sizes=groups, dets_per_image=[len(d) for d in singles],
+        largest_count_diff=worst, match_min=DM_MATCH_MIN,
+        launches=counts, launches_expected=want, **stats,
+        timing="host clock after torch.cuda.synchronize(), all 8 images, "
+               "after a warm run; peak: max_memory_allocated in the run")
+    if counts != want:
+        raise AssertionError(f"detect_many launches {counts}, expected "
+                             f"{want}")
+    return counts, images
+
+
+def serve_phase(params, spec, images, dev):
+    """DetectorService on the card behind serve() on 127.0.0.1:0: healthz,
+    four concurrent requests to a micro-batching service against a
+    per-request one (the same counts, every row matched), a bad body (400),
+    and the median request latency of each."""
+    import threading
+    import urllib.error
+    import urllib.request
+    import cv2
+    from smallhardface_tpu_torch import serve as serve_mod
+    bodies = [cv2.imencode(".png", im)[1].tobytes() for im in images[:4]]
+
+    def start(**kwargs):
+        service = serve_mod.DetectorService(params, spec, device=dev,
+                                            **kwargs)
+        service.warmup()
+        srv = serve_mod.serve(service, "127.0.0.1", 0)
+        threading.Thread(target=srv.serve_forever, daemon=True).start()
+        return srv, f"http://127.0.0.1:{srv.server_address[1]}"
+
+    def post(url, body):
+        t = time.perf_counter()
+        req = urllib.request.Request(url + f"/detect?thresh={THRESH}",
+                                     data=body, method="POST")
+        with urllib.request.urlopen(req, timeout=600) as r:
+            payload = json.loads(r.read())
+        return np.asarray(payload["detections"], np.float32).reshape(
+            -1, 5), time.perf_counter() - t
+
+    def concurrent(url):
+        post(url, bodies[0])                                   # warm
+        got = [None] * len(bodies)
+
+        def hit(i):
+            got[i] = post(url, bodies[i])
+        threads = [threading.Thread(target=hit, args=(i,))
+                   for i in range(len(bodies))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        return got
+
+    servers = []
+    try:
+        plain, url_plain = start()
+        servers.append(plain)
+        batched, url_batched = start(batch_window_ms=SERVE_WINDOW_MS,
+                                     max_batch=4)
+        servers.append(batched)
+        with urllib.request.urlopen(url_batched + "/healthz") as r:
+            health = json.loads(r.read())
+        want = concurrent(url_plain)
+        got = concurrent(url_batched)
+        try:
+            urllib.request.urlopen(urllib.request.Request(
+                url_batched + "/detect", data=b"not an image",
+                method="POST"), timeout=600)
+            bad_code = 200
+        except urllib.error.HTTPError as e:
+            bad_code = e.code
+    finally:
+        for srv in servers:
+            srv.shutdown()
+            srv.server_close()
+    same = [len(a) == len(b) and _match_fraction(a, b) == 1.0
+            and _match_fraction(b, a) == 1.0
+            for (a, _), (b, _) in zip(got, want)]
+    say("serve", healthz=health, bad_body_status=bad_code,
+        counts_batched=[len(a) for a, _ in got],
+        counts_per_request=[len(b) for b, _ in want],
+        every_row_matched_each_way=same, batch_window_ms=SERVE_WINDOW_MS,
+        latency_s_batched=[t for _, t in got],
+        latency_s_per_request=[t for _, t in want],
+        median_latency_s_batched=float(np.median([t for _, t in got])),
+        median_latency_s_per_request=float(np.median([t for _, t in want])),
+        timing="host clock around each HTTP request, four at once")
+    if not (health.get("backend") == "cuda" and health.get("status") == "ok"
+            and bad_code == 400 and all(same)):
+        raise AssertionError("the service's batched responses differ from "
+                             "its per-request ones, or its checks fail")
+
+
+def cliff_map(dev):
+    """Every 3×3 convolution of the forward, as the forward runs it
+    (``layers.conv3x3``), at each distinct shape of the pyramid levels of
+    five WIDER-sized images, exact and bucketed, at batch 2, 4 and 8
+    (``tools/conv_map.py``): its device time beside its fp32 bound and the
+    memory it adds. The rows go to output/cliff_map.json; the line gives
+    each layer's worst, the shapes over the limits and the largest
+    ``conv4_fuse_final_dim_red`` shape. Fails where a convolution adds
+    more than CLIFF_MAX_ADDED bytes, or where one whose bound is at least
+    CLIFF_FLOOR_MS takes more than CLIFF_MAX_OF_BOUND times its bound."""
+    from smallhardface_tpu_torch.models import layers
+    from smallhardface_tpu_torch.tools import conv_map
+    t = time.perf_counter()
+    rows = conv_map.conv_map(dev, log=lambda row: None)
+    with open(os.path.join(_output_dir(), "cliff_map.json"), "w") as f:
+        json.dump(rows, f)
+    layers_worst = {}
+    for r in rows:
+        for name in r["layers"]:
+            w = layers_worst.setdefault(name, {"of_bound": 0.0,
+                                               "added_bytes": 0})
+            w["of_bound"] = max(w["of_bound"], r["of_bound"])
+            w["added_bytes"] = max(w["added_bytes"], r["added_bytes"])
+    over = [r for r in rows if r["added_bytes"] > CLIFF_MAX_ADDED or (
+        r["bound_ms"] >= CLIFF_FLOOR_MS
+        and r["of_bound"] > CLIFF_MAX_OF_BOUND)]
+    floor = [r for r in rows if r["bound_ms"] < CLIFF_FLOOR_MS]
+    cliff = [r for r in rows if r["shape"] == [2, 512, 128, 176, 234, 1]]
+    say("cliff_map", shapes=len(rows), seconds=time.perf_counter() - t,
+        taps_min_flop=layers.TAPS_MIN_FLOP,
+        max_of_bound=max(r["of_bound"] for r in rows),
+        max_added_bytes=max(r["added_bytes"] for r in rows),
+        sum_device_ms=sum(r["ms"] for r in rows), by_layer=layers_worst,
+        conv4_fuse_final_dim_red_176x234=cliff,
+        under_floor={"shapes": len(floor),
+                     "over_limit": sum(r["of_bound"] > CLIFF_MAX_OF_BOUND
+                                       for r in floor),
+                     "max_of_bound": max((r["of_bound"] for r in floor),
+                                         default=0.0),
+                     "max_ms": max((r["ms"] for r in floor), default=0.0)},
+        over_limits=over, limit_of_bound=CLIFF_MAX_OF_BOUND,
+        limit_added_bytes=CLIFF_MAX_ADDED, floor_bound_ms=CLIFF_FLOOR_MS,
+        timing="device: calls in one CUDA graph, median of 3 replays; "
+               "bound: 2·B·H·W·9·C·O FLOP at 67 TFLOP/s or the bytes at "
+               "3.35 TB/s, the larger")
+    if over or not cliff:
+        raise AssertionError(f"{len(over)} convolutions of the map are over "
+                             "its limits")
+
+
 def eval_cli(cfg, stem, iou, nms_device, work):
     """Train-then-test from the command line on a synthetic WIDER tree:
     the files and the result line it must give, the seconds per image of
@@ -1207,16 +1601,38 @@ def eval_cli(cfg, stem, iou, nms_device, work):
                               if name in files)
                  for name in ("final.npz", "detections.pkl", "result.tar.gz",
                               "cfgs.txt", "stderr.log")}
+        first_stats = dict(stats)
+        # the same weights and images again, with TPU.EVAL_BATCH 2
+        with open(os.path.join(out, found["detections.pkl"][0]), "rb") as f:
+            one_by_one = pickle.load(f)[1]
+        set_counts_zero(*fns)
+        batch_result = cli.main([
+            "--train", "false", "--test", "true", "--device", "cuda",
+            "--conf", os.path.join(CONFIG_DIR, "smallhardface.toml"),
+            "--amend", "DATA_DIR", root, "EXP_DIR", exp_dir + "_batch",
+            "TEST.DB", "wider_val", "TEST.NO_CACHE", "False",
+            "TEST.MODEL", os.path.join(out, found["final.npz"][0]),
+            "TPU.EVAL_BATCH", "2"])
+        torch.cuda.synchronize()
+        batch_counts = dict(zip(("fused_stem", "fused_stem_grad", "max_iou",
+                                 "bbox_vote", "nms"),
+                                (f.launches for f in fns)))
+        batch_out = os.path.join(REPO, "output", exp_dir + "_batch")
+        pkl, = [os.path.join(r, "detections.pkl")
+                for r, _, files in os.walk(batch_out)
+                if "detections.pkl" in files]
+        with open(pkl, "rb") as f:
+            batched = pickle.load(f)[1]
     finally:
         test_runner.run_inference = run_inference
-        shutil.rmtree(os.path.join(REPO, "output", exp_dir),
-                      ignore_errors=True)
+        for d in (exp_dir, exp_dir + "_batch"):
+            shutil.rmtree(os.path.join(REPO, "output", d), ignore_errors=True)
     micro = EVAL_ITERS * int(cfg.TRAIN.ITERSIZE)
     want = {"fused_stem": micro + len(cfg.TEST.SCALES) * EVAL_IMAGES,
             "fused_stem_grad": 0, "max_iou": micro, "bbox_vote": EVAL_IMAGES,
             "nms": 0}
     say("eval_cli", result=result, files=found, launches=counts,
-        launches_expected=want, wall_s=wall, **stats)
+        launches_expected=want, wall_s=wall, **first_stats)
     if not re.fullmatch(r"Easy: [0-9.]+, Medium: [0-9.]+, Hard: [0-9.]+",
                         str(result)):
         raise AssertionError(f"eval_cli gave no Easy/Medium/Hard line: "
@@ -1226,6 +1642,22 @@ def eval_cli(cfg, stem, iou, nms_device, work):
         raise AssertionError(f"eval_cli is missing files: {found}")
     if counts != want:
         raise AssertionError(f"eval_cli launches {counts}, expected {want}")
+    rules = [_rule(a, b, DM_MATCH_MIN) for a, b in zip(batched, one_by_one)]
+    batches = EVAL_IMAGES // 2          # one bucket key: no image left over
+    want = {"fused_stem": len(cfg.TEST.SCALES) * batches,
+            "fused_stem_grad": 0, "max_iou": 0, "bbox_vote": batches,
+            "nms": 0}
+    say("eval_cli_eval_batch", eval_batch=2, result=batch_result,
+        images=len(batched), rule_holds=[r[0] for r in rules],
+        min_match=[min(r[1], r[2]) for r in rules],
+        count_diffs=[len(a) - len(b) for a, b in zip(batched, one_by_one)],
+        launches=batch_counts, launches_expected=want, **stats)
+    if len(batched) != EVAL_IMAGES or not all(r[0] for r in rules):
+        raise AssertionError("EVAL_BATCH 2 detections differ from "
+                             "EVAL_BATCH 1's")
+    if batch_counts != want:
+        raise AssertionError(f"eval_cli with EVAL_BATCH 2 launches "
+                             f"{batch_counts}, expected {want}")
     return counts
 
 

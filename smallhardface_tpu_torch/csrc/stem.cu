@@ -21,7 +21,11 @@
 // zeros, both in the input and in the conv1_1 activations that conv1_2
 // reads: the reference network's implicit zero padding, so the conv1_2 halo
 // holds 0 and not relu(b1). Output positions beyond the valid extent are
-// computed from those zeros and are not meaningful.
+// computed from those zeros and are not meaningful. Where extents is not
+// null, image b takes its own (vh, vw) from extents[2b], extents[2b + 1]
+// (an int32 (B, 2) array on the device) and the scalar vh, vw are not
+// read: one launch serves a bucketed detection batch whose images have
+// different extents, with the same arithmetic as one launch per image.
 //
 // Routing (the contract with K2, csrc/stem_grad.cu). Where route is not
 // null, route[b][q][p][co] says where the pool's gradient goes in window
@@ -242,7 +246,8 @@ __global__ void __launch_bounds__(NT, 1)
 stem_kernel(const float* __restrict__ x, const float* __restrict__ w1,
             const float* __restrict__ b1, const unsigned* __restrict__ wsplit,
             const float* __restrict__ b2, float* __restrict__ out,
-            unsigned char* __restrict__ route, int H, int W, int vh, int vw) {
+            unsigned char* __restrict__ route, int H, int W, int vh, int vw,
+            const int* __restrict__ extents) {
   extern __shared__ __align__(16) float smem[];
   float* c1s = smem;                                              // [CR * CC][CS]
   unsigned* wbuf = reinterpret_cast<unsigned*>(smem + C1_FLOATS); // 2 taps
@@ -255,8 +260,8 @@ stem_kernel(const float* __restrict__ x, const float* __restrict__ w1,
   const int b = blockIdx.z;
   const int r0 = blockIdx.y * TH;
   const int c0 = blockIdx.x * TW;
-  const int rl = min(H, vh);
-  const int cl = min(W, vw);
+  const int rl = min(H, extents ? extents[2 * b] : vh);
+  const int cl = min(W, extents ? extents[2 * b + 1] : vw);
 
   // 0-2. tap 0's weights load while the input tile and conv1_1 are made
   stage_tap(wbuf, wsplit, 0, tid);
@@ -378,13 +383,14 @@ stem_kernel(const float* __restrict__ x, const float* __restrict__ w1,
 }  // namespace
 
 // Launches K1 on `stream` (a cudaStream_t): the w2 split into wsplit
-// (W2_SPLIT = 9 * 8192 32-bit words), then the stem; route may be null.
-// Returns a cudaError_t: 0 when both launches succeeded. Does not
-// synchronise.
+// (W2_SPLIT = 9 * 8192 32-bit words), then the stem; route may be null;
+// extents may be null (one extent vh, vw for the batch) or an int32 (B, 2)
+// device array of per-image extents. Returns a cudaError_t: 0 when both
+// launches succeeded. Does not synchronise.
 extern "C" int shf_stem_forward(const float* x, const float* w1, const float* b1,
                                 const float* w2, const float* b2, unsigned* wsplit,
                                 float* out, unsigned char* route, int B, int H, int W,
-                                int vh, int vw, void* stream) {
+                                int vh, int vw, const int* extents, void* stream) {
   if (B <= 0 || H <= 0 || W <= 0 || (H & 1) || (W & 1) ||
       (H + TH - 1) / TH > 65535 || B > 65535)
     return (int)cudaErrorInvalidValue;
@@ -404,7 +410,8 @@ extern "C" int shf_stem_forward(const float* x, const float* w1, const float* b1
       w2, reinterpret_cast<uint4*>(wsplit));
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   const dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, B);
-  stem_kernel<<<grid, NT, SMEM_BYTES, s>>>(x, w1, b1, wsplit, b2, out, route, H, W, vh, vw);
+  stem_kernel<<<grid, NT, SMEM_BYTES, s>>>(x, w1, b1, wsplit, b2, out, route, H, W, vh, vw,
+                                           extents);
   return (int)cudaGetLastError();
 }
 

@@ -1,6 +1,6 @@
 // The final vote of a detection for NVIDIA Hopper (sm_90a): greedy
 // score-weighted box voting (BBOX_VOTE) and greedy NMS over the top
-// candidates of one image, in one thread block.
+// candidates of each image of a batch, one thread block per image.
 //
 // Replaces smallhardface_tpu/ops/nms_jax.py:bbox_vote_device (:70) and
 // nms_device (:27), which the JAX package runs as XLA loops with one step
@@ -11,8 +11,11 @@
 // interface.
 //
 // Semantics (nms_jax.py, and the plain versions in ops/nms_device.py).
-// dets (V, 5) fp32 [x1, y1, x2, y2, score], sorted by descending score; the
-// first n_valid rows are candidates (n_valid read on the device). Each step
+// dets (B, V, 5) fp32 [x1, y1, x2, y2, score], each image's rows sorted by
+// descending score; the first n_valid[b] rows of image b are candidates
+// (n_valid, (B,) int32, read on the device). Block b runs the steps below
+// on image b's rows alone, exactly as a launch for that image alone would
+// (the counterpart of jax.vmap over the JAX functions). Each step
 // takes the lowest remaining row as its head and computes every remaining
 // row's IoU with it as inter / (area[head] + area - inter), +1 pixel
 // convention. Vote: the cluster is the rows with IoU >= thresh; two or more
@@ -28,9 +31,9 @@
 // rounding; exact where every product and sum is, as on small integer boxes
 // with dyadic scores).
 //
-// Outputs. out (V, 5) fp32: the emitted rows in order, zeros after them;
-// n_out: one int32, written on the device, so that the caller reads back
-// only the rows it needs, after one synchronisation.
+// Outputs. out (B, V, 5) fp32: each image's emitted rows in order, zeros
+// after them; n_out (B,) int32, written on the device, so that the caller
+// reads back only the rows it needs, after one synchronisation.
 //
 // What bounds it. The work is a chain of dependent steps, one per cluster:
 // a step needs the previous one's head. Each step reads the remaining rows
@@ -42,7 +45,8 @@
 // thread's rows, then a reduction over the block, then one thread's
 // emission) times the number of clusters.
 //
-// Design. One block of 512 threads; thread t owns rows t, t + 512, ... (at
+// Design. One block of 512 threads per image (gridDim.x = B; the blocks
+// share nothing); thread t owns rows t, t + 512, ... (at
 // most 16, V <= 8192) and keeps which of them remain as a bitmask in a
 // register. The rows and their areas sit in dynamic shared memory (24 V
 // bytes; 48 KB at V = 2048), loaded once. A step: every thread tests its
@@ -99,6 +103,11 @@ __global__ void __launch_bounds__(THREADS)
   __shared__ Partial partials[WARPS];
   __shared__ int head_sh, count_sh;
 
+  // this block's image
+  dets += (size_t)blockIdx.x * V * 5;
+  out += (size_t)blockIdx.x * V * 5;
+  n_valid_p += blockIdx.x;
+  n_out += blockIdx.x;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int n_valid = min(max(*n_valid_p, 0), V);
   for (int j = tid; j < V; j += THREADS) {
@@ -190,9 +199,9 @@ __global__ void __launch_bounds__(THREADS)
 }
 
 template <bool VOTE>
-int launch(const float* dets, const int* n_valid, int V, float thresh, float* out, int* n_out,
-           void* stream) {
-  if (V < 0 || V > MAX_ROWS) return (int)cudaErrorInvalidValue;
+int launch(const float* dets, const int* n_valid, int B, int V, float thresh, float* out,
+           int* n_out, void* stream) {
+  if (B <= 0 || B > 65535 || V < 0 || V > MAX_ROWS) return (int)cudaErrorInvalidValue;
   const size_t smem = sizeof(float) * 6 * (size_t)V;
   // The shared-memory limit belongs to the current device and outlasts the
   // call; it is set on every call outside a CUDA-graph capture, where
@@ -206,20 +215,21 @@ int launch(const float* dets, const int* n_valid, int V, float thresh, float* ou
                              (int)(sizeof(float) * 6 * MAX_ROWS));
     if (e != cudaSuccess) return (int)e;
   }
-  vote_kernel<VOTE><<<1, THREADS, smem, s>>>(dets, n_valid, V, thresh, out, n_out);
+  vote_kernel<VOTE><<<B, THREADS, smem, s>>>(dets, n_valid, V, thresh, out, n_out);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int shf_bbox_vote(const float* dets, const int* n_valid, int V, float thresh,
-                             float* out, int* n_out, void* stream) {
-  return launch<true>(dets, n_valid, V, thresh, out, n_out, stream);
+// B images of V rows each in one launch (B = 1 for one image).
+extern "C" int shf_bbox_vote(const float* dets, const int* n_valid, int B, int V,
+                             float thresh, float* out, int* n_out, void* stream) {
+  return launch<true>(dets, n_valid, B, V, thresh, out, n_out, stream);
 }
 
-extern "C" int shf_nms(const float* dets, const int* n_valid, int V, float thresh, float* out,
-                       int* n_out, void* stream) {
-  return launch<false>(dets, n_valid, V, thresh, out, n_out, stream);
+extern "C" int shf_nms(const float* dets, const int* n_valid, int B, int V, float thresh,
+                       float* out, int* n_out, void* stream) {
+  return launch<false>(dets, n_valid, B, V, thresh, out, n_out, stream);
 }
 
 extern "C" const char* shf_cuda_error_string(int e) {

@@ -12,6 +12,12 @@ and ``_pyramid_scales`` (:38-73), and ``TPUDetector`` (``_build_run``,
   extent, and the mirrored copy for flip TTA;
 - each level runs at its exact ×16 shape (the JAX ``"exact"`` mask mode),
   image and mirror as a batch of 2, then softmax and decode;
+- ``detect_many`` (JAX detect.py:586-680) runs the images that share a
+  ``_prep`` key as one batch through every level, at level buckets
+  rounded up to ``TPU.TEST_BUCKET`` (the only reader of that knob), each
+  image with its own resize, mirror and extent (the forward masks each
+  one to its own extent, the JAX ``"where"`` mode under ``vmap``), and
+  votes all of them in one launch;
 - levels merge in original-image coordinates and the strict ``> thresh``
   cut applies;
 - under ``TPU.DEVICE_VOTE`` (the default) the top ``TPU.VOTE_CAP`` rows
@@ -24,8 +30,8 @@ and ``_pyramid_scales`` (:38-73), and ``TPUDetector`` (``_build_run``,
 
 ``TPU.HOST_PREPROC`` is the reference-exact parity path: a cv2 resize per
 level on the host, one float32 upload per level, and the float64 host
-vote. Only ``TPU.PRECISION = "float32"`` is ported; ``detect_many``, int8
-calibration and spatial meshes wait (ROADMAP).
+vote. Only ``TPU.PRECISION = "float32"`` is ported; int8 calibration and
+spatial meshes wait (ROADMAP).
 """
 
 from __future__ import annotations
@@ -50,10 +56,10 @@ logger = logging.getLogger(__name__)
 # TPU knobs of the config schema that the port reads and ignores, each
 # with why (ROADMAP "Not carried over"); TorchDetector logs them.
 IGNORED_TPU_KNOBS = {
-    "MASK_MODE": "every level runs at its exact x16 shape, the JAX 'exact' "
-                 "mode, so there is no bucket padding to mask",
-    "TEST_BUCKET": "buckets bounded the number of compiled XLA programs; "
-                   "eager PyTorch compiles nothing per shape",
+    "MASK_MODE": "detect runs every level at its exact x16 shape (the JAX "
+                 "'exact' mode) and detect_many masks each image of a "
+                 "bucket to its own extent (the JAX 'where' mode); the "
+                 "'band' margin was a TPU speed trick",
     "S2D_STEM": "a TPU matrix-unit layout trick for conv1_1; the stem is "
                 "one fused CUDA kernel",
     "PALLAS_STEM": "the stem always runs through ops/stem.fused_stem: the "
@@ -65,7 +71,6 @@ IGNORED_TPU_KNOBS = {
     "DECODE_FAST_K": "a faster TPU top-k with identical output; the port "
                      "sorts once per level",
     "SPATIAL_DEVICES": "spatial sharding is not ported yet",
-    "EVAL_BATCH": "batched evaluation (detect_many) is not ported yet",
 }
 
 
@@ -170,53 +175,132 @@ class TorchDetector:
         self.device_vote = bool(cfg.TPU.DEVICE_VOTE) and not self.host_preproc
         self.vote_cap = int(cfg.TPU.VOTE_CAP)
         self.merged_cap = int(cfg.TPU.MERGED_DET_CAP)
+        self._warned_host_preproc = False
 
     def _prep(self, im):
-        """The edge-padded raw image and the per-level metadata, all host
-        Python numbers: resize factor, its float32 inverse, the resized
-        extent (h_s, w_s) and the ×16 level shape (hb, wb)."""
+        """The raw image edge-padded to ×16 (``padded``, the exact-shape
+        path of ``detect``), the per-level metadata, all host Python
+        numbers (resize factor, its float32 inverse, the resized extent
+        (h_s, w_s), the ×16 level shape (hb, wb) and its ``TPU.TEST_BUCKET``
+        bucket (bh, bw)), and ``key``: the images of one key share their
+        raw shape padded to the bucket (H0b, W0b) and every level's bucket,
+        so ``detect_many`` runs them as one batch (JAX detect.py:504-551,
+        without its TPU mask-mode and layout knobs)."""
         if isinstance(im, str):
             im = _imread(im)
         h0, w0 = im.shape[:2]
-        H0b = _round_up(h0, cfg.MAX_RESOLUTION)
-        W0b = _round_up(w0, cfg.MAX_RESOLUTION)
-        padded = np.pad(im, ((0, H0b - h0), (0, W0b - w0), (0, 0)),
-                        mode="edge")
+        padded = _pad_to(im, _round_up(h0, cfg.MAX_RESOLUTION),
+                         _round_up(w0, cfg.MAX_RESOLUTION))
+        bucket = max(int(cfg.TPU.TEST_BUCKET), cfg.MAX_RESOLUTION)
         levels = []
         for scale in _pyramid_scales(im.shape):
             h_s = int(round(h0 * scale))
             w_s = int(round(w0 * scale))
             inv_fx = float(np.float32(1.0 / scale))
+            hb = _round_up(max(h_s, 1), cfg.MAX_RESOLUTION)
+            wb = _round_up(max(w_s, 1), cfg.MAX_RESOLUTION)
             levels.append({
                 # the JAX program receives inv_fx as float32 and resizes by
                 # its float32 reciprocal
                 "scale": float(np.float32(1.0) / np.float32(inv_fx)),
-                "inv_fx": inv_fx,
-                "h_s": h_s, "w_s": w_s,
-                "hb": _round_up(max(h_s, 1), cfg.MAX_RESOLUTION),
-                "wb": _round_up(max(w_s, 1), cfg.MAX_RESOLUTION)})
-        return {"padded": np.ascontiguousarray(padded), "levels": levels}
+                "inv_fx": inv_fx, "h_s": h_s, "w_s": w_s, "hb": hb, "wb": wb,
+                "bh": _round_up(hb, bucket), "bw": _round_up(wb, bucket)})
+        vote = str(cfg.TEST.NMS_METHOD) if self.device_vote else None
+        key = (_round_up(h0, bucket), _round_up(w0, bucket),
+               tuple((lv["bh"], lv["bw"]) for lv in levels),
+               bool(cfg.TEST.FLIP), vote)
+        return {"image": im, "padded": np.ascontiguousarray(padded),
+                "levels": levels, "key": key}
 
-    def _level_input(self, img, lv):
-        """(B, hb, wb, 3) network input of one level from the float image
-        (H0b, W0b, 3): B = 2 (image, mirror) under TEST.FLIP, else 1."""
-        H0b, W0b, _ = img.shape
-        hb, wb, h_s, w_s = lv["hb"], lv["wb"], lv["h_s"], lv["w_s"]
-        wy = linear_resize_weights(H0b, hb, lv["scale"], self.device)
-        wx = linear_resize_weights(W0b, wb, lv["scale"], self.device)
-        t = (wy.T @ img.reshape(H0b, W0b * 3)).reshape(hb, W0b, 3)
-        resized = (t.permute(0, 2, 1) @ wx).permute(0, 2, 1) - self.mean
-        rows = torch.arange(hb, device=self.device) < h_s
-        cols = torch.arange(wb, device=self.device) < w_s
-        valid = (rows[:, None] & cols[None, :])[..., None]
+    def _level_batch(self, imgs, lvs, hb, wb):
+        """(N·F, hb, wb, 3) network input of one level for N float images
+        (N, H0, W0, 3) of one raw shape, each with its own level metadata
+        ``lvs[i]``: its own linear resize, the mean subtracted, zeros beyond
+        its own extent (h_s, w_s), and under TEST.FLIP (F = 2) its mirror
+        about its own w_s right after it."""
+        n, H0, W0, _ = imgs.shape
+        dev = self.device
+        wy = torch.stack([linear_resize_weights(H0, hb, lv["scale"], dev)
+                          for lv in lvs])
+        wx = torch.stack([linear_resize_weights(W0, wb, lv["scale"], dev)
+                          for lv in lvs])
+        t = (wy.transpose(1, 2) @ imgs.reshape(n, H0, W0 * 3)).reshape(
+            n, hb, W0, 3)
+        # rows and colours of an image fold into one product with its wx
+        t = t.permute(0, 1, 3, 2).reshape(n, hb * 3, W0)
+        resized = ((t @ wx).reshape(n, hb, 3, wb).permute(0, 1, 3, 2)
+                   - self.mean)
+        h_s = torch.tensor([lv["h_s"] for lv in lvs], device=dev)
+        w_s = torch.tensor([lv["w_s"] for lv in lvs], device=dev)
+        rows = torch.arange(hb, device=dev) < h_s[:, None]
+        cols = torch.arange(wb, device=dev) < w_s[:, None]
+        valid = (rows[:, :, None] & cols[:, None, :])[..., None]
         resized = torch.where(valid, resized, 0.0)
-        ims = [resized]
-        if cfg.TEST.FLIP:
-            # mirror about the level's own width w_s, not the padded wb
-            idx = (w_s - 1 - torch.arange(wb, device=self.device)).clamp(
-                0, wb - 1)
-            ims.append(torch.where(valid, resized[:, idx], 0.0))
-        return torch.stack(ims, dim=0).contiguous()
+        if not cfg.TEST.FLIP:
+            return resized.contiguous()
+        # mirror about each image's own width w_s, not the padded wb
+        idx = (w_s[:, None] - 1 - torch.arange(wb, device=dev)).clamp(
+            0, wb - 1)
+        mirrored = torch.gather(
+            resized, 2, idx[:, None, :, None].expand(n, hb, wb, 3))
+        mirrored = torch.where(valid, mirrored, 0.0)
+        return torch.stack([resized, mirrored], dim=1).reshape(
+            n * 2, hb, wb, 3)
+
+    def _pyramid(self, preps, bucketed, score_thresh):
+        """Enqueue the whole pyramid of N images on the device: every level
+        of all of them as one batch (image and mirror per image), at the
+        exact ×16 shapes of one image, or at the shared level buckets of a
+        ``_prep`` key with each image's own extents (``bucketed``). Returns
+        the merged rows of every level per image, boxes (N, R, 4) in each
+        image's original coordinates and scores (N, R), -inf on empty
+        slots; nothing waits for the device."""
+        n = len(preps)
+        dev = self.device
+        reps = 2 if cfg.TEST.FLIP else 1
+        st = float(score_thresh if score_thresh is not None
+                   else cfg.TEST.SCORE_THRESH)
+        raw = np.stack([p["padded"] for p in preps]) if not bucketed else \
+            np.stack([_pad_to(p["image"], *p["key"][:2]) for p in preps])
+        all_boxes, all_scores = [], []
+        imgs = torch.from_numpy(raw).to(dev).float()
+        for li in range(len(preps[0]["levels"])):
+            lvs = [p["levels"][li] for p in preps]
+            hb, wb = ((lvs[0]["bh"], lvs[0]["bw"]) if bucketed
+                      else (lvs[0]["hb"], lvs[0]["wb"]))
+            per_item = lambda k: torch.tensor(  # noqa: E731
+                [lv[k] for lv in lvs], device=dev).repeat_interleave(reps)
+            x = self._level_batch(imgs, lvs, hb, wb)
+            # the forward masks each item to its own ×16 extent in a bucket
+            out = self.model(x, (per_item("hb"), per_item("wb"))
+                             if bucketed else None)
+            probs = torch.softmax(out["cls_logits"], dim=-1)[..., 1]
+            boxes, scores, counts = decode_mod.decode_proposals_batch(
+                probs, out["bbox_deltas"], self.base_anchors,
+                feat_stride=detector_mod.FEAT_STRIDE,
+                im_h=per_item("h_s").float(), im_w=per_item("w_s").float(),
+                valid_h=per_item("hb") // detector_mod.FEAT_STRIDE,
+                valid_w=per_item("wb") // detector_mod.FEAT_STRIDE,
+                score_thresh=st, min_size=0.0, capacity=self.capacity)
+            cap = boxes.shape[1]
+            boxes = boxes.view(n, reps, cap, 4)
+            slot = torch.arange(cap, device=dev)
+            row_ok = slot < counts.view(n, reps, 1)
+            if cfg.TEST.FLIP:
+                # un-mirror in network-input space, about each w_s
+                ws_f = torch.tensor([float(lv["w_s"]) for lv in lvs],
+                                    device=dev)[:, None]
+                m = boxes[:, 1]
+                flipped = torch.stack([ws_f - m[..., 2], m[..., 1],
+                                       ws_f - m[..., 0], m[..., 3]], dim=-1)
+                boxes = torch.stack([boxes[:, 0], flipped], dim=1)
+            inv_fx = torch.tensor([lv["inv_fx"] for lv in lvs], device=dev)
+            boxes = boxes * inv_fx[:, None, None, None]
+            scores = torch.where(row_ok, scores.view(n, reps, cap),
+                                 -float("inf"))
+            all_boxes.append(boxes.reshape(n, -1, 4))
+            all_scores.append(scores.reshape(n, -1))
+        return torch.cat(all_boxes, dim=1), torch.cat(all_scores, dim=1)
 
     def merged_candidates(self, im, thresh=0.05, score_thresh=None):
         """Upload one image and enqueue its whole pyramid on the device.
@@ -224,60 +308,45 @@ class TorchDetector:
         original-image coordinates, scores (R,), -inf on empty slots) and
         which of them pass the detect-level cut (scores > thresh), all on
         the device; nothing waits for it."""
-        p = self._prep(im)
-        st = float(score_thresh if score_thresh is not None
-                   else cfg.TEST.SCORE_THRESH)
-        all_boxes, all_scores = [], []
         with torch.inference_mode():
-            img = torch.from_numpy(p["padded"]).to(self.device).float()
-            for lv in p["levels"]:
-                x = self._level_input(img, lv)
-                out = self.model(x)
-                probs = torch.softmax(out["cls_logits"], dim=-1)[..., 1]
-                boxes, scores, counts = decode_mod.decode_proposals_batch(
-                    probs, out["bbox_deltas"], self.base_anchors,
-                    feat_stride=detector_mod.FEAT_STRIDE,
-                    im_h=float(lv["h_s"]), im_w=float(lv["w_s"]),
-                    valid_h=lv["hb"] // detector_mod.FEAT_STRIDE,
-                    valid_w=lv["wb"] // detector_mod.FEAT_STRIDE,
-                    score_thresh=st, min_size=0.0, capacity=self.capacity)
-                slot = torch.arange(boxes.shape[1], device=self.device)
-                row_ok = slot[None, :] < counts[:, None]
-                if cfg.TEST.FLIP:
-                    # un-mirror in network-input space, about w_s
-                    ws_f = float(lv["w_s"])
-                    flipped = torch.stack(
-                        [ws_f - boxes[1, :, 2], boxes[1, :, 1],
-                         ws_f - boxes[1, :, 0], boxes[1, :, 3]], dim=-1)
-                    boxes = torch.stack([boxes[0], flipped], dim=0)
-                boxes = boxes * lv["inv_fx"]
-                scores = torch.where(row_ok, scores, -float("inf"))
-                all_boxes.append(boxes.reshape(-1, 4))
-                all_scores.append(scores.reshape(-1))
-            cat_scores = torch.cat(all_scores)
+            boxes, scores = self._pyramid([self._prep(im)], False,
+                                          score_thresh)
             # the strict > of the reference (lib/test.py:163)
-            return torch.cat(all_boxes), cat_scores, cat_scores > thresh
+            return boxes[0], scores[0], scores[0] > thresh
 
-    def detect_async(self, im, thresh=0.05, score_thresh=None):
-        """Enqueue one image's pyramid and, under the device vote, its vote
-        on the device. ``thresh`` is the detect-level cut (probs > thresh).
-        Returns a handle for ``finalize_async``; nothing waits for the
-        device here."""
-        boxes, scores, keep = self.merged_candidates(im, thresh,
-                                                     score_thresh)
+    def _dispatch(self, boxes, scores, thresh):
+        """The final stage of N images' merged rows (N, R, ·) on the
+        device, one handle per image for ``finalize_async``: under the
+        device vote the top VOTE_CAP kept rows of every image are voted in
+        one launch; otherwise each image's kept rows (the top
+        MERGED_DET_CAP when that is > 0) wait for the host vote."""
         with torch.inference_mode():
+            keep = scores > thresh      # the strict > of lib/test.py:163
             if self.device_vote:
                 dets, n = top_rows(boxes, scores, keep, self.vote_cap)
                 vote = (nms_device.bbox_vote_device
                         if cfg.TEST.NMS_METHOD == "BBOX_VOTE"
                         else nms_device.nms_device)
                 out, n_out = vote(dets, n, float(cfg.TEST.NMS_THRESH))
-                return {"packed": out, "n": n_out, "voted": True}
+                return [{"packed": o, "n": c, "voted": True}
+                        for o, c in zip(out, n_out)]
             if self.merged_cap > 0:
                 dets, n = top_rows(boxes, scores, keep, self.merged_cap)
-                return {"packed": dets, "n": n, "voted": False}
-            rows = torch.cat([boxes, scores[:, None]], dim=1)
-        return {"packed": rows, "keep": keep, "voted": False}
+                return [{"packed": d, "n": c, "voted": False}
+                        for d, c in zip(dets, n)]
+            rows = torch.cat([boxes, scores[..., None]], dim=-1)
+            return [{"packed": r, "keep": k, "voted": False}
+                    for r, k in zip(rows, keep)]
+
+    def detect_async(self, im, thresh=0.05, score_thresh=None):
+        """Enqueue one image's pyramid at its exact ×16 level shapes and,
+        under the device vote, its vote on the device. ``thresh`` is the
+        detect-level cut (probs > thresh). Returns a handle for
+        ``finalize_async``; nothing waits for the device here."""
+        with torch.inference_mode():
+            boxes, scores = self._pyramid([self._prep(im)], False,
+                                          score_thresh)
+        return self._dispatch(boxes, scores, thresh)[0]
 
     def finalize_async(self, handle, thresh=0.05):
         """Copy one image's rows to the host: the voted rows under the
@@ -296,6 +365,55 @@ class TorchDetector:
                 dets = np.array([[10, 10, 20, 20, 0.0001]], np.float32)
             return [dets]
         return [_host_vote(dets)]
+
+    def detect_many(self, ims, thresh=0.05, score_thresh=None,
+                    max_batch=None):
+        """Batched detection (JAX ``TPUDetector.detect_many``,
+        detect.py:606-680): the images of one ``_prep`` key run as one
+        batch through every level, at the key's level buckets
+        (``TPU.TEST_BUCKET``), each image with its own resize, extent and
+        mirror, and their final votes as one launch. ``max_batch`` (> 0)
+        bounds the images of one batch; a key's images are cut into
+        batches in input order. Returns one cls_dets per image, in input
+        order, each like ``detect``'s and equal to it within float
+        rounding (other shapes sum in other orders).
+
+        Under TPU.HOST_PREPROC there is no batched device path: rather
+        than run another numeric path than asked, it runs ``detect`` per
+        image with a one-time warning, and refuses ``score_thresh``, which
+        the host path does not take."""
+        if self.host_preproc:
+            if score_thresh is not None:
+                raise ValueError(
+                    "detect_many(score_thresh=...) is not supported under "
+                    "TPU.HOST_PREPROC (the host path applies "
+                    "cfg.TEST.SCORE_THRESH)")
+            if not self._warned_host_preproc:
+                logger.warning(
+                    "TPU.HOST_PREPROC is set: detect_many falls back to "
+                    "sequential per-image detect() (no batched device "
+                    "path on the host-preproc parity path)")
+                self._warned_host_preproc = True
+            return [self.detect(im, thresh)[0] for im in ims]
+        preps = [self._prep(im) for im in ims]
+        groups = {}
+        for i, p in enumerate(preps):
+            groups.setdefault(p["key"], []).append(i)
+        step = int(max_batch) if max_batch and max_batch > 0 else len(preps)
+        pending = []
+        for idxs in groups.values():
+            for c in range(0, len(idxs), step):
+                chunk = idxs[c:c + step]
+                with torch.inference_mode():
+                    boxes, scores = self._pyramid(
+                        [preps[i] for i in chunk], True, score_thresh)
+                pending.append((chunk, self._dispatch(boxes, scores,
+                                                      thresh)))
+        results = [None] * len(preps)
+        for chunk, handles in pending:
+            for i, handle in zip(chunk, handles):
+                results[i] = self.finalize_async(handle, thresh)
+        return results
 
     def forward_scale(self, ims, im_h, im_w, score_thresh=None):
         """Host-preprocessing path: one pyramid level from resized,
@@ -377,14 +495,22 @@ def top_rows(boxes, scores, keep, cap):
     """The top min(cap, total) rows (k, 5) by score among the kept ones,
     in descending score order with the lower index first among ties (as
     ``lax.top_k`` orders them), and how many of them are kept (0-d int32,
-    on the device)."""
+    on the device). With a leading image axis (boxes (N, R, 4), scores and
+    keep (N, R)), per image: (N, k, 5) and (N,)."""
     sortable = torch.where(keep, scores, -torch.inf)
-    k = min(cap, sortable.shape[0])
-    top, idx = torch.sort(sortable, descending=True, stable=True)
-    top, idx = top[:k], idx[:k]
-    dets = torch.cat([boxes[idx], top[:, None]], dim=1).contiguous()
-    n = keep.sum().clamp(max=k).to(torch.int32)
+    k = min(cap, sortable.shape[-1])
+    top, idx = torch.sort(sortable, dim=-1, descending=True, stable=True)
+    top, idx = top[..., :k], idx[..., :k]
+    picked = torch.gather(boxes, -2, idx[..., None].expand(*idx.shape, 4))
+    dets = torch.cat([picked, top[..., None]], dim=-1).contiguous()
+    n = keep.sum(-1).clamp(max=k).to(torch.int32)
     return dets, n
+
+
+def _pad_to(im, H, W):
+    """The raw image edge-padded to (H, W)."""
+    h0, w0 = im.shape[:2]
+    return np.pad(im, ((0, H - h0), (0, W - w0), (0, 0)), mode="edge")
 
 
 def _host_vote(dets):

@@ -26,7 +26,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from smallhardface_tpu_torch.models.layers import (
-    bilinear_kernel, conv2d, max_pool_2x2, upsample2x_bilinear, zero_outside)
+    bilinear_kernel, conv2d, conv3x3, max_pool_2x2, upsample2x_bilinear,
+    zero_outside)
 from smallhardface_tpu_torch.ops.stem import fused_stem
 
 # (name, out_channels, n_convs) per VGG stage
@@ -283,7 +284,10 @@ class Detector(nn.Module):
         ``valid_hw=(vh, vw)`` (the ×16 image extent inside a larger
         tensor), every position outside it is exactly zero before each
         spatial conv, the JAX ``"where"`` mode (detector.py:435-446,
-        :503-522); outputs beyond (vh/8, vw/8) are not meaningful.
+        :503-522); outputs beyond (vh/8, vw/8) are not meaningful. vh and
+        vw may be (B,) int tensors, one extent per item, as the JAX
+        ``"where"`` mode gives each item of a ``vmap`` its own (detection
+        of a bucketed batch; the stem then takes no gradient).
         """
         spec = self.spec
         stride = 1
@@ -294,10 +298,9 @@ class Detector(nn.Module):
             return zero_outside(h, valid_hw[0] // stride,
                                 valid_hw[1] // stride)
 
-        def cbr(h, name, dilation=1):
+        def cbr(h, name):
             w, b = self._w(name)
-            return mask(F.relu(conv2d(h, w, b, dilation=dilation,
-                                      padding=dilation)))
+            return mask(F.relu(conv3x3(h, w, b)))
 
         # VGG-16's stem runs fused (the kernel on the card); it masks its
         # input and conv1_1 itself, and its NHWC output is an NCHW-shaped
@@ -340,7 +343,7 @@ class Detector(nn.Module):
             hw, hb = self._w("head")
             cls_list, box_list = [], []
             for k, d in zip(ANCHOR_SCALES, HEAD_DILATIONS):
-                hd = F.relu(conv2d(ff, hw, hb, dilation=d, padding=d))
+                hd = F.relu(conv3x3(ff, hw, hb, dilation=d))
                 cls_list.append(conv2d(hd, *self._w(f"cls_score_{k}")))
                 box_list.append(conv2d(hd, *self._w(f"bbox_pred_{k}")))
             # (B, C, h, w) per anchor → (B, h, w, A, C)

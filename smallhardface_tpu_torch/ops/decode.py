@@ -34,6 +34,14 @@ def dense_anchor_grid(h, w, base_anchors, feat_stride, device=None):
     return a[None, None] + shift
 
 
+def _per_image(v, device, dtype):
+    """A (B,) tensor of per-image values as (B, 1, 1, 1), to broadcast over
+    (B, h, w, A); a number as it is."""
+    if isinstance(v, torch.Tensor) and v.dim() == 1:
+        return v.to(device=device, dtype=dtype)[:, None, None, None]
+    return v
+
+
 def _decode_fields(fg_scores, bbox_deltas, base_anchors, *, feat_stride,
                    im_h, im_w, valid_h, valid_w, score_thresh, min_size,
                    capacity):
@@ -42,13 +50,26 @@ def _decode_fields(fg_scores, bbox_deltas, base_anchors, *, feat_stride,
     count (B,) (entries >= score_thresh, clamped to [1, capacity]: at least
     one box survives, proposal_layer.py:183-185), and the capacity."""
     _, h, w, A = fg_scores.shape
-    anchors = dense_anchor_grid(h, w, base_anchors, feat_stride,
-                                device=fg_scores.device)
-    boxes = bbox.clip_boxes(bbox.bbox_transform_inv(anchors, bbox_deltas),
-                            im_h, im_w)
-    gy = torch.arange(h, device=fg_scores.device)[:, None, None]
-    gx = torch.arange(w, device=fg_scores.device)[None, :, None]
-    grid_ok = (gy < valid_h) & (gx < valid_w)
+    dev = fg_scores.device
+    anchors = dense_anchor_grid(h, w, base_anchors, feat_stride, device=dev)
+    decoded = bbox.bbox_transform_inv(anchors, bbox_deltas)
+    if isinstance(im_h, torch.Tensor) and im_h.dim() == 1:
+        # per image: x into [0, im_w - 1], y into [0, im_h - 1], as
+        # clip_boxes does for one extent (jnp.clip under vmap)
+        lo = torch.zeros((), dtype=decoded.dtype, device=dev)
+        hi_x = _per_image(im_w, dev, decoded.dtype) - 1
+        hi_y = _per_image(im_h, dev, decoded.dtype) - 1
+        boxes = torch.stack([
+            torch.clamp(decoded[..., 0], lo, hi_x),
+            torch.clamp(decoded[..., 1], lo, hi_y),
+            torch.clamp(decoded[..., 2], lo, hi_x),
+            torch.clamp(decoded[..., 3], lo, hi_y)], dim=-1)
+    else:
+        boxes = bbox.clip_boxes(decoded, im_h, im_w)
+    gy = torch.arange(h, device=dev)[:, None, None]
+    gx = torch.arange(w, device=dev)[None, :, None]
+    grid_ok = ((gy < _per_image(valid_h, dev, torch.int64))
+               & (gx < _per_image(valid_w, dev, torch.int64)))
     ws = boxes[..., 2] - boxes[..., 0] + 1
     hs = boxes[..., 3] - boxes[..., 1] + 1
     keepable = grid_ok & (ws >= min_size) & (hs >= min_size)
@@ -66,7 +87,8 @@ def decode_proposals_batch(fg_scores, bbox_deltas, base_anchors, *,
                            score_thresh, min_size, capacity):
     """fg_scores (B, h, w, A) foreground probabilities, bbox_deltas
     (B, h, w, A, 4); im_h/im_w the unpadded image extent for clipping,
-    valid_h/valid_w the valid grid extent, all Python numbers.
+    valid_h/valid_w the valid grid extent: Python numbers, or (B,) tensors
+    giving each image its own (the JAX function under ``vmap``).
     Returns (boxes (B, cap, 4), scores (B, cap), n_keep (B,) int32) with
     cap = min(capacity, h·w·A), rows in descending score order, lower
     index first among ties. Rows at and beyond n_keep are to be ignored."""

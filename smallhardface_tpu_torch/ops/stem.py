@@ -26,6 +26,9 @@ runs its two 64-channel products in 3xTF32 too.
   grad mode is on and a weight needs a gradient), the backward launches
   K2, or it raises; it never falls back. ``fused_stem.launches`` counts
   K1's launches, ``fused_stem.route_writes`` those that wrote a routing.
+  For detection of a bucketed batch the valid extent may be given per
+  image (two (B,) int tensors, K1 reads them from the device in one
+  launch); then no weight may need a gradient.
 - ``fused_stem_grad_reference``: the plain backward, ``torch.autograd.grad``
   through ``fused_stem_reference`` with dy zeroed beyond the pooled valid
   extent. K2's oracle.
@@ -45,11 +48,11 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from smallhardface_tpu_torch.models.layers import zero_outside
+from smallhardface_tpu_torch.models.layers import per_item, zero_outside
 from smallhardface_tpu_torch.ops.cuda_build import CI, VP, CudaLibrary
 
 STEM = CudaLibrary("stem", "stem.cu",
-                   {"shf_stem_forward": [VP] * 8 + [CI] * 5 + [VP]})
+                   {"shf_stem_forward": [VP] * 8 + [CI] * 5 + [VP] * 2})
 STEM_GRAD = CudaLibrary("stem_grad", "stem_grad.cu",
                         {"shf_stem_grad": [VP] * 12 + [CI] * 7 + [VP]})
 GRAD_CHUNKS = 256       # pixel chunks of K2's weight gradient (fixed order)
@@ -74,8 +77,9 @@ def fused_stem_reference(x, w1, b1, w2, b2, valid_hw=None):
     """Plain PyTorch stem. x: NHWC (B, H, W, 3) fp32; w1 (64, 3, 3, 3) and
     w2 (64, 64, 3, 3) OIHW. With ``valid_hw=(vh, vw)`` the input and the
     conv1_1 activations are zero outside [0, vh) × [0, vw) before each conv
-    reads them (pallas_stem.py:98-104, :120-123). Pooling keeps Caffe's
-    ceil mode, so odd sizes work here. Returns NHWC (B, ⌈H/2⌉, ⌈W/2⌉, 64)."""
+    reads them (pallas_stem.py:98-104, :120-123); vh and vw may be (B,)
+    int tensors, one extent per image. Pooling keeps Caffe's ceil mode, so
+    odd sizes work here. Returns NHWC (B, ⌈H/2⌉, ⌈W/2⌉, 64)."""
     h = conv1_1_reference(x, w1, b1, valid_hw)
     h = F.relu(F.conv2d(h, w2, b2, padding=1))
     h = F.max_pool2d(h, 2, 2, ceil_mode=True)
@@ -163,8 +167,25 @@ def _hwio(w1, w2):
 
 
 def _valid(H, W, valid_hw):
+    if valid_hw is not None and per_item(valid_hw[0]):
+        raise NotImplementedError(
+            "fused_stem: per-image valid extents are for detection only; "
+            "the stem's backward (K2) takes one extent for the whole batch "
+            "(ROADMAP queue 2)")
     return (H, W) if valid_hw is None else (int(valid_hw[0]),
                                             int(valid_hw[1]))
+
+
+def _extents(x, valid_hw):
+    """(vh, vw, extents) for K1: one extent for the batch as two ints, or
+    per image as a device int32 (B, 2) array of (vh, vw) rows."""
+    B, H, W, _ = x.shape
+    if valid_hw is None or not per_item(valid_hw[0]):
+        return (*_valid(H, W, valid_hw), None)
+    ext = torch.stack([valid_hw[0], valid_hw[1]], dim=1).to(
+        device=x.device, dtype=torch.int32).contiguous()
+    _check(ext, "per-image valid extents", (B, 2), dtype=torch.int32)
+    return H, W, ext
 
 
 def _stem_kernel(x, w1, b1, w2, b2, valid_hw, with_route=False):
@@ -179,7 +200,7 @@ def _stem_kernel(x, w1, b1, w2, b2, valid_hw, with_route=False):
     _check(b1, "b1", (64,))
     _check(w2k, "w2", (3, 3, 64, 64))
     _check(b2, "b2", (64,))
-    vh, vw = _valid(H, W, valid_hw)
+    vh, vw, ext = _extents(x, valid_hw)
     lib = STEM.load()
     out = torch.empty((B, H // 2, W // 2, 64), dtype=torch.float32,
                       device=x.device)
@@ -191,7 +212,7 @@ def _stem_kernel(x, w1, b1, w2, b2, valid_hw, with_route=False):
         x.data_ptr(), w1k.data_ptr(), b1.data_ptr(), w2k.data_ptr(),
         b2.data_ptr(), wsplit.data_ptr(), out.data_ptr(),
         None if route is None else route.data_ptr(), B, H, W, vh, vw,
-        stream), "fused_stem")
+        None if ext is None else ext.data_ptr(), stream), "fused_stem")
     fused_stem.launches += 1
     fused_stem.route_writes += with_route
     return out, route
@@ -229,8 +250,18 @@ def fused_stem(x, w1, b1, w2, b2, valid_hw=None):
     keeps them. On a CPU tensor this is the plain version. On a CUDA
     tensor it launches K1 on the current stream (H and W must be even) or
     raises, and its gradient with respect to the weights launches K2; it
-    never falls back. Returns NHWC (B, H/2, W/2, 64).
+    never falls back. ``valid_hw`` may give each image its own extent as
+    two (B,) int tensors (a bucketed detection batch, one launch): then no
+    weight may need a gradient, since K2 takes one extent for the batch,
+    and it raises if one does. Returns NHWC (B, H/2, W/2, 64).
     """
+    if (valid_hw is not None and per_item(valid_hw[0])
+            and torch.is_grad_enabled()
+            and any(t.requires_grad for t in (w1, b1, w2, b2))):
+        raise NotImplementedError(
+            "fused_stem: per-image valid extents with a stem weight that "
+            "needs a gradient; the stem's backward (K2) takes one extent "
+            "for the whole batch (ROADMAP queue 2)")
     if x.device.type != "cuda":
         return fused_stem_reference(x, w1, b1, w2, b2, valid_hw)
     return StemFunction.apply(x, w1, b1, w2, b2, valid_hw,

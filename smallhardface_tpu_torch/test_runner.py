@@ -10,12 +10,14 @@ Counterpart of ``smallhardface_tpu/test_runner.py``: ``_load_params``
   images in flight (``detect_async`` enqueues an image's pyramid and vote
   on the device, ``finalize_async`` reads one back), or one at a time
   under ``TPU.HOST_PREPROC``;
+- under ``TPU.EVAL_BATCH > 1`` every full group of exactly EVAL_BATCH
+  images of one ``_prep`` key runs as one ``detect_many`` batch, and the
+  images left over run one at a time (JAX test_runner.py:89-122);
 - ``test_net`` caches the detections in ``detections.pkl`` and hands them
   to the imdb's evaluator.
 
-Batched evaluation (``TPU.EVAL_BATCH > 1``), spatial meshes
-(``TPU.SPATIAL_DEVICES > 1``) and more than one process raise: they wait
-for ``detect_many``, spatial sharding and multi-GPU evaluation (ROADMAP
+Spatial meshes (``TPU.SPATIAL_DEVICES > 1``) and more than one process
+raise: they wait for spatial sharding and multi-GPU evaluation (ROADMAP
 queue 1).
 """
 
@@ -61,11 +63,6 @@ def _load_params(spec):
 
 def _check_single_device():
     """The evaluation settings that need more than one device raise."""
-    if int(cfg.TPU.EVAL_BATCH) > 1:
-        raise NotImplementedError(
-            f"TPU.EVAL_BATCH={cfg.TPU.EVAL_BATCH}: batched evaluation needs "
-            "detect_many, which is not ported yet (ROADMAP queue 1, "
-            "'detect_many')")
     if int(cfg.TPU.SPATIAL_DEVICES) > 1:
         raise NotImplementedError(
             f"TPU.SPATIAL_DEVICES={cfg.TPU.SPATIAL_DEVICES}: spatial "
@@ -84,6 +81,8 @@ def inference_worker(rank, device, imdb, params, spec, start, end, thresh):
     """Detections of images [start, end) of the imdb on ``device``, as
     ``dets[class][image - start]``. Up to PIPELINE_DEPTH images wait on the
     device while the host reads back and stores the oldest; under
+    TPU.EVAL_BATCH > 1, full groups of EVAL_BATCH images of one key go
+    through ``detect_many`` and the rest one at a time; under
     TPU.HOST_PREPROC the images run one at a time."""
     det = TorchDetector(params, spec, device)
     timers = {"detect": Timer(), "misc": Timer()}
@@ -109,6 +108,31 @@ def inference_worker(rank, device, imdb, params, spec, start, end, thresh):
             dets_, _ = det.detect(imdb.image_path_at(i), thresh,
                                   timers=timers)
             store(i, dets_)
+        return rank, dets
+    eval_batch = int(cfg.TPU.EVAL_BATCH)
+    if eval_batch > 1:
+        # as the JAX runner: full batches of exactly eval_batch images of
+        # one key through detect_many, the images left over one at a time
+        groups = {}
+        for i in range(start, end):
+            im = _imread(imdb.image_path_at(i))
+            key = det._prep(im)["key"]
+            groups.setdefault(key, []).append((i, im))
+            if len(groups[key]) == eval_batch:
+                group = groups.pop(key)
+                timers["detect"].tic()
+                results = det.detect_many([m for _, m in group], thresh)
+                timers["detect"].toc()
+                for (j, _), res in zip(group, results):
+                    store(j, res)
+        for j, im in (entry for group in groups.values()
+                      for entry in group):
+            timers["detect"].tic()
+            handle = det.detect_async(im, thresh)
+            timers["detect"].toc()
+            timers["misc"].tic()
+            store(j, det.finalize_async(handle, thresh))
+            timers["misc"].toc()
         return rank, dets
     pending = deque()       # (image index, device handle)
     for i in range(start, end):

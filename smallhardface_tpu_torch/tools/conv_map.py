@@ -1,0 +1,389 @@
+"""Map the 3×3 convolutions of the detector's forward over the pyramid
+levels of WIDER-sized images on one CUDA card: each distinct shape's
+device time beside its fp32 bound, the device kernels it launches and the
+device memory the call adds.
+
+    python -m smallhardface_tpu_torch.tools.conv_map [--levers | --levels] \
+        [--out conv_map.json]
+
+The levels are those of the flagship config (TEST.SCALES 100..1400 over
+PYRAMID_BASE_SIZE 800×1200) for the images in ``IMAGES``, both at the
+exact ×16 shapes of ``detect`` and at the ``TPU.TEST_BUCKET`` = 128 buckets
+of ``detect_many``, at batch 2, 4 and 8 (1, 2 and 4 images with their
+mirrors). Each shape runs as the forward runs it (``layers.conv3x3``);
+``--levers`` also times every shape under the other ways of running it
+(``LEVERS``) and traces the ``conv4_fuse_final_dim_red`` shape of the
+1408×1872 level through cuDNN cold and warm; ``--levels`` times the
+flagship detector's forward per level and ``detect`` instead. Device
+times come from CUDA graphs, so the host is not in them.
+``chip_smoke.py`` runs ``conv_map`` as its ``cliff_map`` phase. Needs a
+CUDA card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import subprocess
+import time
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from smallhardface_tpu_torch.models import layers
+
+IMAGES = ((768, 1024), (1024, 768), (683, 1024), (1024, 1024), (1365, 1024))
+SCALES = (100, 300, 600, 1000, 1400)
+BASE = (800, 1200)                  # TEST.PYRAMID_BASE_SIZE
+BATCHES = (2, 4, 8)
+BUCKETS = {"exact": 16, "bucket": 128}
+PEAK_FP32, PEAK_BYTES = 67e12, 3.35e12
+
+
+def _round_up(x, m):
+    return int(math.ceil(x / m) * m)
+
+
+def level_shapes(hw, scales=SCALES, base=BASE):
+    """The (hb, wb) ×16 level shapes of an (h, w) image under the
+    multi-scale rule of ``detect._pyramid_scales``."""
+    h0, w0 = hw
+    s = base[0] / min(hw)
+    if round(s * max(hw)) > base[1]:
+        s = base[1] / max(hw)
+    out = []
+    for t in scales:
+        f = t / base[0] * s
+        out.append((_round_up(round(h0 * f), 16),
+                    _round_up(round(w0 * f), 16)))
+    return out
+
+
+def forward_convs(hb, wb):
+    """The 3×3 convolutions of the VGG-16 detector's forward at an
+    (hb, wb) level, conv1 (the fused stem) aside: (name, C, O, H, W,
+    dilation)."""
+    convs = [("conv2_1", 64, 128, 2), ("conv2_2", 128, 128, 2),
+             ("conv3_1", 128, 256, 4), ("conv3_2", 256, 256, 4),
+             ("conv3_3", 256, 256, 4), ("conv4_1", 256, 512, 8),
+             ("conv4_2", 512, 512, 8), ("conv4_3", 512, 512, 8),
+             ("conv5_1", 512, 512, 16), ("conv5_2", 512, 512, 16),
+             ("conv5_3", 512, 512, 16), ("conv4_fuse_final", 512, 512, 8),
+             ("conv4_fuse_final_dim_red", 512, 128, 8)]
+    out = [(n, c, o, hb // s, wb // s, 1) for n, c, o, s in convs]
+    out += [(f"head_d{d}", 128, 128, hb // 8, wb // 8, d) for d in (1, 2, 4)]
+    return out
+
+
+def shape_map(images=IMAGES, batches=BATCHES):
+    """{(B, C, O, H, W, d): [where, ...]} over every image, level, kind
+    (exact / bucket) and batch."""
+    shapes = {}
+    for hw in images:
+        for li, (hb, wb) in enumerate(level_shapes(hw)):
+            for kind, m in BUCKETS.items():
+                hk, wk = _round_up(hb, m), _round_up(wb, m)
+                for name, c, o, h, w, d in forward_convs(hk, wk):
+                    for B in batches:
+                        shapes.setdefault((B, c, o, h, w, d), []).append(
+                            f"{hw[0]}x{hw[1]}/L{li}/{kind}/{name}")
+    return shapes
+
+
+def bound_ms(B, C, O, H, W):
+    """The larger of the FLOP at the fp32 CUDA-core peak and the bytes
+    (input, weights and output once) at the memory rate."""
+    flop = 2.0 * B * H * W * 9 * C * O
+    n_bytes = 4.0 * (B * H * W * (C + O) + 9 * C * O + O)
+    t_f, t_b = flop / PEAK_FP32 * 1e3, n_bytes / PEAK_BYTES * 1e3
+    return max(t_f, t_b), ("operations" if t_f >= t_b else "bytes"), flop
+
+
+def cudnn(x, w, b, d):
+    return F.conv2d(x, w, b, padding=d, dilation=d)
+
+
+def cudnn_b1(x, w, b, d):
+    return torch.cat([cudnn(x[i:i + 1], w, b, d) for i in range(x.shape[0])])
+
+
+def cudnn_nchw(x, w, b, d):
+    return cudnn(x.contiguous(), w.contiguous(), b, d)
+
+
+def cudnn_nondet(x, w, b, d):
+    torch.backends.cudnn.deterministic = False
+    try:
+        return cudnn(x, w, b, d)
+    finally:
+        torch.backends.cudnn.deterministic = True
+
+
+def taps(x, w, b, d):
+    return layers.conv3x3_taps(x, w, b, dilation=d)
+
+
+def gemm9(x, w, b, d):
+    """All nine taps as one product (B·H·W, C) @ (C, 9·O), then F.fold
+    sums each output pixel's nine shifted products (the taps flipped)."""
+    B, C, H, W = x.shape
+    O = w.shape[0]
+    rows = x.permute(0, 2, 3, 1).reshape(B * H * W, C)
+    wm = w.flip(2, 3).reshape(O, C, 9).permute(1, 0, 2).reshape(C, O * 9)
+    y = (rows @ wm).view(B, H * W, O * 9).transpose(1, 2)
+    out = F.fold(y, (H, W), 3, dilation=d, padding=d)
+    return (out + b[:, None, None]).contiguous(
+        memory_format=torch.channels_last)
+
+
+def port(x, w, b, d):
+    """As the forward runs it (``layers.conv3x3``)."""
+    return layers.conv3x3(x, w, b, dilation=d)
+
+
+LEVERS = {"port": port, "cudnn": cudnn, "cudnn_b1": cudnn_b1,
+          "cudnn_nchw": cudnn_nchw, "cudnn_nondet": cudnn_nondet,
+          "taps": taps, "gemm9": gemm9}
+# scratch of gemm9's product beyond which it is not timed
+GEMM9_BYTES = 4e9
+
+
+def inputs(shape, dev, gen):
+    B, C, O, H, W, _ = shape
+    x = torch.randn((B, C, H, W), device=dev, generator=gen).contiguous(
+        memory_format=torch.channels_last)
+    w = (torch.randn((O, C, 3, 3), device=dev, generator=gen)
+         * math.sqrt(2 / (9 * C))).contiguous(
+        memory_format=torch.channels_last)
+    b = torch.randn((O,), device=dev, generator=gen) * 0.1
+    return x, w, b
+
+
+def device_kernels(fn, n=1):
+    """{kernel name: device ms per call} of n calls under torch.profiler,
+    and the CUDA runtime calls of note on the host (count, host ms)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    kern, runtime = {}, {}
+    for ev in prof.key_averages():
+        if ev.self_device_time_total > 0:
+            kern[ev.key[:120]] = ev.self_device_time_total / n / 1e3
+        if ev.key in ("cudaMalloc", "cudaFree", "cudaMallocAsync",
+                      "cudaFreeAsync", "cudaStreamSynchronize",
+                      "cudaDeviceSynchronize", "cudaMemsetAsync"):
+            runtime[ev.key] = {"count": ev.count,
+                               "host_ms": ev.cpu_time_total / 1e3}
+    kern = dict(sorted(kern.items(), key=lambda kv: -kv[1])[:6])
+    return kern, runtime
+
+
+def graph_ms(fn, reps, n=3):
+    """Device time of one call of fn without the host: reps calls captured
+    in one CUDA graph, replayed between two CUDA events; the median of n
+    replays over reps."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    times = []
+    for _ in range(n):
+        a = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        e.record()
+        e.synchronize()
+        times.append(a.elapsed_time(e) / reps)
+    del graph
+    return float(np.median(times))
+
+
+def time_call(fn):
+    """(first-call wall ms, the warm call's wall ms on CUDA events, its
+    device time from a CUDA graph, and the device memory the warm call
+    adds beyond its inputs and output)."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    first = (time.perf_counter() - t) * 1e3
+    del out
+    a = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    a.record()
+    out = fn()
+    e.record()
+    e.synchronize()
+    wall = a.elapsed_time(e)
+    added = torch.cuda.max_memory_allocated() - base - (
+        out.numel() * out.element_size())
+    del out
+    torch.cuda.empty_cache()        # a capture allocates its own scratch
+    device = graph_ms(fn, reps=20 if wall < 1 else 5 if wall < 20 else 1)
+    torch.cuda.empty_cache()
+    return first, wall, device, int(added)
+
+
+@torch.inference_mode()
+def conv_map(dev, levers=("port",), profile_over=5.0, log=print):
+    """Time every distinct shape of ``shape_map()`` under each
+    lever, under inference_mode as detection runs them. A shape's kernels
+    are traced where it takes more than ``profile_over`` times its bound,
+    adds more than 1 GB or is a shape of ``conv4_fuse_final_dim_red``.
+    Returns the rows, one per (shape, lever)."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rows = []
+    for shape, where in sorted(shape_map().items(),
+                               key=lambda kv: kv[0]):
+        B, C, O, H, W, d = shape
+        bnd, by, flop = bound_ms(B, C, O, H, W)
+        x, w, b = inputs(shape, dev, gen)
+        for lever in levers:
+            fn = LEVERS[lever]
+            if lever == "gemm9" and 36.0 * B * H * W * O > GEMM9_BYTES:
+                continue
+            call = lambda: fn(x, w, b, d)       # noqa: E731
+            first, wall, ms, added = time_call(call)
+            row = {"shape": list(shape), "layers": sorted({
+                s.rsplit("/", 1)[1] for s in where}), "n_levels": len(where),
+                "lever": lever, "ms": ms, "wall_ms": wall,
+                "first_ms": first,
+                "bound_ms": bnd, "bound_by": by, "of_bound": ms / bnd,
+                "tflops": flop / ms / 1e9, "added_bytes": added}
+            if ((ms > profile_over * bnd and bnd >= 0.05) or added > 1e9
+                    or "conv4_fuse_final_dim_red" in row["layers"]):
+                row["kernels"], row["runtime"] = device_kernels(call)
+            rows.append(row)
+            log(row)
+        del x, w, b
+        torch.cuda.empty_cache()
+    return rows
+
+
+def trace_cliff(dev, shape=(2, 512, 128, 176, 234, 1)):
+    """One shape cold (a fresh allocator cache) and warm under torch
+    .profiler: its device kernels, the runtime calls on the host, and the
+    allocator's counters around each call."""
+    gen = torch.Generator(device=dev).manual_seed(1)
+    x, w, b = inputs(shape, dev, gen)
+    out = {}
+    for phase in ("cold", "warm"):
+        if phase == "cold":
+            torch.cuda.empty_cache()
+        before = torch.cuda.memory_stats()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        kern, runtime = device_kernels(lambda: cudnn(x, w, b, shape[5]))
+        wall = (time.perf_counter() - t) * 1e3
+        after = torch.cuda.memory_stats()
+        out[phase] = {
+            "wall_ms_with_profiler": wall, "kernels": kern,
+            "runtime": runtime,
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "reserved_bytes": torch.cuda.memory_reserved(),
+            "allocator": {k: after.get(k, 0) - before.get(k, 0) for k in (
+                "num_alloc_retries", "num_device_alloc", "num_device_free",
+                "num_ooms")}}
+    return {"shape": list(shape), **out}
+
+
+def level_walls(dev, image_hw=(768, 1024), reps=3):
+    """The flagship detector (random weights from seed 0) on one seeded
+    image: each level's forward at batch 2 (image and mirror) on the host
+    clock after a synchronisation, with the device memory it adds beyond
+    its input, and warm ``detect`` walls with the peak of the process."""
+    from smallhardface_tpu_torch.config import CONFIG_DIR, cfg, cfg_from_file
+    from smallhardface_tpu_torch.detect import TorchDetector
+    from smallhardface_tpu_torch.models import detector as tdm
+    import os
+    cfg_from_file(os.path.join(CONFIG_DIR, "smallhardface.toml"))
+    cfg.TEST.SCALES = list(SCALES)
+    cfg.TEST.FLIP = True
+    spec = tdm.build_spec(cfg)
+    params = tdm.init_params(torch.Generator().manual_seed(0), spec)
+    det = TorchDetector(params, spec, dev)
+    image = np.random.RandomState(0).randint(
+        0, 256, (*image_hw, 3)).astype(np.uint8)
+    levels = []
+    with torch.inference_mode():
+        for hb, wb in level_shapes(image_hw):
+            x = torch.randn((2, hb, wb, 3), device=dev)
+            walls = []
+            for _ in range(reps + 1):
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                t = time.perf_counter()
+                det.model(x)
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t) * 1e3)
+            levels.append({"level": [hb, wb], "forward_ms": walls[1:],
+                           "added_bytes": torch.cuda.max_memory_allocated()
+                           - base})
+            del x
+    detect = []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(reps + 1):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        det.detect(image, 0.05)
+        torch.cuda.synchronize()
+        detect.append(time.perf_counter() - t)
+    return {"image": list(image_hw), "levels": levels,
+            "detect_s": detect[1:], "detect_first_s": detect[0],
+            "detect_peak_bytes": torch.cuda.max_memory_allocated()}
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--levers", action="store_true")
+    p.add_argument("--levels", action="store_true",
+                   help="only the per-level forward and detect walls")
+    p.add_argument("--out", default="")
+    args = p.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("conv_map needs a CUDA card")
+    from smallhardface_tpu_torch.models.detector import pin_fp32_numerics
+    pin_fp32_numerics()
+    dev = torch.device("cuda", 0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip()
+    print(smi, flush=True)
+    result = {"device": smi, "torch": torch.__version__,
+              "cudnn": torch.backends.cudnn.version()}
+    log = lambda r: print(json.dumps(r), flush=True)   # noqa: E731
+    if args.levels:
+        result["level_walls"] = level_walls(dev)
+        log(result["level_walls"])
+    else:
+        if args.levers:
+            result["trace"] = trace_cliff(dev)
+            log(result["trace"])
+        result["map"] = conv_map(dev, log=log)
+        if args.levers:
+            result["levers"] = conv_map(
+                dev, levers=("cudnn", "cudnn_b1", "taps", "gemm9"), log=log)
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(result, f)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

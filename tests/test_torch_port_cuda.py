@@ -29,7 +29,14 @@ a machine that has only PyTorch:
   their plain versions on integer boxes with dyadic scores (every sum
   exact), for no candidate, one, padding rows and 512 candidates; on a
   crowd of 2048 float boxes the same rows out, the scores equal to the bit
-  and the boxes within VOTE_BOX_TOL of the largest coordinate.
+  and the boxes within VOTE_BOX_TOL of the largest coordinate;
+- the batched launches of detect_many: K1 on an 8-image batch with eight
+  valid extents in one launch (equal to the bit to the plain forward in
+  float64 on integers, within RTOL on floats, and to eight single-image
+  launches), V1 over three images in one launch (equal to the bit to
+  three single launches);
+- conv4_fuse_final_dim_red, as detection runs it, at the shapes where
+  cuDNN took an FFT algorithm: at most 4 GB of device memory added.
 """
 
 import numpy as np
@@ -323,3 +330,106 @@ def test_vote_kernel_vs_plain_on_a_crowd(cuda, method):
     np.testing.assert_array_equal(got[:, 4], want[:, 4])
     np.testing.assert_allclose(got[:, :4], want[:, :4], rtol=0,
                                atol=VOTE_BOX_TOL * np.abs(dets[:, :4]).max())
+
+
+# ---- batched launches of detect_many ----
+
+EXTENTS = ((64, 128), (48, 96), (64, 32), (16, 128), (2, 2), (34, 70),
+           (64, 126), (0, 0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("integer", [True, False], ids=["integers", "floats"])
+def test_stem_kernel_per_image_extents(cuda, integer):
+    """K1 on an 8-image batch with eight extents in one launch: on
+    integers equal to the bit to the plain forward in float64, on floats
+    within RTOL of the fp32 plain forward inside each extent, and equal to
+    the bit to eight single-image launches with scalar extents."""
+    shape = (8, 64, 128, 3)
+    make = _int_grad_inputs if integer else _float_grad_inputs
+    x, _, *ws = make(17, shape, (64, 128))
+    x = np.asarray(x, np.float64)
+    x[4:] = x[4:] * -1                      # different images
+    args = _on([x] + ws, cuda)
+    vh = torch.tensor([e[0] for e in EXTENTS], device=cuda)
+    vw = torch.tensor([e[1] for e in EXTENTS], device=cuda)
+    before = stem.fused_stem.launches
+    with torch.no_grad():
+        got = stem.fused_stem(*args, valid_hw=(vh, vw))
+        torch.cuda.synchronize()
+        assert stem.fused_stem.launches == before + 1
+        singles = [stem.fused_stem(args[0][i:i + 1].contiguous(), *args[1:],
+                                   valid_hw=e)
+                   for i, e in enumerate(EXTENTS)]
+    if integer:
+        want = stem.fused_stem_reference(*_on([x] + ws, cuda, torch.float64),
+                                         (vh, vw))
+        assert torch.equal(got.double(), want)
+    else:
+        want = stem.fused_stem_reference(*args, (vh, vw))
+        for i, (h, w) in enumerate(EXTENTS):
+            g, r = got[i, :h // 2, :w // 2], want[i, :h // 2, :w // 2]
+            torch.testing.assert_close(g, r, rtol=RTOL, atol=RTOL * max(
+                want.abs().max().item(), 1.0))
+    for i, one in enumerate(singles):
+        assert torch.equal(got[i:i + 1], one)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["BBOX_VOTE", "NMS"])
+def test_vote_kernel_batched_equals_single_launches(cuda, method):
+    """V1 over three images in one launch (one block each): each image's
+    rows and count equal to the bit to its own launch, and to the plain
+    loop's as the single launches are."""
+    fn = (nms_device.bbox_vote_device if method == "BBOX_VOTE"
+          else nms_device.nms_device)
+    dets = np.stack([crowd_dets(np.random.RandomState(s), 2048)
+                     for s in (1, 2, 3)])
+    n_valid = [2048, 700, 0]
+    d = torch.from_numpy(dets).to(cuda)
+    n = torch.tensor(n_valid, dtype=torch.int32, device=cuda)
+    before = fn.launches
+    got, n_got = fn(d, n, 0.4)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1 and n_got.shape == (3,)
+    for i in range(3):
+        one, n_one = fn(d[i].contiguous(), n[i].contiguous(), 0.4)
+        assert int(n_one) == int(n_got[i])
+        assert torch.equal(one, got[i])
+    plain, n_plain = (nms_device.bbox_vote_device_reference
+                      if method == "BBOX_VOTE"
+                      else nms_device.nms_device_reference)(d, n, 0.4)
+    assert torch.equal(n_plain.to(cuda), n_got)
+    assert torch.equal(plain[..., 4], got[..., 4])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 176, 234), (8, 176, 240)])
+def test_dim_red_conv_off_the_fft_cliff(cuda, shape):
+    """conv4_fuse_final_dim_red (3×3, 512→128) at the 1408×1872 level and
+    at its detect_many bucket: as detection runs it (layers.conv3x3) it
+    adds at most 4 GB of device memory (cuDNN's FFT algorithm took 35 GB
+    at batch 2), and agrees with cuDNN run one image at a time."""
+    import torch.nn.functional as F
+    from smallhardface_tpu_torch.models import layers
+    B, H, W = shape
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn((B, 512, H, W), device=cuda, generator=gen).contiguous(
+        memory_format=torch.channels_last)
+    w = (torch.randn((128, 512, 3, 3), device=cuda, generator=gen)
+         * 0.02).contiguous(memory_format=torch.channels_last)
+    b = torch.randn((128,), device=cuda, generator=gen)
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        got = layers.conv3x3(x, w, b)
+        torch.cuda.synchronize()
+        added = (torch.cuda.max_memory_allocated() - base
+                 - got.numel() * got.element_size())
+        want = torch.cat([F.conv2d(x[i:i + 1], w, b, padding=1)
+                          for i in range(B)])
+    assert added <= 4e9
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    torch.testing.assert_close(got, want, rtol=RTOL,
+                               atol=RTOL * want.abs().max().item())

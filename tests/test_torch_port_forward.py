@@ -62,6 +62,22 @@ def test_forward_where_masking_matches_jax():
         _close(g, alone[k].numpy())
 
 
+@pytest.mark.parametrize("different_dilation", [True, False])
+def test_forward_through_taps_matches_jax(different_dilation, monkeypatch):
+    """Every 3×3 convolution of the forward as nine channel products
+    (layers.conv3x3 with TAPS_MIN_FLOP at 0, the route of detection's large
+    ones) against the JAX forward."""
+    from smallhardface_tpu_torch.models import layers
+    monkeypatch.setattr(layers, "TAPS_MIN_FLOP", 0.0)
+    spec, params, det = _pair(different_dilation)
+    x = np.random.RandomState(4).randn(1, 64, 80, 3).astype(np.float32) * 30
+    want = dm.forward(params, jnp.asarray(x), spec, mask_mode="exact")
+    with torch.inference_mode():
+        got = det(torch.from_numpy(x))
+    for k in ("cls_logits", "bbox_deltas"):
+        _close(got[k].numpy(), np.asarray(want[k]))
+
+
 def test_forward_output_layout():
     """NHWC in, (B, H/8, W/8, A, 2|4) out, batch items independent."""
     _, _, det = _pair(True)

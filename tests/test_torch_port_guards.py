@@ -50,7 +50,7 @@ def test_port_imports_no_jax():
     for mod in ("datasets.factory", "datasets.wider", "datasets.fddb",
                 "datasets.afw", "datasets.pascalface", "datasets.general",
                 "evals.wider_eval", "evals.face_eval", "ops.nms_device",
-                "utils.tensorboard", "test_runner", "__main__"):
+                "utils.tensorboard", "test_runner", "__main__", "serve"):
         assert f"smallhardface_tpu_torch.{mod}" in names.split(), mod
 
 
@@ -94,5 +94,19 @@ def test_cli_without_device_cpu_fails_here():
     proc = _run([sys.executable, "-m", "smallhardface_tpu_torch", "--train",
                  "false", "--test", "true", "--amend", "TEST.DEMO.ENABLE",
                  "True"])
+    assert proc.returncode != 0
+    assert "no CUDA device" in proc.stderr
+
+
+def test_service_defaults_to_the_card():
+    """DetectorService and ``python -m smallhardface_tpu_torch.serve`` run
+    on the card unless asked for the CPU; without one they raise."""
+    _no_card()
+    from smallhardface_tpu_torch.models import detector as tdm
+    from smallhardface_tpu_torch.serve import DetectorService
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        DetectorService(None, tdm.ModelSpec())
+    proc = _run([sys.executable, "-m", "smallhardface_tpu_torch.serve",
+                 "--port", "0"])
     assert proc.returncode != 0
     assert "no CUDA device" in proc.stderr

@@ -72,3 +72,48 @@ def test_upsample2x_bilinear(kernel):
             w.transpose(3, 2, 0, 1)))))
     assert got.shape == want.shape == (2, 10, 14, c)
     _close(got, want)
+
+
+@pytest.mark.parametrize("dilation,hw", [
+    (1, (20, 24)), (2, (20, 24)), (4, (20, 24)), (4, (3, 5)), (1, (1, 1))])
+def test_conv3x3_taps_matches_jax(dilation, hw, monkeypatch):
+    """The nine-product form of a 3×3 convolution (the route of large
+    detection convolutions, models/layers.py:conv3x3) equals the JAX conv,
+    also where the dilation exceeds the image, keeps channels_last, and
+    gives the same when its scratch budget takes one image at a time."""
+    rng = np.random.RandomState(10 + dilation + hw[0])
+    x = rng.randn(2, *hw, 8).astype(np.float32) * 10
+    w = rng.randn(3, 3, 8, 5).astype(np.float32)
+    b = rng.randn(5).astype(np.float32)
+    want = np.asarray(jl.conv2d(jnp.asarray(x), jnp.asarray(w),
+                                jnp.asarray(b), dilation=dilation,
+                                padding=dilation))
+    xt = _nchw(x).contiguous(memory_format=torch.channels_last)
+    wt = torch.from_numpy(np.ascontiguousarray(w.transpose(3, 2, 0, 1)))
+    got = tl.conv3x3_taps(xt, wt, torch.from_numpy(b), dilation=dilation)
+    assert got.shape == (2, 5, *hw)
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    _close(_nhwc(got), want)
+    again = tl.conv3x3_taps(xt, wt, torch.from_numpy(b), dilation=dilation)
+    assert torch.equal(got, again)
+    monkeypatch.setattr(tl, "TAPS_SCRATCH_BYTES", 1)
+    _close(_nhwc(tl.conv3x3_taps(xt, wt, torch.from_numpy(b),
+                                 dilation=dilation)), want)
+
+
+def test_conv3x3_route(monkeypatch):
+    """conv3x3 takes the nine products only without autograd and from
+    TAPS_MIN_FLOP up; otherwise cuDNN's conv2d (training keeps it)."""
+    rng = np.random.RandomState(3)
+    x = torch.from_numpy(rng.randn(1, 8, 6, 7).astype(np.float32))
+    w = torch.from_numpy(rng.randn(4, 8, 3, 3).astype(np.float32))
+    b = torch.zeros(4)
+    taps = tl.conv3x3_taps(x, w, b, dilation=2)
+    plain = tl.conv2d(x, w, b, dilation=2, padding=2)
+    flop = 18.0 * 6 * 7 * 8 * 4
+    for threshold, grad, want in ((flop, False, taps), (flop + 1, False,
+                                                        plain),
+                                  (0, True, plain)):
+        monkeypatch.setattr(tl, "TAPS_MIN_FLOP", threshold)
+        with torch.set_grad_enabled(grad):
+            assert torch.equal(tl.conv3x3(x, w, b, dilation=2), want)

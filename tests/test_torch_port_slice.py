@@ -122,7 +122,7 @@ def test_level_inputs_flip_and_padding(port_cfg):
     img = torch.from_numpy(p["padded"]).float()
     assert p["padded"].shape[:2] == (160, 208)
     for lv in p["levels"]:
-        x = det._level_input(img, lv)
+        x = det._level_batch(img[None], [lv], lv["hb"], lv["wb"])
         hb, wb, h_s, w_s = lv["hb"], lv["wb"], lv["h_s"], lv["w_s"]
         assert x.shape == (2, hb, wb, 3) and hb % 16 == 0 and wb % 16 == 0
         assert hb - 16 < h_s <= hb and wb - 16 < w_s <= wb
@@ -169,13 +169,15 @@ def test_demo_cli():
 @pytest.mark.parametrize("args,what", [
     (["--train", "true", "--test", "false", "--amend",
       "TPU.SPATIAL_DEVICES", "2"], "spatial"),
-    (["--train", "false", "--test", "true", "--amend", "TPU.EVAL_BATCH",
-      "2"], "detect_many"),
+    (["--train", "false", "--test", "true", "--amend", "TPU.PRECISION",
+      "bfloat16"], "bfloat16"),
 ], ids=["args0-training", "args1-dataset evaluation"])
 def test_cli_unported_branches_raise(args, what, tmp_path):
     """Both branches of the command line are ported; what they do not
     cover yet raises: spatial training (TPU.SPATIAL_DEVICES > 1) and
-    batched evaluation (TPU.EVAL_BATCH > 1, which needs detect_many)."""
+    evaluation in bfloat16 (TPU.PRECISION, ROADMAP queue 1 item 10).
+    Batched evaluation (TPU.EVAL_BATCH > 1) is ported
+    (tests/test_torch_port_batch.py)."""
     from smallhardface_tpu_torch.__main__ import main
     import copy
     saved = copy.deepcopy(tcfg)
