@@ -3,10 +3,11 @@
 
     python3 chip_smoke.py
 
-Builds the port's four CUDA kernels with nvcc, one process per source, all
+Builds the port's five CUDA kernels with nvcc, one process per source, all
 at once: the fused VGG stem (K1, csrc/stem.cu), its backward (K2,
-csrc/stem_grad.cu), the anchor max-IoU (K3, csrc/iou.cu) and the final
-vote (V1, csrc/vote.cu). Then, each phase printing one line:
+csrc/stem_grad.cu), the anchor max-IoU (K3, csrc/iou.cu), the final vote
+(V1, csrc/vote.cu) and the int8 3×3 convolution (Q1, csrc/conv_int8.cu).
+Then, each phase printing one line:
 
 1. K1 against its plain version at the shapes of the detection path: on
    small-integer inputs its output equal to the bit to the plain forward
@@ -44,6 +45,22 @@ vote (V1, csrc/vote.cu). Then, each phase printing one line:
    behind ``serve.serve`` on 127.0.0.1:0): healthz, four concurrent
    requests micro-batched against the per-request service, a bad body,
    and the request latencies;
+5b. int8 serving (TPU.PRECISION = "int8", smallhardface-int8.toml): Q1
+   equal to the bit to its plain version at every int8 layer shape of the
+   1408×1872 level (batch 2), for the epilogue the calibrated chain runs
+   there and the dynamic one, on uniform int8 values and on the extremes
+   (±127, -128); at each shape its wrapper's wall, its device time (CUDA
+   graph), its bound, the plain time and two yardsticks the port never
+   calls (the fp32 layer as ``layers.conv3x3`` runs it, ``torch._int_mm``
+   on the same M×K×N); a ``TorchDetector`` calibrated on the three images;
+   a warm calibrated ``detect`` of image 0 (wall, peak, Q1's, K1's and V1's
+   launches, where its device time goes) against the port's int8 CPU path
+   on the card's own stem outputs (the golden rule at INT8_MATCH_MIN), the
+   int8-vs-fp32 logits correlation on the card (> INT8_CORR_MIN), a
+   dynamic ``detect``; ``detect_many`` at max_batch 4 (against per-image
+   int8 ``detect`` at INT8_MANY_MATCH_MIN, the int8-vs-fp32 agreement
+   beside it) and the service with calib_images, each with Q1's launches
+   above 0 and no call of Q1's plain version;
 6. the cliff map: every 3×3 convolution of the forward, as the forward
    runs it, at the pyramid levels of five WIDER-sized images, exact and
    bucketed, at batch 2, 4 and 8 (``tools/conv_map.py``): each distinct
@@ -147,6 +164,24 @@ DM_MAX_BATCH = (1, 2, 4)
 # threshold may flip; each side matched at 99 %, counts within max(2, 2 %)
 DM_MATCH_MIN = 0.99
 DETECT_PEAK_LIMIT = 8e9     # bytes a warm detect of image 0 may peak at
+# int8: the int8 detect against the port's int8 CPU path fed the card's own
+# stem outputs (the stems differ in the last bits, and a one-ulp flip at
+# conv2_1's input grows about threefold at every link of the chain:
+# tests/test_torch_port_int8.py), each side matched at 99 %; the int8
+# logits against fp32 on the card, JAX's calibrated bound
+# (tests/test_int8.py:139-161)
+INT8_MATCH_MIN, INT8_CORR_MIN = 0.99, 0.98
+# int8 detect_many against per-image int8 detect: the bucketed levels sum
+# their resize in another order, so the stems differ in the last bits and
+# the chain grows that as above (each side matched at 0.907 to 1.0 on the
+# eight images on an H100 80GB HBM3, 700 W); the int8-vs-fp32 agreement of
+# the same images is printed beside it
+INT8_MANY_MATCH_MIN = 0.85
+INT8_LEVEL = (1408, 1872)   # the largest level of image 0's pyramid
+INT8_SCALES = [100, 300, 600, 1000, 1400]
+PEAK_INT8 = 1979e12         # dense int8 on the tensor cores
+# Q1's kernels (csrc/conv_int8.cu), K1's and V1's, for a detect's split
+Q1_KERNEL, V1_KERNEL = "conv3x3_int8_kernel", "vote_kernel"
 SERVE_WINDOW_MS = 50
 # the cliff map's limits: no 3×3 convolution of the forward may add more
 # than 4 GB or take more than 5× its fp32 bound. Below CLIFF_FLOOR_MS of
@@ -475,7 +510,8 @@ def main():
     from smallhardface_tpu_torch.config import CONFIG_DIR, cfg, cfg_from_file
     from smallhardface_tpu_torch.detect import TorchDetector, _pyramid_scales
     from smallhardface_tpu_torch.models import detector as tdm
-    from smallhardface_tpu_torch.ops import cuda_build, iou, nms_device, stem
+    from smallhardface_tpu_torch.ops import (conv_int8, cuda_build, iou,
+                                             nms_device, stem)
     from smallhardface_tpu_torch.ops.bbox import iou_matrix
 
     dev = torch.device("cuda", 0)
@@ -499,7 +535,8 @@ def main():
     empty = cuda_build.CudaLibrary("empty", empty_src,
                                    {"shf_empty": [cuda_build.CI] * 2
                                     + [cuda_build.VP]})
-    libs = [stem.STEM, stem.STEM_GRAD, iou.IOU, nms_device.VOTE, empty]
+    libs = [stem.STEM, stem.STEM_GRAD, iou.IOU, nms_device.VOTE,
+            conv_int8.CONV_INT8, empty]
     cuda_build.build_all(libs)
     say("build", seconds=round(time.perf_counter() - t0, 3),
         capability=list(torch.cuda.get_device_capability(0)),
@@ -669,6 +706,15 @@ def main():
     torch.cuda.empty_cache()
     serve_phase(params, spec, dm_images, dev)
     torch.cuda.empty_cache()
+
+    # ---- int8 serving ----
+    snapshot = copy.deepcopy(cfg)
+    kernels["conv3x3_int8"] = int8_phase(
+        cfg, tdm, params, images, dm_images, dev, stem, nms_device,
+        conv_int8, first_walls)
+    cfg.clear()
+    cfg.update(snapshot)
+    torch.cuda.empty_cache()
     cliff_map(dev)
     torch.cuda.empty_cache()
 
@@ -832,12 +878,429 @@ def main():
         raise AssertionError(f"the port imported {foreign}")
 
     print(json.dumps({"kernels": [kernels[k] for k in (
-        "fused_stem", "fused_stem_grad", "max_iou", "bbox_vote")]}),
+        "fused_stem", "fused_stem_grad", "max_iou", "bbox_vote",
+        "conv3x3_int8")]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def int8_layer_shapes():
+    """The int8 convolutions of the 1408×1872 level at batch 2 (image and
+    mirror), as the calibrated chain runs them: (name, C, O, H, W,
+    dilation, epilogue), the epilogue "link" (ReLU, int8 out) or "end"
+    (ReLU, fp32 out); the head once per dilation."""
+    h, w = INT8_LEVEL[0] // 2, INT8_LEVEL[1] // 2
+    rows, c = [], 64
+    for stage, o, n in (("conv2", 128, 2), ("conv3", 256, 3),
+                        ("conv4", 512, 3), ("conv5", 512, 3)):
+        for i in range(1, n + 1):
+            last = stage == "conv5" and i == n
+            rows.append((f"{stage}_{i}", c, o, h, w, 1,
+                         "end" if last else "link"))
+            c = o
+        if stage != "conv4":
+            h, w = -(-h // 2), -(-w // 2)
+        else:                               # conv5 runs at stride 16
+            h8, w8 = h, w
+            h, w = -(-h // 2), -(-w // 2)
+    h, w = h8, w8
+    rows += [("conv4_fuse_final", 512, 512, h, w, 1, "link"),
+             ("conv4_fuse_final_dim_red", 512, 128, h, w, 1, "link")]
+    rows += [(f"head_d{d}", 128, 128, h, w, d, "end") for d in (1, 2, 4)]
+    return rows
+
+
+def _q1_inputs(gen, B, C, O, H, W, dev, extreme, per_image):
+    """Q1's inputs on the card: int8 NHWC activations (uniform, or only
+    -128, -127, 0, 127), (O, 3, 3, C) weights, scale rows that spread the
+    outputs over the int8 range, a bias and an output step."""
+    if extreme:
+        vals = torch.tensor([-128, -127, 0, 127], dtype=torch.int8,
+                            device=dev)
+        x = vals[torch.randint(0, 4, (B, H, W, C), generator=gen,
+                               device=dev)]
+        w = vals[1:][torch.randint(0, 3, (O, 3, 3, C), generator=gen,
+                                   device=dev)]
+    else:
+        x = torch.randint(-128, 128, (B, H, W, C), generator=gen,
+                          device=dev, dtype=torch.int8)
+        w = torch.randint(-127, 128, (O, 3, 3, C), generator=gen,
+                          device=dev, dtype=torch.int8)
+    spread = 40.0 / (math.sqrt(9 * C) * 74.0 * 74.0)
+    scale = (0.5 + torch.rand((B if per_image else 1, O), generator=gen,
+                              device=dev)) * spread
+    bias = torch.randn((O,), generator=gen, device=dev) * 5
+    return x.permute(0, 3, 1, 2), w, scale, bias, 0.8173
+
+
+def q1_phase(conv_int8, layers, dev):
+    """Q1 against its plain version at every int8 layer shape of the
+    1408×1872 level, equal to the bit, for the static epilogue and the
+    dynamic one (per-image scale rows, no ReLU) on uniform int8 values, and
+    for all three epilogues on the extremes at three shapes; then, per
+    shape, its times, bound and yardsticks. Returns the kernels entry."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    B = 2
+    epilogues = {"link": dict(relu=True, s_out=True),
+                 "end": dict(relu=True, s_out=False),
+                 "dynamic": dict(relu=False, s_out=False)}
+    checks, rows, max_err = [], [], 0.0
+    shapes = int8_layer_shapes()
+    extreme_at = {shapes[0][0], "conv4_2", "head_d4"}
+    for name, C, O, H, W, d, epi in shapes:
+        cases = [(epi, False), ("dynamic", False)]
+        if name in extreme_at:
+            cases += [(e, True) for e in epilogues]
+        for e, extreme in cases:
+            x, w, scale, bias, s_out = _q1_inputs(
+                gen, B, C, O, H, W, dev, extreme, per_image=e == "dynamic")
+            kw = dict(dilation=d, relu=epilogues[e]["relu"],
+                      s_out=s_out if epilogues[e]["s_out"] else None)
+            before = conv_int8.conv3x3_int8.launches
+            got = conv_int8.conv3x3_int8(x, w, scale, bias, **kw)
+            want = conv_int8.conv3x3_int8_reference(x, w, scale, bias, **kw)
+            torch.cuda.synchronize()
+            conv_int8.conv3x3_int8.launches = before   # a comparison launch
+            equal = torch.equal(got, want)
+            err = (got.float() - want.float()).abs().max().item()
+            max_err = max(max_err, err)
+            checks.append({"layer": name, "epilogue": e, "extreme": extreme,
+                           "bit_equal": equal, "max_abs_err": err})
+            if not equal:
+                say("q1_vs_plain", checks=checks)
+                raise AssertionError(f"Q1 differs from its plain version at "
+                                     f"{name} ({e}, extreme={extreme})")
+            del x, w, scale, bias, got, want
+    say("q1_vs_plain", batch=B, level=list(INT8_LEVEL), checks=checks,
+        all_bit_equal=True, reference="F.conv2d in float64, then the fp32 "
+        "epilogue as separate PyTorch ops")
+    torch.cuda.empty_cache()
+    for name, C, O, H, W, d, epi in shapes:
+        x, w, scale, bias, s_out = _q1_inputs(gen, B, C, O, H, W, dev,
+                                              False, False)
+        kw = dict(dilation=d, relu=True,
+                  s_out=s_out if epi == "link" else None)
+        call = lambda: conv_int8.conv3x3_int8(  # noqa: E731
+            x, w, scale, bias, **kw)
+        before = conv_int8.conv3x3_int8.launches
+        row = {"layer": name, "C": C, "O": O, "hw": [H, W], "dilation": d,
+               "epilogue": epi, "ms": median_ms(call, n=5, warmup=2),
+               "device_ms": graph_ms(call, reps=10, n=3),
+               "plain_ms": median_ms(lambda: conv_int8.conv3x3_int8_reference(
+                   x, w, scale, bias, **kw), n=3, warmup=1)}
+        conv_int8.conv3x3_int8.launches = before
+        M, K = B * H * W, 9 * C
+        n_bytes = M * C + O * K + M * O * (1 if epi == "link" else 4) + 8 * O
+        row["bound_ms"], row["bound_by"] = max(
+            (n_bytes / PEAK_BYTES * 1e3, "bytes"),
+            (2.0 * M * O * K / PEAK_INT8 * 1e3, "operations"))
+        row["of_bound"] = row["bound_ms"] / row["device_ms"]
+        # the yardsticks: the fp32 layer Q1 replaces, as the forward ran it
+        # in fp32, and one int8 GEMM of the same size with an int32 output
+        xf = torch.randn((B, C, H, W), generator=gen, device=dev).contiguous(
+            memory_format=torch.channels_last)
+        wf = torch.randn((O, C, 3, 3), generator=gen, device=dev) * 0.02
+        bf = torch.randn((O,), generator=gen, device=dev)
+        with torch.no_grad():
+            row["fp32_conv3x3_ms"] = median_ms(
+                lambda: layers.conv3x3(xf, wf, bf, dilation=d), n=3, warmup=1)
+        del xf, wf, bf
+        a = torch.randint(-128, 128, (M, K), generator=gen, device=dev,
+                          dtype=torch.int8)
+        b = torch.randint(-128, 128, (O, K), generator=gen, device=dev,
+                          dtype=torch.int8).t()
+        try:
+            row["int_mm_ms"] = median_ms(lambda: torch._int_mm(a, b), n=3,
+                                         warmup=1)
+        except RuntimeError as e:          # a yardstick only
+            row["int_mm_ms"], row["int_mm_error"] = None, str(e)[:200]
+        del a, b, x, w
+        torch.cuda.empty_cache()
+        rows.append(row)
+    total = {k: sum(r[k] for r in rows) for k in (
+        "ms", "device_ms", "plain_ms", "bound_ms", "fp32_conv3x3_ms")}
+    mm = [r["int_mm_ms"] for r in rows]
+    total["int_mm_ms"] = sum(mm) if None not in mm else None
+    ops_bound = sum(r["bound_ms"] for r in rows if r["bound_by"]
+                    == "operations")
+    say("q1_time", batch=B, level=list(INT8_LEVEL), layers=rows,
+        sum=total, of_bound=total["bound_ms"] / total["device_ms"],
+        timing="ms: CUDA events around the wrapper, median of 5; "
+               "device_ms: 10 calls in one CUDA graph, median of 3 "
+               "replays; plain, fp32 conv3x3, _int_mm: CUDA events, "
+               "median of 3; bound: bytes at 3.35 TB/s or 2*M*N*K at "
+               "1979 TOPS, the larger")
+    return {"name": "conv3x3_int8", "route": "cuda",
+            "source": "smallhardface_tpu_torch/csrc/conv_int8.cu",
+            "replaces": "smallhardface_tpu/models/layers.py:117",
+            "also_replaces": "smallhardface_tpu/models/layers.py:63",
+            "max_abs_err": max_err, "ms": total["ms"],
+            "device_ms": total["device_ms"], "plain_ms": total["plain_ms"],
+            "bound_ms": total["bound_ms"],
+            "bound_by": ("operations" if ops_bound * 2 >= total["bound_ms"]
+                         else "bytes"),
+            "library_ms": None,
+            "fp32_conv3x3_ms": total["fp32_conv3x3_ms"],
+            "int_mm_ms": total["int_mm_ms"],
+            "timed_as": "the 16 int8 convolutions of one batch-2 forward at "
+                        "the 1408x1872 level, summed"}
+
+
+def detect_device_split(det, image, wall_ms, n=2):
+    """Where one warm ``detect`` of `image` spends its device time: Q1's,
+    K1's and V1's kernels and the rest (cuDNN, cuBLAS, elementwise), per
+    detect under torch.profiler, and the idle share of ``wall_ms``, its
+    wall without the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    det.detect(image, THRESH)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            det.detect(image, THRESH)
+        torch.cuda.synchronize()
+    split = {"q1": 0.0, "k1": 0.0, "v1": 0.0, "other": 0.0}
+    for ev in prof.key_averages():
+        us = ev.self_device_time_total
+        # the device's own events (kernels, copies), not the CPU ops that
+        # launched them
+        if not us or getattr(ev, "device_type", None) != \
+                torch.autograd.DeviceType.CUDA:
+            continue
+        if f"::{Q1_KERNEL}<" in ev.key or f"{Q1_KERNEL}<" in ev.key:
+            split["q1"] += us
+        elif any(f"::{k}(" in ev.key for k in STEM_KERNELS.values()):
+            split["k1"] += us
+        elif f"::{V1_KERNEL}" in ev.key:
+            split["v1"] += us
+        else:
+            split["other"] += us
+    ms = {k: v / n / 1e3 for k, v in split.items()}
+    busy = sum(ms.values())
+    return {"device_ms": ms, "device_ms_sum": busy, "wall_ms": wall_ms,
+            "idle_share": max(0.0, 1.0 - busy / wall_ms)}
+
+
+def int8_phase(cfg, tdm, params, images, dm_images, dev, stem, nms_device,
+               conv_int8, fp32_walls):
+    """The int8 serving path on the card (smallhardface-int8.toml): Q1
+    against its plain version and timed (``q1_phase``), calibration on the
+    three images, a warm calibrated ``detect`` of image 0 against the
+    port's int8 CPU path on the card's stem outputs, the int8-vs-fp32
+    logits correlation, a dynamic ``detect``, ``detect_many`` at max_batch
+    4 and the service with calib_images. Returns Q1's kernels entry."""
+    import threading
+    import urllib.request
+    import cv2
+    from smallhardface_tpu_torch import serve as serve_mod
+    from smallhardface_tpu_torch.config import CONFIG_DIR, cfg_from_file
+    from smallhardface_tpu_torch.detect import TorchDetector
+    from smallhardface_tpu_torch.models import layers
+    entry = q1_phase(conv_int8, layers, dev)
+
+    cfg_from_file(os.path.join(CONFIG_DIR, "smallhardface-int8.toml"))
+    cfg.TEST.SCALES = list(INT8_SCALES)
+    cfg.TEST.FLIP = True
+    cfg.TEST.NMS_METHOD = "BBOX_VOTE"
+    spec = tdm.build_spec(cfg)
+    plain_calls = [0]
+    reference = conv_int8.conv3x3_int8_reference
+
+    def counted(*args, **kwargs):
+        plain_calls[0] += 1
+        return reference(*args, **kwargs)
+    conv_int8.conv3x3_int8_reference = counted
+    try:
+        det = TorchDetector(params, spec, dev)
+        t = time.perf_counter()
+        amax = det.calibrate_int8(images)
+        torch.cuda.synchronize()
+        calib_s = time.perf_counter() - t
+        det.detect(images[0], THRESH)                          # warm
+        fns = (conv_int8.conv3x3_int8, stem.fused_stem,
+               nms_device.bbox_vote_device)
+        set_counts_zero(*fns)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        dets = det.detect(images[0], THRESH)[0][0]
+        torch.cuda.synchronize()
+        walls = [time.perf_counter() - t]
+        peak = torch.cuda.max_memory_allocated()
+        counts = {"conv3x3_int8": conv_int8.conv3x3_int8.launches,
+                  "fused_stem": stem.fused_stem.launches,
+                  "bbox_vote": nms_device.bbox_vote_device.launches}
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            det.detect(images[0], THRESH)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t)
+        split = detect_device_split(det, images[0],
+                                    float(np.median(walls)) * 1e3)
+        # K1's outputs of one more detect, for the CPU path below
+        recorded = []
+        run_stem = tdm.fused_stem
+
+        def record(*args, **kwargs):
+            out = run_stem(*args, **kwargs)
+            recorded.append(out.cpu())
+            return out
+        tdm.fused_stem = record
+        try:
+            again = det.detect(images[0], THRESH)[0][0]
+        finally:
+            tdm.fused_stem = run_stem
+        deterministic = np.array_equal(again, dets)
+        h, w = images[0].shape[:2]
+        ok = (dets.ndim == 2 and dets.shape[1] == 5
+              and np.isfinite(dets).all() and (dets[:, 4] > THRESH).any()
+              and (dets[:, :4] >= 0).all()
+              and (dets[:, 2] <= w + 8).all() and (dets[:, 3] <= h + 8).all())
+        # the int8 logits against fp32 on the card, at the largest level
+        lv = det._prep(images[0])["levels"][-1]
+        imgs = torch.from_numpy(det._prep(images[0])["padded"][None]).to(
+            dev).float()
+        with torch.inference_mode():
+            x = det._level_batch(imgs, [lv], lv["hb"], lv["wb"])
+            q8 = det.model(x, precision="int8", qstate=det.qstate)
+            f32 = det.model(x)
+            corr = float(np.corrcoef(
+                q8["cls_logits"].double().cpu().numpy().ravel(),
+                f32["cls_logits"].double().cpu().numpy().ravel())[0, 1])
+        del x, q8, f32, imgs
+        # the dynamic mode: one detect of image 0 without the qstate
+        qstate, det.qstate = det.qstate, None
+        det.detect(images[0], THRESH)
+        set_counts_zero(conv_int8.conv3x3_int8)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        dyn = det.detect(images[0], THRESH)[0][0]
+        torch.cuda.synchronize()
+        dyn_wall = time.perf_counter() - t
+        dyn_launches = conv_int8.conv3x3_int8.launches
+        det.qstate = qstate
+        # detect_many at max_batch 4 against per-image int8 detect
+        singles = [det.detect(im, THRESH)[0][0] for im in dm_images]
+        det.detect_many(dm_images, THRESH, max_batch=4)       # warm
+        set_counts_zero(*fns)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        many = [d[0] for d in det.detect_many(dm_images, THRESH,
+                                              max_batch=4)]
+        torch.cuda.synchronize()
+        many_wall = time.perf_counter() - t
+        many_peak = torch.cuda.max_memory_allocated()
+        many_counts = {"conv3x3_int8": conv_int8.conv3x3_int8.launches,
+                       "fused_stem": stem.fused_stem.launches,
+                       "bbox_vote": nms_device.bbox_vote_device.launches}
+        many_rule = [_rule(a, b, INT8_MANY_MATCH_MIN)
+                     for a, b in zip(many, singles)]
+        # the service, calibrated at start-up on the three images
+        work = tempfile.mkdtemp(prefix="chip_smoke_int8_", dir=_output_dir())
+        paths = []
+        for i, im in enumerate(images):
+            paths.append(os.path.join(work, f"calib_{i}.png"))
+            cv2.imwrite(paths[-1], im)
+        service = serve_mod.DetectorService(params, spec, device=dev,
+                                            calib_images=paths)
+        service.warmup()
+        srv = serve_mod.serve(service, "127.0.0.1", 0)
+        threading.Thread(target=srv.serve_forever, daemon=True).start()
+        set_counts_zero(conv_int8.conv3x3_int8)
+        try:
+            served = []
+            for im in images[:2]:
+                req = urllib.request.Request(
+                    f"http://127.0.0.1:{srv.server_address[1]}/detect"
+                    f"?thresh={THRESH}",
+                    data=cv2.imencode(".png", im)[1].tobytes(),
+                    method="POST")
+                t = time.perf_counter()
+                with urllib.request.urlopen(req, timeout=600) as r:
+                    payload = json.loads(r.read())
+                served.append((payload["count"], time.perf_counter() - t))
+        finally:
+            srv.shutdown()
+            srv.server_close()
+            shutil.rmtree(work, ignore_errors=True)
+        serve_launches = conv_int8.conv3x3_int8.launches
+        card_plain_calls = plain_calls[0]
+    finally:
+        conv_int8.conv3x3_int8_reference = reference
+
+    # the yardstick of detect_many's agreement: int8 against fp32
+    cfg.TPU.PRECISION = "float32"
+    det32 = TorchDetector(params, spec, dev)
+    vs_fp32 = [_rule(a, det32.detect(im, THRESH)[0][0], 0.0)
+               for a, im in zip(singles, dm_images)]
+    cfg.TPU.PRECISION = "int8"
+    del det32
+    # the port's int8 CPU path on the card's stem outputs, same qstate
+    cpu_det = TorchDetector(params, spec, "cpu")
+    cpu_det.qstate = {"scales": dict(det.qstate["scales"]),
+                      "qw": {k: v.cpu() for k, v in det.qstate["qw"].items()},
+                      "s_w": {k: v.cpu() for k, v in
+                              det.qstate["s_w"].items()}}
+    replay = iter(recorded)
+    tdm.fused_stem = lambda *args, **kwargs: next(replay)
+    try:
+        t = time.perf_counter()
+        cpu = cpu_det.detect(images[0], THRESH)[0][0]
+        cpu_s = time.perf_counter() - t
+    finally:
+        tdm.fused_stem = run_stem
+    agree, fwd, bwd = _rule(dets, cpu, INT8_MATCH_MIN)
+    n_levels = len(cfg.TEST.SCALES)
+    per_forward = len(tdm.int8_layer_names(spec)) + 2     # the head thrice
+    want = {"conv3x3_int8": n_levels * per_forward, "fused_stem": n_levels,
+            "bbox_vote": 1}
+    say("int8_detect", image=0, hw=[h, w], dets=int(dets.shape[0]),
+        checks_ok=bool(ok), deterministic=deterministic, warm_walls_s=walls,
+        fp32_walls_s=fp32_walls, max_memory_allocated_bytes=peak,
+        launches=counts, launches_expected=want, calibrate_s=calib_s,
+        amax=amax, device_split=split, int8_vs_fp32_logits_corr=corr,
+        corr_min=INT8_CORR_MIN, card_vs_cpu={
+            "dets_cpu": int(cpu.shape[0]), "match_card_in_cpu": fwd,
+            "match_cpu_in_card": bwd, "rule_holds": agree,
+            "match_min": INT8_MATCH_MIN, "cpu_seconds": cpu_s,
+            "cpu_stem": "the card's K1 outputs, replayed"},
+        dynamic={"dets": int(dyn.shape[0]), "wall_s": dyn_wall,
+                 "conv3x3_int8_launches": dyn_launches},
+        timing="host clock after torch.cuda.synchronize(); peak: "
+               "max_memory_allocated in the timed detect")
+    say("int8_detect_many", images=len(dm_images), max_batch=4,
+        wall_s=many_wall, images_per_s=len(dm_images) / many_wall,
+        max_memory_allocated_bytes=many_peak, launches=many_counts,
+        rule_holds=[r[0] for r in many_rule],
+        min_match=min(min(r[1], r[2]) for r in many_rule),
+        match=[[r[1], r[2]] for r in many_rule],
+        match_min=INT8_MANY_MATCH_MIN, count_diffs=[
+            len(a) - len(b) for a, b in zip(many, singles)],
+        int8_vs_fp32_match=[[r[1], r[2]] for r in vs_fp32],
+        reference="per-image int8 detect")
+    say("int8_serve", calib_images=len(paths), responses=served,
+        conv3x3_int8_launches=serve_launches,
+        plain_q1_calls_on_the_card=card_plain_calls)
+    if not (ok and deterministic and agree and corr > INT8_CORR_MIN
+            and counts == want):
+        raise AssertionError("the int8 detect fails its checks")
+    if not (dyn_launches > 0 and many_counts["conv3x3_int8"] > 0
+            and serve_launches > 0 and all(r[0] for r in many_rule)):
+        raise AssertionError("an int8 path missed Q1 or disagrees")
+    if card_plain_calls:
+        raise AssertionError("an int8 path on the card reached Q1's plain "
+                             "version")
+    entry["launches"] = counts["conv3x3_int8"]
+    entry["launches_path"] = "int8_detect"
+    entry["launches_dynamic_detect"] = dyn_launches
+    entry["launches_detect_many"] = many_counts["conv3x3_int8"]
+    entry["launches_serve"] = serve_launches
+    return entry
 
 
 def _output_dir():

@@ -30,8 +30,13 @@ and ``_pyramid_scales`` (:38-73), and ``TPUDetector`` (``_build_run``,
 
 ``TPU.HOST_PREPROC`` is the reference-exact parity path: a cv2 resize per
 level on the host, one float32 upload per level, and the float64 host
-vote. Only ``TPU.PRECISION = "float32"`` is ported; int8 calibration and
-spatial meshes wait (ROADMAP).
+vote.
+
+``TPU.PRECISION = "int8"`` is the JAX int8 serving mode (JAX
+detect.py:121-146, :453-500): ``calibrate_int8`` sets ``qstate`` and the
+forward runs the calibrated int8 chain; without it each int8 conv takes a
+dynamic activation step, shared by exactly the items one JAX forward call
+would see (``_scale_groups``). bfloat16 and spatial meshes wait (ROADMAP).
 """
 
 from __future__ import annotations
@@ -59,15 +64,21 @@ IGNORED_TPU_KNOBS = {
     "MASK_MODE": "detect runs every level at its exact x16 shape (the JAX "
                  "'exact' mode) and detect_many masks each image of a "
                  "bucket to its own extent (the JAX 'where' mode); the "
-                 "'band' margin was a TPU speed trick",
+                 "'band' margin was a TPU speed trick. Under int8 it is "
+                 "read: 'band' raises as in JAX, and it picks the level "
+                 "area FLIP_SPLIT_PX is compared with",
     "S2D_STEM": "a TPU matrix-unit layout trick for conv1_1; the stem is "
                 "one fused CUDA kernel",
     "PALLAS_STEM": "the stem always runs through ops/stem.fused_stem: the "
                    "kernel on a CUDA tensor, its plain version on the CPU",
     "LEVEL_SERIAL": "XLA scheduling barriers; eager execution already "
                     "runs the levels in order",
-    "FLIP_SPLIT_PX": "a TPU batch-2 efficiency workaround; it never "
-                     "changed the output",
+    "FLIP_SPLIT_PX": "in float32 a TPU batch-2 efficiency workaround that "
+                     "never changes the output; the dynamic int8 mode "
+                     "reads it, since at levels of at least this many "
+                     "pixels JAX runs the image and its mirror as two "
+                     "forwards with an activation step each "
+                     "(TorchDetector._scale_groups)",
     "DECODE_FAST_K": "a faster TPU top-k with identical output; the port "
                      "sorts once per level",
     "SPATIAL_DEVICES": "spatial sharding is not ported yet",
@@ -147,15 +158,33 @@ class TorchDetector:
     params: {name: {'w': OIHW, 'b'}} tensors (``models.detector
     .init_params`` or ``io.weights``); spec: ``ModelSpec`` (from the config
     when None); device: where the network runs, the CUDA card when None
-    (raises when there is none; pass "cpu" for the CPU).
+    (raises when there is none; pass "cpu" for the CPU). Under
+    TPU.PRECISION = "int8" the forward runs the int8 mode: the calibrated
+    chain once ``calibrate_int8`` (or the caller) has set ``qstate``
+    (``models.detector.make_qstate``), the dynamic mode while it is None.
     """
 
     def __init__(self, params, spec=None, device=None):
         precision = str(cfg.TPU.PRECISION)
-        if precision != "float32":
+        if precision not in ("float32", "int8"):
             raise NotImplementedError(
                 f"TPU.PRECISION={precision!r}: the PyTorch port runs "
-                "float32 only; bfloat16 and int8 are on ROADMAP queue 1")
+                "float32 and int8; bfloat16 waits (ROADMAP queue 1 item "
+                "10, 'bf16')")
+        if precision == "int8":
+            mode = str(cfg.TPU.MASK_MODE)
+            if mode not in ("band", "band_margin", "where", "exact"):
+                raise ValueError("TPU.MASK_MODE must be 'band', 'where' or "
+                                 f"'exact', got {mode!r}")
+            if mode in ("band", "band_margin"):
+                # JAX detect.py:128-136, one config refused alike
+                raise ValueError(
+                    "TPU.PRECISION='int8' requires TPU.MASK_MODE 'exact' or "
+                    "'where' (dynamic activation scales are global "
+                    f"reduces; '{mode}' buckets carry garbage padding)")
+        self.precision = precision
+        # the calibrated int8 state (calibrate_int8); None = dynamic steps
+        self.qstate = None
         for knob, why in IGNORED_TPU_KNOBS.items():
             logger.debug("TPU.%s=%r ignored: %s", knob, cfg.TPU[knob], why)
         self.device = resolve_device(device)
@@ -273,7 +302,9 @@ class TorchDetector:
             x = self._level_batch(imgs, lvs, hb, wb)
             # the forward masks each item to its own ×16 extent in a bucket
             out = self.model(x, (per_item("hb"), per_item("wb"))
-                             if bucketed else None)
+                             if bucketed else None, self.precision,
+                             self.qstate, scale_groups=self._scale_groups(
+                                 lvs))
             probs = torch.softmax(out["cls_logits"], dim=-1)[..., 1]
             boxes, scores, counts = decode_mod.decode_proposals_batch(
                 probs, out["bbox_deltas"], self.base_anchors,
@@ -301,6 +332,64 @@ class TorchDetector:
             all_boxes.append(boxes.reshape(n, -1, 4))
             all_scores.append(scores.reshape(n, -1))
         return torch.cat(all_boxes, dim=1), torch.cat(all_scores, dim=1)
+
+    def _scale_groups(self, lvs):
+        """The dynamic int8 mode's step groups of one level's batch (image
+        i's items i·F .. i·F + F - 1): the ids that ``Detector.forward``
+        shares one activation step across, (N·F,) on the device, or None
+        outside that mode. JAX takes the step over what one forward call
+        sees: ``detect_many`` is a ``vmap`` over images, so no step spans
+        two images, and a level whose JAX bucket has at least
+        TPU.FLIP_SPLIT_PX pixels runs the image and its mirror as two
+        forwards (JAX detect.py:248-271), a step each; below it the pair
+        shares one. JAX's bucket is the ×16 shape under MASK_MODE "exact",
+        else the TEST_BUCKET bucket. Masked padding is zero and takes no
+        part in a max, so the bucket the port runs at does not matter."""
+        if self.precision != "int8" or self.qstate is not None:
+            return None
+        reps = 2 if cfg.TEST.FLIP else 1
+        exact = str(cfg.TPU.MASK_MODE) == "exact"
+        ids = []
+        for i, lv in enumerate(lvs):
+            area = lv["hb"] * lv["wb"] if exact else lv["bh"] * lv["bw"]
+            split = area >= int(cfg.TPU.FLIP_SPLIT_PX)
+            ids += [i * reps + (f if split else 0) for f in range(reps)]
+        return torch.tensor(ids, device=self.device)
+
+    def calibrate_int8(self, images):
+        """Calibrate the int8 mode's static activation steps (JAX
+        ``TPUDetector.calibrate_int8``, detect.py:453-500). images: BGR
+        uint8 arrays or paths. Each is resized on the host with cv2
+        INTER_LINEAR at every TEST scale (in uint8, as JAX resizes it),
+        mean-subtracted and zero-padded to ×16; an fp32 forward over each
+        with no valid extent (the padding takes part, as in JAX) folds
+        every int8 conv's max|input| (``collect_int8_amax``); the maxima
+        and the int8 weights, quantized once, become ``self.qstate``.
+        Returns the amax dict. Values outside the calibrated ranges
+        saturate: use representative images."""
+        if self.precision != "int8":
+            raise ValueError("calibrate_int8 requires TPU.PRECISION='int8'")
+        import cv2      # the host resize JAX calibrates with
+        mean = np.asarray(cfg.PIXEL_MEANS, np.float32)
+        xs = []
+        for im in images:
+            if isinstance(im, str):
+                im = _imread(im)
+            for scale in _pyramid_scales(im.shape):
+                r8 = cv2.resize(im, None, fx=scale, fy=scale,
+                                interpolation=cv2.INTER_LINEAR)
+                h, w = r8.shape[:2]
+                x = np.zeros((1, _round_up(h, cfg.MAX_RESOLUTION),
+                              _round_up(w, cfg.MAX_RESOLUTION), 3),
+                             np.float32)
+                x[0, :h, :w] = r8.astype(np.float32) - mean
+                xs.append(x)
+        amax = detector_mod.collect_int8_amax(self.model, xs)
+        self.qstate = detector_mod.make_qstate(self.model.tree(), self.spec,
+                                               amax)
+        logger.info("int8 calibration over %d pyramid inputs: %s", len(xs),
+                    {k: round(v, 1) for k, v in sorted(amax.items())})
+        return amax
 
     def merged_candidates(self, im, thresh=0.05, score_thresh=None):
         """Upload one image and enqueue its whole pyramid on the device.
@@ -428,7 +517,9 @@ class TorchDetector:
         st = float(score_thresh if score_thresh is not None
                    else cfg.TEST.SCORE_THRESH)
         with torch.inference_mode():
-            out = self.model(torch.from_numpy(x).to(self.device))
+            # one JAX forward call over the batch: one dynamic int8 step
+            out = self.model(torch.from_numpy(x).to(self.device),
+                             precision=self.precision, qstate=self.qstate)
             probs = torch.softmax(out["cls_logits"], dim=-1)[..., 1]
             boxes, scores, counts = decode_mod.decode_proposals_batch(
                 probs, out["bbox_deltas"], self.base_anchors,

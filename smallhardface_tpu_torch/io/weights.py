@@ -6,6 +6,11 @@ loading waits: ROADMAP queue 1, '.caffemodel loading'). Both packages
 address parameters by the names of ``detector.param_shapes``; the JAX package stores conv weights
 HWIO, the port OIHW. ``conv5_256_up`` is (4, 4, 1, C) in HWIO and
 (C, 1, 4, 4) here, the grouped-deconv layout: the same transpose.
+
+``qstate_from_numpy`` / ``qstate_to_numpy`` carry the int8 mode's
+calibrated state (``models/detector.make_qstate``) across: the JAX
+package's int8 weights are HWIO, the port's (O, 3, 3, C), the layout the
+int8 kernel reads.
 """
 
 from __future__ import annotations
@@ -44,6 +49,36 @@ def params_to_numpy(params):
                 a = a.transpose(_OIHW_TO_HWIO)
             out[name][k] = np.ascontiguousarray(a)
     return out
+
+
+_HWIO_TO_OHWI = (3, 0, 1, 2)
+_OHWI_TO_HWIO = (1, 2, 3, 0)
+
+
+def qstate_from_numpy(qstate, device=None):
+    """A JAX qstate ({'scales': {name: float32}, 'qw': {name: int8 HWIO},
+    's_w': {name: float32 (O,)}}, numpy or JAX arrays) → the port's: the
+    scales as float32 values in Python numbers, qw (O, 3, 3, C) int8 and
+    s_w float32 tensors on ``device`` (the CPU when None)."""
+    return {
+        "scales": {n: float(np.float32(v))
+                   for n, v in qstate["scales"].items()},
+        "qw": {n: torch.from_numpy(np.ascontiguousarray(
+            np.asarray(v, np.int8).transpose(_HWIO_TO_OHWI))).to(device)
+            for n, v in qstate["qw"].items()},
+        "s_w": {n: torch.from_numpy(np.array(v, np.float32)).to(device)
+                for n, v in qstate["s_w"].items()}}
+
+
+def qstate_to_numpy(qstate):
+    """Inverse of ``qstate_from_numpy``: numpy float32 scales, int8 HWIO
+    weights and float32 s_w, the JAX package's layout."""
+    return {
+        "scales": {n: np.float32(v) for n, v in qstate["scales"].items()},
+        "qw": {n: np.ascontiguousarray(
+            v.cpu().numpy().transpose(_OHWI_TO_HWIO))
+            for n, v in qstate["qw"].items()},
+        "s_w": {n: v.cpu().numpy() for n, v in qstate["s_w"].items()}}
 
 
 def load_params(path):

@@ -3,8 +3,11 @@
 
 Counterpart of ``smallhardface_tpu/models/detector.py``: the spec and
 shape tables (:32-234), ``init_params`` (:133-163), ``param_multipliers``
-(:166-194) and the graph of ``forward`` (:313-649) under the ``"exact"``
-and ``"where"`` mask modes; training runs ``"where"``, the
+(:166-194), the graph of ``forward`` (:313-649) under the ``"exact"``
+and ``"where"`` mask modes, in fp32 and in the int8 serving mode
+(``precision="int8"``, :399-419, :456-519, :597-600, :613-621), and the
+int8 calibration helpers ``int8_layer_names``, ``make_qstate`` and
+``collect_int8_amax`` (:652-702); training runs ``"where"``, the
 ``mask_plan(train=True)`` choice (train_loop.py:147-148).
 
 Layouts follow the JAX package at the public surface: images in are NHWC
@@ -26,8 +29,9 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from smallhardface_tpu_torch.models.layers import (
-    bilinear_kernel, conv2d, conv3x3, max_pool_2x2, upsample2x_bilinear,
-    zero_outside)
+    bilinear_kernel, conv2d, conv2d_int8, conv2d_int8_chain, conv3x3,
+    kernel_weights, max_pool_2x2, quantize_int8, quantize_weights_int8,
+    upsample2x_bilinear, zero_outside)
 from smallhardface_tpu_torch.ops.stem import fused_stem
 
 # (name, out_channels, n_convs) per VGG stage
@@ -274,7 +278,8 @@ class Detector(nn.Module):
     def _w(self, name):
         return self.params[name]["w"], self.params[name]["b"]
 
-    def forward(self, x, valid_hw=None):
+    def forward(self, x, valid_hw=None, precision="float32", qstate=None,
+                int8_amax=None, scale_groups=None):
         """x: NHWC (B, H, W, 3) float32, BGR mean-subtracted, H and W
         multiples of 16, contiguous. Returns {'cls_logits': (B, h, w, A, 2),
         'bbox_deltas': (B, h, w, A, 4)} at stride 8, anchors ordered as
@@ -288,8 +293,26 @@ class Detector(nn.Module):
         vw may be (B,) int tensors, one extent per item, as the JAX
         ``"where"`` mode gives each item of a ``vmap`` its own (detection
         of a bucketed batch; the stem then takes no gradient).
+
+        ``precision="int8"`` is the JAX int8 serving mode (inference
+        only): the 3×3 convs of stages 2-5, the fusion convs and the
+        shared head run as int8 products (``ops/conv_int8``); the stem
+        (fp32, ``fused_stem``), the 1×1 laterals and the score/bbox convs
+        stay fp32. With a ``qstate`` (``make_qstate``) it is the calibrated
+        chain: the carriers between convs are int8 on each successor's
+        grid (``_qsucc``); without one, each conv quantizes its fp32 input
+        with a dynamic step, shared by the items of one ``scale_groups``
+        id ((B,) int tensor; None: by the whole batch, as one JAX forward
+        call shares it). ``int8_amax``: a dict to fold max|input| of every
+        int8 conv into (0-d tensors; "head" on its input ``ff``), the
+        fp32 calibration forward's hook.
         """
         spec = self.spec
+        if precision not in ("float32", "int8"):
+            raise ValueError(f"precision must be 'float32' or 'int8', got "
+                             f"{precision!r}")
+        int8 = precision == "int8"
+        succ = _qsucc(spec) if int8 and qstate is not None else {}
         stride = 1
 
         def mask(h):
@@ -298,15 +321,45 @@ class Detector(nn.Module):
             return zero_outside(h, valid_hw[0] // stride,
                                 valid_hw[1] // stride)
 
+        def q_in(h, name):
+            """h as an int8 carrier on `name`'s calibrated input grid (an
+            int8 carrier is on it already)."""
+            if h.dtype == torch.int8:
+                return h
+            return quantize_int8(h, input_step(qstate, name))
+
+        def q_conv(h, name, dilation=1):
+            """One int8 conv: fp32 post-ReLU out, or int8 on the
+            successor's grid inside the calibrated chain."""
+            w, b = self._w(name)
+            if qstate is None:
+                return F.relu(conv2d_int8(h, w, b, dilation=dilation,
+                                          groups=scale_groups))
+            nxt = succ.get(name)
+            return conv2d_int8_chain(
+                q_in(h, name), qstate["qw"][name], input_step(qstate, name),
+                qstate["s_w"][name], b, dilation=dilation,
+                s_out=None if nxt is None else input_step(qstate, nxt))
+
+        def record(name, h):
+            a = h.detach().abs().amax()
+            int8_amax[name] = (torch.maximum(int8_amax[name], a)
+                               if name in int8_amax else a)
+
         def cbr(h, name):
+            if not name.startswith("conv1"):
+                if int8:
+                    return mask(q_conv(h, name))
+                if int8_amax is not None:
+                    record(name, h)
             w, b = self._w(name)
             return mask(F.relu(conv3x3(h, w, b)))
 
-        # VGG-16's stem runs fused (the kernel on the card); it masks its
-        # input and conv1_1 itself, and its NHWC output is an NCHW-shaped
-        # channels_last tensor through a free permute. Other first stages
-        # (the skeletal nets of the tests) run as plain convs like the JAX
-        # forward (detector.py:528-530).
+        # VGG-16's stem runs fused (the kernel on the card), in fp32 in the
+        # int8 mode too; it masks its input and conv1_1 itself, and its
+        # NHWC output is an NCHW-shaped channels_last tensor through a free
+        # permute. Other first stages (the skeletal nets of the tests) run
+        # as plain convs like the JAX forward (detector.py:528-530).
         fused = VGG_STAGES[0] == ("conv1", 64, 2)
         if fused:
             w1, b1 = self._w("conv1_1")
@@ -332,18 +385,28 @@ class Detector(nn.Module):
         f5 = mask(F.relu(conv2d(feats["conv5"], w, b)))
         up = upsample2x_bilinear(f5, self.params["conv5_256_up"]["w"])
         stride //= 2                       # back to the stride-8 grid
+        f4 = feats["conv4"]
+        if f4.dtype == torch.int8:
+            # the chain left conv4_3's output on conv5_1's grid; the fp32
+            # 1×1 lateral reads it dequantized
+            f4 = f4.float() * input_step(qstate, "conv5_1")
         w, b = self._w("conv4_256")
-        lat4 = F.relu(conv2d(feats["conv4"], w, b))
+        lat4 = F.relu(conv2d(f4, w, b))
         ff = cbr(mask(torch.cat([mask(up), lat4], dim=1)), "conv4_fuse_final")
 
         bsz, _, hh, ww = ff.shape
         A = spec.num_anchors
         if spec.different_dilation:
             ff = cbr(ff, "conv4_fuse_final_dim_red")
+            if int8_amax is not None:
+                record("head", ff)
             hw, hb = self._w("head")
             cls_list, box_list = [], []
             for k, d in zip(ANCHOR_SCALES, HEAD_DILATIONS):
-                hd = F.relu(conv3x3(ff, hw, hb, dilation=d))
+                if int8:
+                    hd = q_conv(ff, "head", d)
+                else:
+                    hd = F.relu(conv3x3(ff, hw, hb, dilation=d))
                 cls_list.append(conv2d(hd, *self._w(f"cls_score_{k}")))
                 box_list.append(conv2d(hd, *self._w(f"bbox_pred_{k}")))
             # (B, C, h, w) per anchor → (B, h, w, A, C)
@@ -359,3 +422,70 @@ class Detector(nn.Module):
             bbox_deltas = raw_box.reshape(bsz, hh, ww, A, 4)
         return {"cls_logits": cls_logits.contiguous(),
                 "bbox_deltas": bbox_deltas.contiguous()}
+
+
+def int8_layer_names(spec: ModelSpec):
+    """The convs that run as int8 products under TPU.PRECISION='int8':
+    stages 2-5, the fusion conv(s) and the shared dilated head. The stem,
+    the 1×1 laterals and the score/bbox convs stay fp32."""
+    names = [f"{stage}_{i}" for stage, _, n in VGG_STAGES
+             if stage != "conv1" for i in range(1, n + 1)]
+    names.append("conv4_fuse_final")
+    if spec.different_dilation:
+        names.append("conv4_fuse_final_dim_red")
+    names.append("head")
+    return names
+
+
+def _qsucc(spec: ModelSpec):
+    """The calibrated chain: each int8 conv → the conv whose input grid its
+    output is requantized onto; absent (conv5_3, the head), the chain ends
+    there in fp32."""
+    chain = [f"{stage}_{i}" for stage, _, n in VGG_STAGES
+             if stage != "conv1" for i in range(1, n + 1)]
+    succ = dict(zip(chain, chain[1:]))
+    succ["conv4_fuse_final"] = ("conv4_fuse_final_dim_red"
+                                if spec.different_dilation else "head")
+    succ["conv4_fuse_final_dim_red"] = "head"
+    return succ
+
+
+def input_step(qstate, name):
+    """The step of `name`'s calibrated input grid, amax / 127 divided in
+    float32 as JAX divides its float32 scale (a float32 value as a Python
+    number)."""
+    return float(np.float32(qstate["scales"][name]) / np.float32(127.0))
+
+
+def make_qstate(params, spec: ModelSpec, amax, device=None):
+    """The calibrated int8 state from an amax dict (``collect_int8_amax``):
+    {'scales': {name: the amax as a float32 value}, 'qw': {name: (O, 3, 3,
+    C) int8}, 's_w': {name: (O,) float32}}, the weights of ``params``
+    ({name: {'w': OIHW}}) quantized once per output channel on ``device``
+    (theirs when None)."""
+    scales, qw, s_w = {}, {}, {}
+    for n in int8_layer_names(spec):
+        scales[n] = float(np.float32(amax[n]))
+        w = params[n]["w"].detach()
+        q, s = quantize_weights_int8(w.to(device) if device else w)
+        qw[n], s_w[n] = kernel_weights(q), s
+    return {"scales": scales, "qw": qw, "s_w": s_w}
+
+
+def collect_int8_amax(model, xs):
+    """Calibrate the activation ranges: fp32 forwards of ``model`` (a
+    Detector) over xs, each (1, H, W, 3) mean-subtracted, H and W multiples
+    of 16, with no valid extent (the zero padding takes part, as in JAX),
+    and the per-layer max|input| over all of them, as Python floats. One
+    readback per input."""
+    keys = sorted(int8_layer_names(model.spec))
+    device = next(model.parameters()).device
+    total = {}
+    with torch.inference_mode():
+        for x in xs:
+            amax = {}
+            model(torch.as_tensor(x).to(device), int8_amax=amax)
+            vals = torch.stack([amax[k] for k in keys]).cpu().tolist()
+            for k, v in zip(keys, vals):
+                total[k] = max(total.get(k, 0.0), v)
+    return total

@@ -2,12 +2,15 @@
 keeps them in ``torch.channels_last`` memory format).
 
 Counterpart of ``smallhardface_tpu/models/layers.py``: ``conv2d`` (:17-49),
-``max_pool_2x2`` (:159-178), ``bilinear_kernel`` (:181-192) and
-``upsample2x_bilinear`` (:195-213). Weights are OIHW, the PyTorch layout;
-``io/weights.py`` converts from the JAX package's HWIO. The convolutions
-are cuDNN's, or for the large 3×3 ones of detection nine cuBLAS products
+the int8 mode's ``quantize_weights_int8``, ``conv2d_int8`` and
+``conv2d_int8_chain`` (:52-157), ``max_pool_2x2`` (:159-178), also on int8
+carriers, ``bilinear_kernel`` (:181-192) and ``upsample2x_bilinear``
+(:195-213). Weights are OIHW, the PyTorch layout; ``io/weights.py``
+converts from the JAX package's HWIO. The fp32 convolutions are cuDNN's,
+or for the large 3×3 ones of detection nine cuBLAS products
 (``conv3x3``): the JAX package leaves them to XLA outside any Pallas
-kernel.
+kernel. The int8 3×3 products run through ``ops/conv_int8.conv3x3_int8``
+(the kernel Q1 on the card).
 """
 
 from __future__ import annotations
@@ -15,6 +18,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from smallhardface_tpu_torch.ops.conv_int8 import conv3x3_int8, fdiv
 
 
 def conv2d(x, w, b=None, *, dilation=1, padding=0):
@@ -88,10 +93,78 @@ def conv3x3_taps(x, w, b, *, dilation=1):
     return out
 
 
+def quantize_weights_int8(w):
+    """Per-output-channel symmetric int8 quantization of OIHW weights:
+    s_w = max(max|w|, 1e-12) / 127 over (I, H, W), qw = clip(round(w /
+    s_w), -127, 127). Returns (qw int8 OIHW, s_w float32 (O,)), w ≈ qw·s_w;
+    every division is a correctly rounded fp32 one, as in JAX."""
+    s_w = fdiv(w.abs().amax(dim=(1, 2, 3)).clamp_min(1e-12), 127.0)
+    qw = torch.round(torch.div(w, s_w[:, None, None, None]))
+    return qw.clamp(-127, 127).to(torch.int8), s_w
+
+
+def kernel_weights(qw):
+    """OIHW int8 weights in the layout ``conv3x3_int8`` reads: (O, 3, 3,
+    C), each output channel's K contiguous."""
+    return qw.permute(0, 2, 3, 1).contiguous()
+
+
+def quantize_int8(x, s):
+    """The int8 carrier of x on the grid of step s (a number holding a
+    float32, or a tensor broadcasting against x): clip(round(x / s), -127,
+    127), a symmetric saturating clip."""
+    return torch.round(fdiv(x, s)).clamp(-127, 127).to(torch.int8)
+
+
+def dynamic_scales(x, groups=None):
+    """The dynamic mode's activation step of each item of x (B, C, H, W):
+    max(max|x|, 1e-12) / 127 over everything one JAX forward call of the
+    item's group sees. ``groups`` (B,) int tensor: items with one id share
+    one step; None: the whole batch shares one, as one JAX call over it
+    does. Returns (B,) float32."""
+    amax = x.abs().amax(dim=(1, 2, 3))
+    if groups is None:
+        amax = amax.amax().expand(x.shape[0])
+    else:
+        same = groups[:, None] == groups[None, :]
+        amax = torch.where(same, amax[None, :], 0.0).amax(dim=1)
+    return fdiv(amax.clamp_min(1e-12), 127.0)
+
+
+def conv2d_int8(x, w, b, *, dilation=1, groups=None):
+    """The dynamic int8 mode's 3×3 convolution, zero padding ``dilation``:
+    fp32 x is quantized with its dynamic step s_x (``dynamic_scales``), w
+    per output channel, the product runs in int8, and the result is
+    float(acc)·(s_x·s_w) + b in fp32, without a ReLU (the caller applies
+    it, as the JAX forward does). x: (B, C, H, W) channels_last."""
+    s_x = dynamic_scales(x, groups)
+    q = quantize_int8(x, s_x[:, None, None, None])
+    qw, s_w = quantize_weights_int8(w)
+    return conv3x3_int8(q, kernel_weights(qw), s_x[:, None] * s_w[None, :],
+                        b, dilation=dilation, relu=False)
+
+
+def conv2d_int8_chain(q, qw, s_in, s_w, b, *, dilation=1, s_out=None):
+    """One link of the calibrated int8 chain: the int8 carrier q on the
+    grid of step s_in (a number holding a float32), prebaked (O, 3, 3, C)
+    weights qw with steps s_w (O,); the epilogue dequantizes, adds b and
+    applies the ReLU, then requantizes onto the step s_out (int8 out), or
+    ends the chain in fp32 when s_out is None."""
+    return conv3x3_int8(q, qw, (s_w * s_in)[None], b, dilation=dilation,
+                        relu=True, s_out=s_out)
+
+
 def max_pool_2x2(x):
     """2×2/2 max pool with Caffe's ceil-mode output size
-    ceil((H-2)/2)+1: an odd edge row/column pools alone."""
-    return F.max_pool2d(x, 2, 2, ceil_mode=True)
+    ceil((H-2)/2)+1: an odd edge row/column pools alone. An int8 carrier
+    pools as int8 (max commutes with its positive step), an odd edge
+    padded with -128 as JAX pads with the dtype's minimum."""
+    if x.dtype != torch.int8:
+        return F.max_pool2d(x, 2, 2, ceil_mode=True)
+    B, C, H, W = x.shape
+    h = F.pad(x.permute(0, 2, 3, 1), (0, 0, 0, W % 2, 0, H % 2), value=-128)
+    h = h.reshape(B, (H + 1) // 2, 2, (W + 1) // 2, 2, C).amax(dim=(2, 4))
+    return h.permute(0, 3, 1, 2)
 
 
 def per_item(v):

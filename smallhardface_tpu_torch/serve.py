@@ -22,6 +22,11 @@ raises when there is no card):
       smallhardface_tpu/configs/smallhardface.toml --model final.npz \
       [--device cpu] [--port 8400] [--host 127.0.0.1] \
       [--batch-window-ms 20 --max-batch 4]
+
+The int8 serving mode (``--conf smallhardface_tpu/configs/
+smallhardface-int8.toml``) calibrates at start-up on ``--calib-images
+a.jpg b.jpg ...``; without them it serves the dynamic int8 mode, with a
+warning.
 """
 
 from __future__ import annotations
@@ -52,7 +57,11 @@ class DetectorService:
     arriving within the window are grouped, by threshold, into
     ``detect_many`` calls of at most max_batch images, whose detections
     equal the per-request path's within float rounding. A failure reaches
-    the callers of its group only."""
+    the callers of its group only.
+
+    calib_images: image paths for the one-time int8 calibration under
+    TPU.PRECISION = "int8" (``TorchDetector.calibrate_int8``); without
+    them the int8 service runs the dynamic mode, with a warning."""
 
     # a request waits at most this long for the batch thread, so that a
     # dead thread surfaces as an error instead of a client blocked forever
@@ -60,16 +69,20 @@ class DetectorService:
 
     def __init__(self, params, spec, batch_window_ms=0, max_batch=4,
                  calib_images=(), device=None):
-        if str(cfg.TPU.PRECISION) == "int8" or calib_images:
-            raise NotImplementedError(
-                "int8 serving (TPU.PRECISION='int8', --calib-images) is not "
-                "ported yet (ROADMAP queue 1 item 12, 'int8 serving')")
         if int(cfg.TPU.SPATIAL_DEVICES) > 1:
             raise NotImplementedError(
                 f"TPU.SPATIAL_DEVICES={cfg.TPU.SPATIAL_DEVICES}: spatial "
                 "sharding is not ported yet (ROADMAP queue 1 item 14, "
                 "'Spatial H-sharding')")
         self.det = TorchDetector(params, spec, device)
+        if self.det.precision == "int8":
+            if calib_images:
+                self.det.calibrate_int8(list(calib_images))
+            else:
+                logger.warning(
+                    "TPU.PRECISION='int8' without --calib-images: serving "
+                    "with dynamic per-tensor scales; pass representative "
+                    "images to calibrate the int8 chain at start-up")
         self._dispatch_lock = threading.Lock()
         self.batch_window = float(batch_window_ms) / 1e3
         self.max_batch = int(max_batch)
@@ -226,8 +239,9 @@ def main(argv=None):
     p.add_argument("--max-batch", type=int, default=4,
                    help="images per batched dispatch")
     p.add_argument("--calib-images", nargs="*", default=[],
-                   help="int8 calibration images (int8 is not ported: "
-                        "raises)")
+                   help="representative images for the one-time int8 "
+                        "calibration (TPU.PRECISION='int8'); without them "
+                        "the int8 service runs the dynamic mode")
     args = p.parse_args(argv)
 
     logging.basicConfig(level=logging.INFO)

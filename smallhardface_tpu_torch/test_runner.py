@@ -83,8 +83,18 @@ def inference_worker(rank, device, imdb, params, spec, start, end, thresh):
     device while the host reads back and stores the oldest; under
     TPU.EVAL_BATCH > 1, full groups of EVAL_BATCH images of one key go
     through ``detect_many`` and the rest one at a time; under
-    TPU.HOST_PREPROC the images run one at a time."""
+    TPU.HOST_PREPROC the images run one at a time. Under TPU.PRECISION
+    "int8" the detector first calibrates on the shard's first
+    TPU.INT8_CALIB_IMAGES images."""
     det = TorchDetector(params, spec, device)
+    if det.precision == "int8":
+        # the calibrated int8 chain: activation ranges from the first
+        # INT8_CALIB_IMAGES images of this shard, before the timed loop
+        # (JAX test_runner.py:60-69); 0 stays dynamic
+        n_cal = min(int(cfg.TPU.INT8_CALIB_IMAGES), end - start)
+        if n_cal > 0:
+            det.calibrate_int8([imdb.image_path_at(i)
+                                for i in range(start, start + n_cal)])
     timers = {"detect": Timer(), "misc": Timer()}
     dets = [[[] for _ in range(start, end)]
             for _ in range(imdb.num_classes)]

@@ -36,7 +36,13 @@ a machine that has only PyTorch:
   launches), V1 over three images in one launch (equal to the bit to
   three single launches);
 - conv4_fuse_final_dim_red, as detection runs it, at the shapes where
-  cuDNN took an FFT algorithm: at most 4 GB of device memory added.
+  cuDNN took an FFT algorithm: at most 4 GB of device memory added;
+- Q1 (the int8 3×3 convolution, csrc/conv_int8.cu): equal to the bit to
+  its plain version (float64 sums, then the same fp32 epilogue) for the
+  three epilogues at dilations 1, 2 and 4, on random int8 values and on
+  the extremes (±127, −128 inputs and weights), with one scale row or one
+  per image, at a pixel count that is not a multiple of its 128-pixel
+  tile; its wrapper refuses channel counts its tiles do not take.
 """
 
 import numpy as np
@@ -44,7 +50,7 @@ import pytest
 import torch
 
 from smallhardface_tpu_torch.ops import anchors as anchors_mod
-from smallhardface_tpu_torch.ops import iou, nms_device, stem
+from smallhardface_tpu_torch.ops import conv_int8, iou, nms_device, stem
 from smallhardface_tpu_torch.ops.iou_cases import (BASE, K3_CASES, band_gt,
                                                   crowd_gt, k3_case)
 from smallhardface_tpu_torch.ops.vote_cases import crowd_dets, integer_dets
@@ -433,3 +439,65 @@ def test_dim_red_conv_off_the_fft_cliff(cuda, shape):
     assert got.is_contiguous(memory_format=torch.channels_last)
     torch.testing.assert_close(got, want, rtol=RTOL,
                                atol=RTOL * want.abs().max().item())
+
+
+def _int8_inputs(device, B, H, W, C, O, extreme, per_image, seed=0):
+    """Q1's inputs: int8 activations and (O, 3, 3, C) weights (uniform, or
+    only -128, -127, 0, 127 with -128 in the activations), a positive fp32
+    scale per channel (one row, or one per image), a bias and an output
+    step."""
+    gen = torch.Generator().manual_seed(seed)
+    if extreme:
+        vals = torch.tensor([-128, -127, 0, 127], dtype=torch.int8)
+        x = vals[torch.randint(0, 4, (B, H, W, C), generator=gen)]
+        w = vals[1:][torch.randint(0, 3, (O, 3, 3, C), generator=gen)]
+    else:
+        x = torch.randint(-128, 128, (B, H, W, C), generator=gen,
+                          dtype=torch.int8)
+        w = torch.randint(-127, 128, (O, 3, 3, C), generator=gen,
+                          dtype=torch.int8)
+    scale = torch.rand((B if per_image else 1, O), generator=gen) * 1e-4
+    bias = torch.randn((O,), generator=gen)
+    x = x.permute(0, 3, 1, 2).to(device)          # channels_last NCHW view
+    return x, w.to(device), scale.to(device), bias.to(device), 0.0371
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dilation", [1, 2, 4])
+@pytest.mark.parametrize("epilogue", ["link", "end", "dynamic"])
+@pytest.mark.parametrize("extreme", [False, True])
+def test_conv_int8_kernel_vs_plain(cuda, dilation, epilogue, extreme):
+    B, H, W, C, O = 2, 19, 23, 64, 128          # 874 pixels: a ragged tile
+    x, w, scale, bias, s_out = _int8_inputs(
+        cuda, B, H, W, C, O, extreme, per_image=epilogue == "dynamic")
+    kw = {"dilation": dilation, "relu": epilogue != "dynamic",
+          "s_out": s_out if epilogue == "link" else None}
+    before = conv_int8.conv3x3_int8.launches
+    got = conv_int8.conv3x3_int8(x, w, scale, bias, **kw)
+    want = conv_int8.conv3x3_int8_reference(x, w, scale, bias, **kw)
+    torch.cuda.synchronize()
+    assert conv_int8.conv3x3_int8.launches == before + 1
+    assert got.dtype == (torch.int8 if epilogue == "link" else torch.float32)
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,O", [(32, 64), (512, 512), (512, 128)])
+def test_conv_int8_kernel_channel_counts(cuda, C, O):
+    x, w, scale, bias, s_out = _int8_inputs(cuda, 1, 9, 140, C, O, False,
+                                            per_image=False, seed=1)
+    got = conv_int8.conv3x3_int8(x, w, scale, bias, s_out=s_out)
+    want = conv_int8.conv3x3_int8_reference(x, w, scale, bias, s_out=s_out)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_conv_int8_wrapper_refuses_what_the_tiles_do_not_take(cuda):
+    x, w, scale, bias, _ = _int8_inputs(cuda, 1, 8, 8, 48, 64, False, False)
+    with pytest.raises(ValueError, match="multiple"):
+        conv_int8.conv3x3_int8(x, w, scale, bias)
+    x, w, scale, bias, _ = _int8_inputs(cuda, 1, 8, 8, 32, 96, False, False)
+    with pytest.raises(ValueError, match="multiple"):
+        conv_int8.conv3x3_int8(x, w, scale, bias)

@@ -4,7 +4,7 @@ trip, a bad body, concurrent requests, micro-batching equal to the
 per-request path (rtol 1e-5, atol 1e-4, as JAX's test), detections that
 agree with the JAX service's on the same converted weights (the golden
 fixture's rule, tests/test_torch_port_slice.py:_agree), and the settings
-it does not port raising."""
+it does not take raising."""
 
 import copy
 import http.client
@@ -159,16 +159,21 @@ def test_service_matches_jax_service(serve_cfg):
     _agree(got, want)
 
 
-@pytest.mark.parametrize("amend,kwargs,what", [
-    ({"PRECISION": "int8"}, {}, "item 12"),
-    ({}, {"calib_images": ["calib.jpg"]}, "item 12"),
-    ({"SPATIAL_DEVICES": 2}, {}, "item 14"),
+@pytest.mark.parametrize("amend,kwargs,error,what", [
+    ({"PRECISION": "int8", "MASK_MODE": "band"}, {}, ValueError,
+     "MASK_MODE"),
+    ({"PRECISION": "int8", "MASK_MODE": "band"},
+     {"calib_images": ["calib.jpg"]}, ValueError, "MASK_MODE"),
+    ({"SPATIAL_DEVICES": 2}, {}, NotImplementedError, "item 14"),
 ], ids=["int8", "calib_images", "spatial"])
-def test_unported_settings_raise(serve_cfg, amend, kwargs, what):
+def test_unported_settings_raise(serve_cfg, amend, kwargs, error, what):
+    """Spatial sharding is not ported and raises. int8 serving is ported
+    (tests/test_torch_port_int8.py); like the JAX service it refuses int8
+    with a "band" mask mode, before it would calibrate."""
     saved = copy.deepcopy(tcfg.TPU)
     tcfg.TPU.update(amend)
     try:
-        with pytest.raises(NotImplementedError, match=what):
+        with pytest.raises(error, match=what):
             tserve.DetectorService(None, tdm.ModelSpec(), device="cpu",
                                    **kwargs)
     finally:

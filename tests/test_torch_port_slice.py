@@ -132,15 +132,19 @@ def test_level_inputs_flip_and_padding(port_cfg):
 
 
 def test_non_float32_precision_raises(port_cfg):
-    _, _, params = _fixture_inputs()
-    saved = tcfg.TPU.PRECISION
+    """bfloat16 is not ported (ROADMAP queue 1 item 10) and raises; int8 is
+    ported (tests/test_torch_port_int8.py) and raises, as the JAX
+    detector does, with a "band" mask mode."""
+    saved = tcfg.TPU.PRECISION, tcfg.TPU.MASK_MODE
     try:
-        for precision in ("bfloat16", "int8"):
-            tcfg.TPU.PRECISION = precision
-            with pytest.raises(NotImplementedError, match="float32"):
-                TorchDetector(None, tdm.ModelSpec(), "cpu")
+        tcfg.TPU.PRECISION = "bfloat16"
+        with pytest.raises(NotImplementedError, match="item 10"):
+            TorchDetector(None, tdm.ModelSpec(), "cpu")
+        tcfg.TPU.PRECISION, tcfg.TPU.MASK_MODE = "int8", "band"
+        with pytest.raises(ValueError, match="MASK_MODE"):
+            TorchDetector(None, tdm.ModelSpec(), "cpu")
     finally:
-        tcfg.TPU.PRECISION = saved
+        tcfg.TPU.PRECISION, tcfg.TPU.MASK_MODE = saved
 
 
 def test_demo_cli():
