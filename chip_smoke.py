@@ -49,12 +49,17 @@ Then, each phase printing one line:
    equal to the bit to its plain version at every int8 layer shape of the
    1408×1872 level (batch 2), for the epilogue the calibrated chain runs
    there and the dynamic one, on uniform int8 values and on the extremes
-   (±127, -128); at each shape its wrapper's wall, its device time (CUDA
-   graph), its bound, the plain time and two yardsticks the port never
-   calls (the fp32 layer as ``layers.conv3x3`` runs it, ``torch._int_mm``
-   on the same M×K×N); a ``TorchDetector`` calibrated on the three images;
-   a warm calibrated ``detect`` of image 0 (wall, peak, Q1's, K1's and V1's
-   launches, where its device time goes) against the port's int8 CPU path
+   (±127, -128), at the edges of its tiling (Q1_EDGES: ragged H and W, W
+   under a tile, H = 1, dilation 4 beyond the image, three images with a
+   scale row each, every K chunk, outputs that are all ties) and at one
+   layer of each smaller level; at each 1408 shape its wrapper's wall,
+   its device time (CUDA graph), its bound, the plain time and two
+   yardsticks the port never calls (the fp32 layer as ``layers.conv3x3``
+   runs it, ``torch._int_mm`` on the same M×K×N); a ``TorchDetector``
+   calibrated on the three images; a warm calibrated ``detect`` of image 0
+   (wall, peak, Q1's, K1's and V1's launches, where its device time goes,
+   Q1's bound summed over the shapes of its 80 calls) against the port's
+   int8 CPU path
    on the card's own stem outputs (the golden rule at INT8_MATCH_MIN), the
    int8-vs-fp32 logits correlation on the card (> INT8_CORR_MIN), a
    dynamic ``detect``; ``detect_many`` at max_batch 4 (against per-image
@@ -180,6 +185,24 @@ INT8_MANY_MATCH_MIN = 0.85
 INT8_LEVEL = (1408, 1872)   # the largest level of image 0's pyramid
 INT8_SCALES = [100, 300, 600, 1000, 1400]
 PEAK_INT8 = 1979e12         # dense int8 on the tensor cores
+# Q1's tiling edges, beyond the layer shapes: (label, B, H, W, C, O,
+# dilation, epilogue, ties), as tests/test_torch_port_conv_int8_tiles.py
+# models them on the CPU
+Q1_EDGES = (("ragged", 2, 19, 23, 64, 128, 1, "link", False),
+            ("narrow", 2, 40, 5, 64, 128, 2, "link", False),
+            ("h1", 1, 1, 37, 64, 128, 1, "link", False),
+            ("h1_d4", 1, 1, 37, 32, 64, 4, "end", False),
+            ("d4_beyond", 1, 3, 3, 128, 128, 4, "end", False),
+            ("b3_rows", 3, 17, 30, 64, 128, 1, "dynamic", False),
+            ("b3_rows_c256", 3, 5, 9, 256, 256, 2, "dynamic", False),
+            ("k32", 1, 3, 10, 32, 64, 1, "link", False),
+            ("k128_o512", 1, 3, 10, 512, 512, 1, "link", False),
+            ("k128_o128", 1, 3, 10, 512, 128, 1, "dynamic", False),
+            ("ties", 2, 19, 23, 256, 256, 1, "link", True),
+            ("ties_c64", 2, 19, 23, 64, 128, 2, "link", True))
+# one layer of each smaller level of image 0's pyramid (network inputs)
+Q1_SMALLER_LEVELS = ((112, 144), (304, 400), (608, 800), (1008, 1344))
+Q1_SMALLER = ("conv2_1", "conv3_2", "conv5_1", "head_d4")
 # Q1's kernels (csrc/conv_int8.cu), K1's and V1's, for a detect's split
 Q1_KERNEL, V1_KERNEL = "conv3x3_int8_kernel", "vote_kernel"
 SERVE_WINDOW_MS = 50
@@ -887,12 +910,13 @@ def main():
     return 0
 
 
-def int8_layer_shapes():
-    """The int8 convolutions of the 1408×1872 level at batch 2 (image and
-    mirror), as the calibrated chain runs them: (name, C, O, H, W,
-    dilation, epilogue), the epilogue "link" (ReLU, int8 out) or "end"
-    (ReLU, fp32 out); the head once per dilation."""
-    h, w = INT8_LEVEL[0] // 2, INT8_LEVEL[1] // 2
+def int8_layer_shapes(level=INT8_LEVEL):
+    """The int8 convolutions of a pyramid level (the 1408×1872 one unless
+    ``level`` names another network input) at batch 2 (image and mirror),
+    as the calibrated chain runs them: (name, C, O, H, W, dilation,
+    epilogue), the epilogue "link" (ReLU, int8 out) or "end" (ReLU, fp32
+    out); the head once per dilation."""
+    h, w = level[0] // 2, level[1] // 2
     rows, c = [], 64
     for stage, o, n in (("conv2", 128, 2), ("conv3", 256, 3),
                         ("conv4", 512, 3), ("conv5", 512, 3)):
@@ -913,10 +937,23 @@ def int8_layer_shapes():
     return rows
 
 
-def _q1_inputs(gen, B, C, O, H, W, dev, extreme, per_image):
+def q1_bound_ms(B, C, O, H, W, int8_out):
+    """Q1's bound for one call: its bytes (input, weights, output, scale
+    and bias, each once) at 3.35 TB/s or its 2·M·N·K int8 operations at
+    1,979 TOPS, the larger, and which it is."""
+    M, K = B * H * W, 9 * C
+    n_bytes = M * C + O * K + M * O * (1 if int8_out else 4) + 8 * O
+    return max((n_bytes / PEAK_BYTES * 1e3, "bytes"),
+               (2.0 * M * O * K / PEAK_INT8 * 1e3, "operations"))
+
+
+def _q1_inputs(gen, B, C, O, H, W, dev, extreme, per_image, ties=False):
     """Q1's inputs on the card: int8 NHWC activations (uniform, or only
     -128, -127, 0, 127), (O, 3, 3, C) weights, scale rows that spread the
-    outputs over the int8 range, a bias and an output step."""
+    outputs over the int8 range, a bias and an output step. ``ties``: small
+    values, a scale of 1, a bias of 0.5 and a step of 1, so that every
+    requantized value is a tie (x.5), which Q1 settles with exact sign
+    tests instead of its product with the step's reciprocal."""
     if extreme:
         vals = torch.tensor([-128, -127, 0, 127], dtype=torch.int8,
                             device=dev)
@@ -925,56 +962,94 @@ def _q1_inputs(gen, B, C, O, H, W, dev, extreme, per_image):
         w = vals[1:][torch.randint(0, 3, (O, 3, 3, C), generator=gen,
                                    device=dev)]
     else:
-        x = torch.randint(-128, 128, (B, H, W, C), generator=gen,
+        lo, hi = (-2, 3) if ties else (-128, 128)
+        x = torch.randint(lo, hi, (B, H, W, C), generator=gen,
                           device=dev, dtype=torch.int8)
-        w = torch.randint(-127, 128, (O, 3, 3, C), generator=gen,
+        w = torch.randint(max(lo, -127), hi, (O, 3, 3, C), generator=gen,
                           device=dev, dtype=torch.int8)
     spread = 40.0 / (math.sqrt(9 * C) * 74.0 * 74.0)
     scale = (0.5 + torch.rand((B if per_image else 1, O), generator=gen,
                               device=dev)) * spread
     bias = torch.randn((O,), generator=gen, device=dev) * 5
+    if ties:
+        return (x.permute(0, 3, 1, 2), w, torch.ones_like(scale),
+                torch.full_like(bias, 0.5), 1.0)
     return x.permute(0, 3, 1, 2), w, scale, bias, 0.8173
 
 
-def q1_phase(conv_int8, layers, dev):
-    """Q1 against its plain version at every int8 layer shape of the
-    1408×1872 level, equal to the bit, for the static epilogue and the
-    dynamic one (per-image scale rows, no ReLU) on uniform int8 values, and
-    for all three epilogues on the extremes at three shapes; then, per
-    shape, its times, bound and yardsticks. Returns the kernels entry."""
+def q1_checks(conv_int8, dev):
+    """Q1 against its plain version, equal to the bit: at every int8 layer
+    shape of the 1408×1872 level (batch 2) for the epilogue the chain runs
+    there and the dynamic one, on the extremes for all three epilogues at
+    three of them, at the tiling's edges (Q1_EDGES, with every requantized
+    value a tie once), and at one layer of each smaller level of image 0's
+    pyramid (Q1_SMALLER), and a chain link whose step lies below 2^-60 (the
+    instance that divides every output). Returns (checks, max |Δ|); raises
+    at the first difference."""
     gen = torch.Generator(device=dev).manual_seed(SEED + 11)
-    B = 2
     epilogues = {"link": dict(relu=True, s_out=True),
                  "end": dict(relu=True, s_out=False),
                  "dynamic": dict(relu=False, s_out=False)}
-    checks, rows, max_err = [], [], 0.0
     shapes = int8_layer_shapes()
     extreme_at = {shapes[0][0], "conv4_2", "head_d4"}
+    cases = []
     for name, C, O, H, W, d, epi in shapes:
-        cases = [(epi, False), ("dynamic", False)]
-        if name in extreme_at:
-            cases += [(e, True) for e in epilogues]
-        for e, extreme in cases:
-            x, w, scale, bias, s_out = _q1_inputs(
-                gen, B, C, O, H, W, dev, extreme, per_image=e == "dynamic")
-            kw = dict(dilation=d, relu=epilogues[e]["relu"],
-                      s_out=s_out if epilogues[e]["s_out"] else None)
-            before = conv_int8.conv3x3_int8.launches
-            got = conv_int8.conv3x3_int8(x, w, scale, bias, **kw)
-            want = conv_int8.conv3x3_int8_reference(x, w, scale, bias, **kw)
-            torch.cuda.synchronize()
-            conv_int8.conv3x3_int8.launches = before   # a comparison launch
-            equal = torch.equal(got, want)
-            err = (got.float() - want.float()).abs().max().item()
-            max_err = max(max_err, err)
-            checks.append({"layer": name, "epilogue": e, "extreme": extreme,
-                           "bit_equal": equal, "max_abs_err": err})
-            if not equal:
-                say("q1_vs_plain", checks=checks)
-                raise AssertionError(f"Q1 differs from its plain version at "
-                                     f"{name} ({e}, extreme={extreme})")
-            del x, w, scale, bias, got, want
-    say("q1_vs_plain", batch=B, level=list(INT8_LEVEL), checks=checks,
+        for e, extreme in [(epi, False), ("dynamic", False)] + (
+                [(e, True) for e in epilogues] if name in extreme_at else []):
+            cases.append((f"1408/{name}", 2, C, O, H, W, d, e, extreme, False,
+                          None))
+    for label, B, H, W, C, O, d, e, ties in Q1_EDGES:
+        cases.append((label, B, C, O, H, W, d, e, False, ties, None))
+    # a step below 2^-60: the chain link that divides every output
+    cases.append(("step_2^-61", 2, 128, 256, 19, 23, 1, "link", False, False,
+                  2.0 ** -61))
+    for level, layer in zip(Q1_SMALLER_LEVELS, Q1_SMALLER):
+        for name, C, O, H, W, d, epi in int8_layer_shapes(level):
+            if name == layer:
+                for e in (epi, "dynamic"):
+                    cases.append((f"{level[0]}/{name}", 2, C, O, H, W, d, e,
+                                  False, False, None))
+    checks, max_err = [], 0.0
+    for label, B, C, O, H, W, d, e, extreme, ties, step in cases:
+        x, w, scale, bias, s_out = _q1_inputs(
+            gen, B, C, O, H, W, dev, extreme, per_image=e == "dynamic",
+            ties=ties)
+        if step is not None:
+            scale, bias = scale * (step / s_out), bias * (step / s_out)
+            s_out = step
+        kw = dict(dilation=d, relu=epilogues[e]["relu"],
+                  s_out=s_out if epilogues[e]["s_out"] else None)
+        before = conv_int8.conv3x3_int8.launches
+        got = conv_int8.conv3x3_int8(x, w, scale, bias, **kw)
+        want = conv_int8.conv3x3_int8_reference(x, w, scale, bias, **kw)
+        torch.cuda.synchronize()
+        conv_int8.conv3x3_int8.launches = before   # a comparison launch
+        equal = torch.equal(got, want)
+        err = (got.float() - want.float()).abs().max().item()
+        max_err = max(max_err, err)
+        checks.append({"case": label, "shape": [B, C, O, H, W], "dilation": d,
+                       "epilogue": e, "extreme": extreme, "ties": ties,
+                       "step": s_out if kw["s_out"] is not None else None,
+                       "plan": list(conv_int8.plan(H, W, C, O)),
+                       "bit_equal": equal, "max_abs_err": err})
+        if not equal:
+            say("q1_vs_plain", checks=checks)
+            raise AssertionError(f"Q1 differs from its plain version at "
+                                 f"{checks[-1]}")
+        del x, w, scale, bias, got, want
+    return checks, max_err
+
+
+def q1_phase(conv_int8, layers, dev):
+    """Q1 against its plain version (``q1_checks``); then, per int8 layer
+    shape of the 1408×1872 level, its times, bound and yardsticks. Returns
+    the kernels entry."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 12)
+    B = 2
+    rows = []
+    shapes = int8_layer_shapes()
+    checks, max_err = q1_checks(conv_int8, dev)
+    say("q1_vs_plain", level=list(INT8_LEVEL), checks=checks,
         all_bit_equal=True, reference="F.conv2d in float64, then the fp32 "
         "epilogue as separate PyTorch ops")
     torch.cuda.empty_cache()
@@ -993,10 +1068,9 @@ def q1_phase(conv_int8, layers, dev):
                    x, w, scale, bias, **kw), n=3, warmup=1)}
         conv_int8.conv3x3_int8.launches = before
         M, K = B * H * W, 9 * C
-        n_bytes = M * C + O * K + M * O * (1 if epi == "link" else 4) + 8 * O
-        row["bound_ms"], row["bound_by"] = max(
-            (n_bytes / PEAK_BYTES * 1e3, "bytes"),
-            (2.0 * M * O * K / PEAK_INT8 * 1e3, "operations"))
+        row["plan"] = list(conv_int8.plan(H, W, C, O))
+        row["bound_ms"], row["bound_by"] = q1_bound_ms(B, C, O, H, W,
+                                                       epi == "link")
         row["of_bound"] = row["bound_ms"] / row["device_ms"]
         # the yardsticks: the fp32 layer Q1 replaces, as the forward ran it
         # in fp32, and one int8 GEMM of the same size with an int32 output
@@ -1097,7 +1171,7 @@ def int8_phase(cfg, tdm, params, images, dm_images, dev, stem, nms_device,
     import cv2
     from smallhardface_tpu_torch import serve as serve_mod
     from smallhardface_tpu_torch.config import CONFIG_DIR, cfg_from_file
-    from smallhardface_tpu_torch.detect import TorchDetector
+    from smallhardface_tpu_torch.detect import TorchDetector, level_sizes
     from smallhardface_tpu_torch.models import layers
     entry = q1_phase(conv_int8, layers, dev)
 
@@ -1141,6 +1215,31 @@ def int8_phase(cfg, tdm, params, images, dm_images, dev, stem, nms_device,
             walls.append(time.perf_counter() - t)
         split = detect_device_split(det, images[0],
                                     float(np.median(walls)) * 1e3)
+        # Q1's calls in one more detect: their shapes give its bound per
+        # detect, and must be the ones detect.level_sizes and
+        # int8_layer_shapes model (scripts/q1_vs_parent.py times those)
+        calls = []
+        run_q1 = layers.conv3x3_int8
+
+        def record_q1(x, qw, scale, bias, **kw):
+            calls.append((x.shape[0], x.shape[1], qw.shape[0], x.shape[2],
+                          x.shape[3], int(kw.get("dilation", 1)),
+                          kw.get("s_out") is not None))
+            return run_q1(x, qw, scale, bias, **kw)
+        layers.conv3x3_int8 = record_q1
+        try:
+            det.detect(images[0], THRESH)
+        finally:
+            layers.conv3x3_int8 = run_q1
+        modelled = sorted(
+            (2, C, O, H, W, d, epi == "link")
+            for *_, hb, wb in level_sizes(images[0].shape)
+            for _, C, O, H, W, d, epi in int8_layer_shapes((hb, wb)))
+        split["q1_bound_ms"] = sum(q1_bound_ms(B, C, O, H, W, i8)[0]
+                                   for B, C, O, H, W, _, i8 in calls)
+        split["q1_of_bound"] = (split["q1_bound_ms"]
+                                / max(split["device_ms"]["q1"], 1e-9))
+        split["q1_shapes_as_modelled"] = sorted(calls) == modelled
         # K1's outputs of one more detect, for the CPU path below
         recorded = []
         run_stem = tdm.fused_stem
@@ -1287,7 +1386,8 @@ def int8_phase(cfg, tdm, params, images, dm_images, dev, stem, nms_device,
         conv3x3_int8_launches=serve_launches,
         plain_q1_calls_on_the_card=card_plain_calls)
     if not (ok and deterministic and agree and corr > INT8_CORR_MIN
-            and counts == want):
+            and counts == want and split["device_ms"]["q1"] > 0
+            and split["q1_shapes_as_modelled"]):
         raise AssertionError("the int8 detect fails its checks")
     if not (dyn_launches > 0 and many_counts["conv3x3_int8"] > 0
             and serve_launches > 0 and all(r[0] for r in many_rule)):

@@ -116,6 +116,21 @@ def _pyramid_scales(im_shape):
             for s in scales]
 
 
+def level_sizes(im_shape):
+    """The pyramid levels of an image of ``im_shape`` as ``detect`` sizes
+    them: (scale, h_s, w_s, hb, wb) a level, the resized extent
+    (h_s, w_s) and the network input (hb, wb), that extent (at least one
+    pixel) rounded up to ×MAX_RESOLUTION."""
+    h0, w0 = im_shape[:2]
+    m = cfg.MAX_RESOLUTION
+    sizes = []
+    for scale in _pyramid_scales(im_shape):
+        h_s, w_s = int(round(h0 * scale)), int(round(w0 * scale))
+        sizes.append((scale, h_s, w_s, _round_up(max(h_s, 1), m),
+                      _round_up(max(w_s, 1), m)))
+    return sizes
+
+
 def linear_resize_weights(in_size, out_size, scale, device=None,
                           translation=0.0, dtype=torch.float32):
     """(in_size, out_size) float32 weights of a linear resize by ``scale``
@@ -222,12 +237,8 @@ class TorchDetector:
                          _round_up(w0, cfg.MAX_RESOLUTION))
         bucket = max(int(cfg.TPU.TEST_BUCKET), cfg.MAX_RESOLUTION)
         levels = []
-        for scale in _pyramid_scales(im.shape):
-            h_s = int(round(h0 * scale))
-            w_s = int(round(w0 * scale))
+        for scale, h_s, w_s, hb, wb in level_sizes(im.shape):
             inv_fx = float(np.float32(1.0 / scale))
-            hb = _round_up(max(h_s, 1), cfg.MAX_RESOLUTION)
-            wb = _round_up(max(w_s, 1), cfg.MAX_RESOLUTION)
             levels.append({
                 # the JAX program receives inv_fx as float32 and resizes by
                 # its float32 reciprocal

@@ -7,9 +7,9 @@ Counterpart of the XLA int8 convolutions of the JAX package's int8 mode,
 mode) and ``conv2d_int8_chain`` (:117, one link of the calibrated chain),
 which the JAX forward runs outside any Pallas kernel. They become the CUDA
 C++ kernel ``csrc/conv_int8.cu`` (Q1) for Hopper (sm_90a): an implicit GEMM
-on the int8 tensor cores (``mma.sync`` m16n8k32) whose epilogue writes int8
-or fp32. Its header says what bounds it on an H100 and what the design
-does about that.
+on the int8 tensor cores (``wgmma`` s8 on tiles that TMA brings in, a
+persistent warp-specialised grid) whose epilogue writes int8 or fp32. Its
+header says what bounds it on an H100 and what the design does about that.
 
 - ``conv3x3_int8_reference``: the plain version. ``F.conv2d`` in float64
   on the int8 values (exact: every sum is below 2^53), cast to int32, then
@@ -18,6 +18,10 @@ does about that.
 - ``conv3x3_int8``: the wrapper. On CPU tensors it is the plain version;
   on CUDA tensors it launches Q1 on the current stream or raises, and
   never falls back. ``conv3x3_int8.launches`` counts the launches.
+- ``plan``: the kernel's tile for a layer shape (pixels a tile as TH×TW of
+  one image, output channels and K bytes a step), from the constants
+  below; ``tests/test_torch_port_conv_int8_tiles.py`` models the kernel's
+  schedule with them.
 - ``CONV_INT8``: the kernel library, built with ``nvcc`` at first use
   without fused multiply-adds and with IEEE division, so that the
   epilogue's fp32 operations are the plain version's.
@@ -26,6 +30,7 @@ does about that.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -33,14 +38,21 @@ import torch.nn.functional as F
 from smallhardface_tpu_torch.ops.cuda_build import CI, VP, CudaLibrary
 
 # (x, w, scale, scale_stride, bias, B, H, W, C, O, dilation, epilogue,
-#  s_out, out, stream)
+#  s_out, out, tile_h, tile_w, block_n, k_chunk, stream)
 CONV_INT8 = CudaLibrary(
     "conv_int8", "conv_int8.cu",
     {"shf_conv3x3_int8": [VP] * 3 + [CI] + [VP] + [CI] * 7
-     + [ctypes.c_float, VP, VP]},
+     + [ctypes.c_float, VP] + [CI] * 4 + [VP]},
     extra_flags=("-fmad=false", "-prec-div=true", "-ftz=false"))
 # the kernel's tiles: C in steps of 32 channels, O in blocks of 64
 C_STEP, O_STEP = 32, 64
+# pixels a tile, and the (TH, TW) rectangles of one image it may take
+TILE_M = 128
+TILE_SHAPES = ((1, 128), (2, 64), (4, 32), (8, 16), (16, 8))
+# K bytes a step (one chunk of channels of one tap, with the swizzle of the
+# same width), and output channels a tile, in order of preference
+K_CHUNKS = (128, 64, 32)
+BLOCK_NS = (128, 64)
 # the kernel's epilogue instances (csrc/conv_int8.cu)
 _EPILOGUE = {(True, True): 0, (True, False): 1, (False, False): 2}
 
@@ -70,6 +82,20 @@ def conv3x3_int8_reference(x, qw, scale, bias, *, dilation=1, relu=True,
     if s_out is not None:
         t = torch.round(fdiv(t, s_out)).clamp(-127, 127).to(torch.int8)
     return t.contiguous(memory_format=torch.channels_last)
+
+
+@functools.lru_cache(maxsize=None)
+def plan(H, W, C, O):
+    """The kernel's tile for (H, W) images with C in and O out channels:
+    (tile_h, tile_w, block_n, k_chunk). The TH×TW rectangle covers H×W
+    with the fewest padded pixels (the wider one on a tie); the K step and
+    the channel block are the widest that divide C and O. Cached: the
+    wrapper asks for it on every launch."""
+    th, tw = min(TILE_SHAPES, key=lambda s: (
+        -(-H // s[0]) * s[0] * (-(-W // s[1])) * s[1], -s[1]))
+    k_chunk = next(k for k in K_CHUNKS if C % k == 0)
+    block_n = next(n for n in BLOCK_NS if O % n == 0)
+    return th, tw, block_n, k_chunk
 
 
 def _check(t, name, shape, dtype, device):
@@ -120,8 +146,8 @@ def conv3x3_int8(x, qw, scale, bias, *, dilation=1, relu=True, s_out=None):
         nhwc.data_ptr(), qw.data_ptr(), scale.data_ptr(),
         O if scale.shape[0] > 1 else 0, bias.data_ptr(), B, H, W, C, O,
         int(dilation), _EPILOGUE[(relu, s_out is not None)],
-        float(s_out) if s_out is not None else 1.0, out.data_ptr(), stream),
-        "conv3x3_int8")
+        float(s_out) if s_out is not None else 1.0, out.data_ptr(),
+        *plan(H, W, C, O), stream), "conv3x3_int8")
     conv3x3_int8.launches += 1
     return out
 

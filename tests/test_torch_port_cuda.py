@@ -42,7 +42,13 @@ a machine that has only PyTorch:
   three epilogues at dilations 1, 2 and 4, on random int8 values and on
   the extremes (±127, −128 inputs and weights), with one scale row or one
   per image, at a pixel count that is not a multiple of its 128-pixel
-  tile; its wrapper refuses channel counts its tiles do not take.
+  tile; its wrapper refuses channel counts its tiles do not take; at the
+  edges of its tiling (ragged H and W, W smaller than a tile, H = 1,
+  dilation 4 beyond the image, B = 3 with a scale row per image) and at
+  every K chunk and channel block its plan takes
+  (``tests/test_torch_port_conv_int8_tiles.py`` models the same shapes on
+  the CPU); on outputs that are all ties (settled without its reciprocal
+  product) and on steps at both ends of the range its product takes.
 """
 
 import numpy as np
@@ -501,3 +507,62 @@ def test_conv_int8_wrapper_refuses_what_the_tiles_do_not_take(cuda):
     x, w, scale, bias, _ = _int8_inputs(cuda, 1, 8, 8, 32, 96, False, False)
     with pytest.raises(ValueError, match="multiple"):
         conv_int8.conv3x3_int8(x, w, scale, bias)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,W,C,O,dilation,epilogue", [
+    (2, 19, 23, 64, 128, 1, "link"),        # ragged H and W
+    (2, 40, 5, 64, 128, 2, "link"),         # W smaller than a tile
+    (1, 1, 37, 64, 128, 1, "link"),         # H = 1
+    (1, 1, 37, 32, 64, 4, "end"),
+    (1, 3, 3, 128, 128, 4, "end"),          # dilation 4 beyond the image
+    (3, 17, 30, 64, 128, 1, "dynamic"),     # B = 3, a scale row per image
+    (3, 5, 9, 256, 256, 2, "dynamic"),
+    (1, 3, 10, 32, 64, 1, "link"),          # each K chunk and channel block
+    (1, 3, 10, 64, 128, 1, "end"),
+    (1, 3, 10, 512, 512, 1, "link"),
+    (1, 3, 10, 512, 128, 1, "dynamic"),
+])
+def test_conv_int8_kernel_tile_edges(cuda, B, H, W, C, O, dilation, epilogue):
+    x, w, scale, bias, s_out = _int8_inputs(
+        cuda, B, H, W, C, O, False, per_image=epilogue == "dynamic", seed=2)
+    kw = {"dilation": dilation, "relu": epilogue != "dynamic",
+          "s_out": s_out if epilogue == "link" else None}
+    before = conv_int8.conv3x3_int8.launches
+    got = conv_int8.conv3x3_int8(x, w, scale, bias, **kw)
+    want = conv_int8.conv3x3_int8_reference(x, w, scale, bias, **kw)
+    torch.cuda.synchronize()
+    assert conv_int8.conv3x3_int8.launches == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,O", [(64, 128), (256, 256)])
+def test_conv_int8_kernel_requantizes_ties_as_the_division(cuda, C, O):
+    """A scale of 1, a bias of ½ and a step of 1 make every requantized
+    value a tie (k + ½), which the kernel settles without its reciprocal
+    product: equal to the bit to the plain version's round-half-even."""
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randint(-2, 3, (2, 19, 23, C), generator=gen, dtype=torch.int8)
+    w = torch.randint(-2, 3, (O, 3, 3, C), generator=gen, dtype=torch.int8)
+    args = (x.permute(0, 3, 1, 2).to(cuda), w.to(cuda),
+            torch.ones((1, O), device=cuda), torch.full((O,), 0.5,
+                                                        device=cuda))
+    got = conv_int8.conv3x3_int8(*args, s_out=1.0)
+    want = conv_int8.conv3x3_int8_reference(*args, s_out=1.0)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("step", [1e-30, 2.0 ** -61, 2.0 ** -60, 3e20])
+def test_conv_int8_kernel_steps_at_the_ends_of_the_range(cuda, step):
+    """A chain link whose step lies outside [2^-60, 2^60] divides every
+    output: equal to the bit to the plain version on both sides."""
+    x, w, scale, bias, s_out = _int8_inputs(cuda, 2, 19, 23, 128, 256, False,
+                                            per_image=False, seed=4)
+    scale, bias = scale * (step / s_out), bias * (step / s_out)
+    got = conv_int8.conv3x3_int8(x, w, scale, bias, s_out=step)
+    want = conv_int8.conv3x3_int8_reference(x, w, scale, bias, s_out=step)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
