@@ -26,9 +26,11 @@ Then, each phase printing one line:
    (torch.profiler);
 3. V1 against its plain version: equal to the bit on integer boxes with
    dyadic scores; on the real top-2048 candidate sets of the three images,
-   on a crowd and on boxes scattered over many centres, the same rows out, the scores equal to the bit and the
-   boxes within VOTE_BOX_TOL; its device time (CUDA graph), wrapper wall,
-   plain time, clusters and bound;
+   on a crowd, on boxes scattered over many centres, on 2048 boxes that
+   overlap nothing (2048 steps) and on 2048 that form one cluster, the
+   same rows out, the scores equal to the bit and the boxes within
+   VOTE_BOX_TOL; its device time (CUDA graph, its three launches),
+   wrapper wall, plain time, clusters and bound;
 4. the full five-level pyramid with flip of one image on the card against
    the port's CPU path, by the golden tests' match rule; the device memory
    peak of a warm ``detect`` of that image (under DETECT_PEAK_LIMIT); V1
@@ -203,8 +205,10 @@ Q1_EDGES = (("ragged", 2, 19, 23, 64, 128, 1, "link", False),
 # one layer of each smaller level of image 0's pyramid (network inputs)
 Q1_SMALLER_LEVELS = ((112, 144), (304, 400), (608, 800), (1008, 1344))
 Q1_SMALLER = ("conv2_1", "conv3_2", "conv5_1", "head_d4")
-# Q1's kernels (csrc/conv_int8.cu), K1's and V1's, for a detect's split
-Q1_KERNEL, V1_KERNEL = "conv3x3_int8_kernel", "vote_kernel"
+# Q1's kernels (csrc/conv_int8.cu), K1's and V1's, for a detect's split:
+# every __global__ of csrc/vote.cu (its three phases)
+Q1_KERNEL = "conv3x3_int8_kernel"
+V1_KERNELS = ("vote_mask_kernel", "vote_walk_kernel", "vote_emit_kernel")
 SERVE_WINDOW_MS = 50
 # the cliff map's limits: no 3×3 convolution of the forward may add more
 # than 4 GB or take more than 5× its fp32 bound. Below CLIFF_FLOOR_MS of
@@ -1125,9 +1129,10 @@ def q1_phase(conv_int8, layers, dev):
 
 def detect_device_split(det, image, wall_ms, n=2):
     """Where one warm ``detect`` of `image` spends its device time: Q1's,
-    K1's and V1's kernels and the rest (cuDNN, cuBLAS, elementwise), per
-    detect under torch.profiler, and the idle share of ``wall_ms``, its
-    wall without the profiler."""
+    K1's and V1's kernels (V1's three launches as the union of their
+    intervals) and the rest (cuDNN, cuBLAS, elementwise), per detect under
+    torch.profiler, and the idle share of ``wall_ms``, its wall without the
+    profiler."""
     from torch.profiler import ProfilerActivity, profile
     det.detect(image, THRESH)
     torch.cuda.synchronize()
@@ -1137,21 +1142,31 @@ def detect_device_split(det, image, wall_ms, n=2):
             det.detect(image, THRESH)
         torch.cuda.synchronize()
     split = {"q1": 0.0, "k1": 0.0, "v1": 0.0, "other": 0.0}
+    cuda = torch.autograd.DeviceType.CUDA
+    is_v1 = lambda key: any(f"::{k}<" in key for k in V1_KERNELS)  # noqa: E731
     for ev in prof.key_averages():
         us = ev.self_device_time_total
         # the device's own events (kernels, copies), not the CPU ops that
         # launched them
-        if not us or getattr(ev, "device_type", None) != \
-                torch.autograd.DeviceType.CUDA:
+        if not us or getattr(ev, "device_type", None) != cuda:
             continue
         if f"::{Q1_KERNEL}<" in ev.key or f"{Q1_KERNEL}<" in ev.key:
             split["q1"] += us
         elif any(f"::{k}(" in ev.key for k in STEM_KERNELS.values()):
             split["k1"] += us
-        elif f"::{V1_KERNEL}" in ev.key:
-            split["v1"] += us
-        else:
+        elif not is_v1(ev.key):
             split["other"] += us
+    # V1's second and third launches start while the one before runs
+    # (programmatic dependent launch) and wait for it, so their durations
+    # overlap: V1's time is the union of its kernels' intervals
+    spans = sorted((ev.time_range.start, ev.time_range.end)
+                   for ev in prof.events()
+                   if getattr(ev, "device_type", None) == cuda
+                   and is_v1(ev.name))
+    end = -math.inf
+    for a, b in spans:
+        split["v1"] += max(0.0, b - max(a, end))
+        end = max(end, b)
     ms = {k: v / n / 1e3 for k, v in split.items()}
     busy = sum(ms.values())
     return {"device_ms": ms, "device_ms_sum": busy, "wall_ms": wall_ms,
@@ -1693,7 +1708,8 @@ def vote_phase(det, images, nms_device, thresh):
     wrapper's count is not read here. Returns V1's entry of the kernels
     line, timed on the first image's candidates."""
     from smallhardface_tpu_torch.detect import top_rows
-    from smallhardface_tpu_torch.ops.vote_cases import crowd_dets, integer_dets
+    from smallhardface_tpu_torch.ops.vote_cases import (
+        chain_dets, crowd_dets, integer_dets, one_cluster_dets)
     dev = det.device
     rng = np.random.RandomState(SEED + 6)
     cases = [("integer", torch.from_numpy(integer_dets(rng, 512)).to(dev),
@@ -1704,6 +1720,12 @@ def vote_phase(det, images, nms_device, thresh):
         cases.append((f"image{i}", dets, int(n), thresh))
     cases.append(("crowd", torch.from_numpy(crowd_dets(rng, 2048)).to(dev),
                   2048, thresh))
+    # the longest chain (2048 singleton steps, no overlap) and one cluster
+    # that takes all 2048 rows
+    cases.append(("no_overlap", torch.from_numpy(chain_dets(2048)).to(dev),
+                  2048, thresh))
+    cases.append(("one_cluster", torch.from_numpy(one_cluster_dets(
+        rng, 2048)).to(dev), 2048, thresh))
     # boxes spread over 200 centres, many short clusters, at the IoU
     # threshold 0.4 of tests/test_nms_device.py
     for v in (2048, 512):
@@ -1746,8 +1768,8 @@ def vote_phase(det, images, nms_device, thresh):
         if not (same_n and scores_equal and err <= VOTE_BOX_TOL * peak):
             raise AssertionError(f"V1 disagrees with its plain version on "
                                  f"{name}")
-        if name == "integer" and not bit_equal:
-            raise AssertionError("V1 is not equal to the bit on integers")
+        if name in ("integer", "no_overlap") and not bit_equal:
+            raise AssertionError(f"V1 is not equal to the bit on {name}")
         if name.startswith("image"):
             worst = max(worst, err)
         if name == "image0":

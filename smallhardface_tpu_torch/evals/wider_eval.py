@@ -5,7 +5,8 @@ wider_eval.py:10-222). The port's copy of
 
   read per-event predictions → global min-max score normalization →
   per-image greedy matching with an ignore list → 1000-threshold PR →
-  VOC AP, for the easy/medium/hard settings in a 3-way process pool.
+  VOC AP, for the easy/medium/hard settings in a 3-way process pool
+  (spawned).
 
 `mimic_eval_bug=True` reproduces the official toolkit's IoU-rounding bug
 (each overlap is rounded to 0/1 before the argmax; ties then resolve to the
@@ -209,7 +210,9 @@ def wider_eval(pred_dir, gt_dir_base, silent=True, parallel=True,
     work = [(norm_pred_list, f"{gt_dir_base}/wider_{s}.mat",
              mimic_eval_bug, iou_thresh) for s in settings]
     if parallel:
-        with multiprocessing.Pool(3) as pool:
+        # spawned, not forked: the caller may have initialised CUDA, which
+        # a forked child cannot use or safely inherit
+        with multiprocessing.get_context("spawn").Pool(3) as pool:
             pr_curves = pool.map(_evaluate_setting, work)
     else:
         pr_curves = [_evaluate_setting(w) for w in work]

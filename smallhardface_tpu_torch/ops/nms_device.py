@@ -5,7 +5,10 @@ Counterpart of ``smallhardface_tpu/ops/nms_jax.py``: ``bbox_vote_device``
 (nms_jax.py:70) and ``nms_device`` (:27), which the JAX package runs as XLA
 loops with one step per cluster, become one CUDA C++ kernel for Hopper
 (sm_90a), ``csrc/vote.cu`` (V1), with one C entry point each. Its header
-says what bounds it on an H100 and what the design does about that.
+says what bounds it on an H100 and what the design does about that: a
+parallel membership bitmask (phase A), one warp per image walking the
+clusters on bit operations alone (B), and the merged rows summed in
+parallel in a fixed order (C), three launches behind one C call.
 
 Both take the rows (V, 5) [x1, y1, x2, y2, score] sorted by descending
 score, of which the first ``n_valid`` are candidates (``n_valid`` a 0-d
@@ -14,7 +17,7 @@ and return (out (V, 5), n_out 0-d int32): the emitted rows first, zeros
 after them. A batch of images, rows (B, V, 5) and ``n_valid`` (B,), gives
 (out (B, V, 5), n_out (B,)), each image voted on its own as the JAX
 functions under ``jax.vmap`` are (``_pyramid_program_batched``,
-detect.py:586-604): one launch of V1 on the card, one block per image.
+detect.py:586-604): one call of V1 on the card for the whole batch.
 The semantics are the JAX functions', with the IoU's own float32
 expression ``inter / (area[i] + area - inter)`` (+1 pixel convention):
 
@@ -36,7 +39,8 @@ always removes a row and the loop ends for any box.
   nothing on the card's path calls them.
 - ``bbox_vote_device`` / ``nms_device``: the wrappers. On CPU tensors they
   are the plain versions; on CUDA tensors they launch V1 on the current
-  stream or raise, and never fall back. ``.launches`` counts the launches.
+  stream or raise, and never fall back. ``.launches`` counts the calls
+  of V1, one per wrapper call.
 - ``VOTE``: the kernel library, built at first use without fused
   multiply-adds and with IEEE division, so that a cluster's membership is
   the plain version's to the bit.
@@ -56,8 +60,15 @@ VOTE = CudaLibrary("vote", "vote.cu", {"shf_bbox_vote": _SIGNATURE,
                                        "shf_nms": _SIGNATURE},
                    extra_flags=("-fmad=false", "-prec-div=true",
                                 "-ftz=false"))
-# the kernel keeps the V rows and their areas in shared memory
+# the walk keeps each image's remaining rows in one warp's registers
 MAX_ROWS = 8192
+
+
+def scratch_words(v):
+    """32-bit words of V1's scratch per image (csrc/vote.cu
+    ``scratch_words``): the V x ceil(V / 32) membership mask, then V
+    emission records."""
+    return v * ((v + 31) // 32) + v
 
 
 def _iou_with(x1, y1, x2, y2, area, i):
@@ -147,7 +158,10 @@ def _launch(fn, entry, dets, n_valid, thresh):
         raise ValueError(f"{fn.__name__}: {v} rows exceed the kernel's "
                          f"{MAX_ROWS} (lower TPU.VOTE_CAP)")
     lib = VOTE.load()
-    out = torch.empty_like(dets)
+    # the kernel's scratch follows the rows of out in one allocation
+    buf = torch.empty(b * (5 * v + scratch_words(v)), dtype=torch.float32,
+                      device=dets.device)
+    out = buf[:b * v * 5].view(dets.shape)
     n_out = torch.empty(want, dtype=torch.int32, device=dets.device)
     stream = torch.cuda.current_stream(dets.device).cuda_stream
     VOTE.check(getattr(lib, entry)(
@@ -162,7 +176,7 @@ def bbox_vote_device(dets, n_valid, thresh):
     (int on the CPU). Returns (out (V, 5), n_out 0-d int32): the voted rows
     in emission order, zeros beyond n_out. For a batch, dets (B, V, 5) and
     n_valid (B,) int32 give out (B, V, 5) and n_out (B,), each image voted
-    alone; on the card one launch (one count) for the batch."""
+    alone; on the card one call of V1 (one count) for the batch."""
     if dets.device.type != "cuda":
         return bbox_vote_device_reference(dets, n_valid, thresh)
     return _launch(bbox_vote_device, "shf_bbox_vote", dets, n_valid, thresh)

@@ -29,7 +29,11 @@ a machine that has only PyTorch:
   their plain versions on integer boxes with dyadic scores (every sum
   exact), for no candidate, one, padding rows and 512 candidates; on a
   crowd of 2048 float boxes the same rows out, the scores equal to the bit
-  and the boxes within VOTE_BOX_TOL of the largest coordinate;
+  and the boxes within VOTE_BOX_TOL of the largest coordinate; on the edge
+  cases of its three phases (``ops/vote_cases.edge_case``: V not a
+  multiple of 32, n_valid 0, 1 and V, one cluster, no overlap, an IoU
+  exactly at the threshold, zero-area and inverted boxes, a second tile of
+  columns) and at V = 8192; two calls give the same bits;
 - the batched launches of detect_many: K1 on an 8-image batch with eight
   valid extents in one launch (equal to the bit to the plain forward in
   float64 on integers, within RTOL on floats, and to eight single-image
@@ -59,7 +63,9 @@ from smallhardface_tpu_torch.ops import anchors as anchors_mod
 from smallhardface_tpu_torch.ops import conv_int8, iou, nms_device, stem
 from smallhardface_tpu_torch.ops.iou_cases import (BASE, K3_CASES, band_gt,
                                                   crowd_gt, k3_case)
-from smallhardface_tpu_torch.ops.vote_cases import crowd_dets, integer_dets
+from smallhardface_tpu_torch.ops.vote_cases import (EDGE_CASES, chain_dets,
+                                                   crowd_dets, edge_case,
+                                                   integer_dets)
 
 VALID = (24, 96)
 # K1 on float inputs against the plain forward (fp32 cuDNN): fp32 rounding,
@@ -307,7 +313,7 @@ def test_max_iou_kernel_vs_plain(cuda, case):
     assert torch.equal(idx, want_idx) and torch.equal(best, want_best)
 
 
-def _vote_pair(method, dets, n_valid, device):
+def _vote_pair(method, dets, n_valid, device, thresh=0.4):
     fn = (nms_device.bbox_vote_device if method == "BBOX_VOTE"
           else nms_device.nms_device)
     plain = (nms_device.bbox_vote_device_reference if method == "BBOX_VOTE"
@@ -315,8 +321,8 @@ def _vote_pair(method, dets, n_valid, device):
     d = torch.from_numpy(dets).to(device)
     n = torch.tensor(n_valid, dtype=torch.int32, device=device)
     before = fn.launches
-    got, n_got = fn(d, n, 0.4)
-    want, n_want = plain(d, n, 0.4)
+    got, n_got = fn(d, n, thresh)
+    want, n_want = plain(d, n, thresh)
     torch.cuda.synchronize()
     assert fn.launches == before + 1
     assert int(n_got) == int(n_want)
@@ -342,6 +348,52 @@ def test_vote_kernel_vs_plain_on_a_crowd(cuda, method):
     np.testing.assert_array_equal(got[:, 4], want[:, 4])
     np.testing.assert_allclose(got[:, :4], want[:, :4], rtol=0,
                                atol=VOTE_BOX_TOL * np.abs(dets[:, :4]).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["BBOX_VOTE", "NMS"])
+@pytest.mark.parametrize("name", EDGE_CASES + ("v8192_crowd", "v8192_chain"))
+def test_vote_kernel_edge_cases(cuda, method, name):
+    """V1's three phases on the cases the CPU model of them holds
+    (tests/test_torch_port_vote_walk.py), and at V = 8192, the most rows
+    it takes (eight words of remaining rows a lane): the same rows out,
+    the scores equal to the bit, the boxes within VOTE_BOX_TOL, and every
+    output equal to the bit where the case is exact."""
+    if name == "v8192_crowd":
+        dets, n, thresh, exact = (crowd_dets(np.random.RandomState(8), 8192),
+                                  8192, 0.4, False)
+    elif name == "v8192_chain":
+        dets, n, thresh, exact = chain_dets(8192), 8192, 0.4, True
+    else:
+        dets, n, thresh, exact = edge_case(name)
+    got, want, n_out = _vote_pair(method, dets, n, cuda, thresh)
+    assert not got[n_out:].any()
+    if exact:
+        np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got[:, 4], want[:, 4])
+    peak = max(float(np.abs(dets[:n, :4]).max(initial=1.0)), 1.0)
+    np.testing.assert_allclose(got[:, :4], want[:, :4], rtol=0,
+                               atol=VOTE_BOX_TOL * peak)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["BBOX_VOTE", "NMS"])
+def test_vote_kernel_two_calls_bit_identical(cuda, method):
+    """No atomics and a fixed order of every sum: two calls on the same
+    input give the same bits, for one image and for a batch."""
+    fn = (nms_device.bbox_vote_device if method == "BBOX_VOTE"
+          else nms_device.nms_device)
+    dets = np.stack([crowd_dets(np.random.RandomState(s), 2048,
+                                centres=200, spread=40) for s in (4, 5)])
+    d = torch.from_numpy(dets).to(cuda)
+    for args in ((d[0].contiguous(), torch.tensor(2048, dtype=torch.int32,
+                                                  device=cuda)),
+                 (d, torch.tensor([2048, 1500], dtype=torch.int32,
+                                  device=cuda))):
+        first, n_first = fn(*args, 0.4)
+        second, n_second = fn(*args, 0.4)
+        torch.cuda.synchronize()
+        assert torch.equal(first, second) and torch.equal(n_first, n_second)
 
 
 # ---- batched launches of detect_many ----

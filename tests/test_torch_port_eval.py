@@ -172,6 +172,32 @@ def test_evaluators_match_jax(data_dir, tmp_path, which):
         np.testing.assert_array_equal(a, b)
 
 
+def test_wider_eval_spawned_pool_gives_the_same_ap(data_dir, tmp_path):
+    """The three settings evaluated in a spawned pool of 3 (safe under a
+    process that has initialised CUDA) give the APs and curves of the
+    in-process evaluation, on a synth_wider tree."""
+    from smallhardface_tpu_torch.datasets.wider import wider
+    from smallhardface_tpu_torch.evals.wider_eval import wider_eval
+    rng = np.random.RandomState(6)
+    samples = synth_wider.build(data_dir, n_images=4, im_size=96)
+    all_boxes = [[], []]
+    for _, boxes in samples:
+        hit = np.column_stack([boxes + rng.normal(0, 3, boxes.shape),
+                               rng.uniform(0.3, 1, len(boxes))])
+        miss = np.column_stack([rng.uniform(0, 60, (3, 2)),
+                                rng.uniform(70, 90, (3, 2)),
+                                rng.uniform(0.05, 0.9, 3)])
+        all_boxes[1].append(np.vstack([hit, miss]).astype(np.float32))
+    pred = str(tmp_path / "pred")
+    wider("val").write_detections(all_boxes, pred)
+    gt_dir = os.path.join(data_dir, "ground_truth")
+    ap, pr = wider_eval(pred, gt_dir, parallel=False)
+    ap_pool, pr_pool = wider_eval(pred, gt_dir, parallel=True)
+    assert ap_pool == ap and 0 < min(ap)
+    for a, b in zip(pr_pool, pr):
+        np.testing.assert_array_equal(a, b)
+
+
 @pytest.fixture
 def eval_cfg(port_cfg, data_dir, monkeypatch):
     """The golden fixture's TEST settings in both packages, a small pyramid,
