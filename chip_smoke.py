@@ -68,10 +68,25 @@ Then, each phase printing one line:
    int8 ``detect`` at INT8_MANY_MATCH_MIN, the int8-vs-fp32 agreement
    beside it) and the service with calib_images, each with Q1's launches
    above 0 and no call of Q1's plain version;
+5c. bf16 detection (TPU.PRECISION = "bfloat16", the flagship config):
+   the 1×1 convolutions and the deconv of the 1408×1872 level against the
+   fp32 sum of the same bf16 products rounded once (at most
+   BF16_CONV_MAX_DIFFER of the outputs differ, each within two fp32 sums'
+   difference plus a bf16 ulp; the bf16 cliff map holds every 3×3 shape
+   to the same); warm ``detect`` of the three images
+   (walls, the median of BF16_WALL_REPS for image 0, peak, K1's and V1's
+   launches, the device split into K1, cuDNN's convolutions, V1 and the
+   rest, the idle share), image 0 against the port's bf16 CPU path (the
+   loose rule at BF16_CPU_MATCH_MIN; fed the card's K1 outputs beside
+   it), bf16 against the fp32 detections (printed), ``detect_many`` at
+   max_batch 4 against per-image bf16 ``detect`` (the loose rule at
+   BF16_MATCH_MIN) and one service request (the rows of ``detect``);
 6. the cliff map: every 3×3 convolution of the forward, as the forward
    runs it, at the pyramid levels of five WIDER-sized images, exact and
    bucketed, at batch 2, 4 and 8 (``tools/conv_map.py``): each distinct
    shape's device time against its fp32 bound and the memory it adds;
+   then the same map in bf16 against the bf16 bound, held to the memory
+   limit and to the bf16 rounding of the fp32 sum at every shape;
 7. K2 against its plain version (equal to the bit on small-integer inputs,
    within a stated tolerance on float inputs, equal to itself from run to
    run; K1 writes the routing it reads) and its tensor-core products
@@ -104,7 +119,9 @@ Then, each phase printing one line:
    1024×1024: final.npz, detections.pkl, result.tar.gz and the
    Easy/Medium/Hard line; then the same evaluation with TPU.EVAL_BATCH 2
    (three detect_many batches), whose detections.pkl must agree with the
-   first image by image by the detect_many rule.
+   first image by image by the detect_many rule; then with the run's
+   final.caffemodel as TEST.MODEL, which must load equal to final.npz and
+   give its detections to the bit.
 
 Each main path runs with the launch counts set to 0 just before it and read
 just after. The second-to-last line is a JSON summary of the kernels; the
@@ -209,6 +226,32 @@ Q1_SMALLER = ("conv2_1", "conv3_2", "conv5_1", "head_d4")
 # every __global__ of csrc/vote.cu (its three phases)
 Q1_KERNEL = "conv3x3_int8_kernel"
 V1_KERNELS = ("vote_mask_kernel", "vote_walk_kernel", "vote_emit_kernel")
+# cuDNN's convolution kernels in a detect's split, by their names: forward
+# implicit GEMMs (sm90_xmma_fprop_...), the grouped deconv (dgrad2d_...)
+# and the older implicit-convolve kernels
+CONV_KERNEL_MARKS = ("fprop", "dgrad", "convolve")
+# bf16 (TPU.PRECISION = "bfloat16"): detect_many against per-image detect
+# on the card, each side matched at 0.95 by the loose rule of
+# tests/test_full_detect_golden.py's bf16 drift test (IoU > 0.6, |Δscore|
+# < 0.1), the counts within max(3, 5 %): other cuDNN algorithms per batch
+# size round other outputs to the neighbouring bf16 value, and a flipped
+# last bf16 bit moves scores near the threshold (on the CPU the port and
+# JAX in bf16 match 0.978 and 0.982 by this rule on the golden fixture,
+# tests/test_torch_port_bf16.py). The card against the CPU path is held at
+# 0.90: cuDNN's tensor-core sums and the CPU's fp32 sums round different
+# outputs (each convolution within its bound of the fp32 sum rounded
+# once: bf16_conv_check and the bf16 cliff map), and through five levels
+# and the vote on these weights, whose scores crowd the threshold, that
+# gave 0.934 and 0.936 each way on an H100 80GB HBM3 at 700 W (0.939 and
+# 0.954 fed the card's K1 outputs, so the stem is not what moves them).
+# The strict rule is printed beside both
+BF16_MATCH_MIN, BF16_CPU_MATCH_MIN, BF16_COUNT_SLACK = 0.95, 0.90, 0.05
+# a bf16 convolution on the card against the fp32 sum of the same bf16
+# products rounded once: the share of outputs that may differ, each within
+# two fp32 sums of the same terms in different orders plus a bf16 ulp
+BF16_CONV_MAX_DIFFER = 0.01
+BF16_WALL_REPS = 5
+PEAK_BF16 = 989e12          # dense bf16 on the tensor cores
 SERVE_WINDOW_MS = 50
 # the cliff map's limits: no 3×3 convolution of the forward may add more
 # than 4 GB or take more than 5× its fp32 bound. Below CLIFF_FLOOR_MS of
@@ -742,7 +785,17 @@ def main():
     cfg.clear()
     cfg.update(snapshot)
     torch.cuda.empty_cache()
+
+    # ---- bf16 detection ----
+    bf16_counts, bf16_many_counts = bf16_phase(
+        cfg, tdm, params, images, dm_images, dev, stem, nms_device,
+        card_dets)
+    cfg.clear()
+    cfg.update(snapshot)
+    torch.cuda.empty_cache()
     cliff_map(dev)
+    torch.cuda.empty_cache()
+    cliff_map(dev, torch.bfloat16)
     torch.cuda.empty_cache()
 
     # ---- K2 against its plain version ----
@@ -896,6 +949,9 @@ def main():
     kernels["bbox_vote"]["launches"] = eval_counts["bbox_vote"]
     kernels["bbox_vote"]["launches_path"] = "eval_cli"
     kernels["bbox_vote"]["launches_detect"] = detect_counts["bbox_vote"]
+    for k in ("fused_stem", "bbox_vote"):
+        kernels[k]["launches_bf16_detect"] = bf16_counts[k]
+        kernels[k]["launches_bf16_detect_many"] = bf16_many_counts[k]
     for k in ("fused_stem", "fused_stem_grad", "max_iou"):
         kernels[k]["launches_eval_cli"] = eval_counts[k]
     foreign = sorted(m for m in sys.modules
@@ -1130,9 +1186,10 @@ def q1_phase(conv_int8, layers, dev):
 def detect_device_split(det, image, wall_ms, n=2):
     """Where one warm ``detect`` of `image` spends its device time: Q1's,
     K1's and V1's kernels (V1's three launches as the union of their
-    intervals) and the rest (cuDNN, cuBLAS, elementwise), per detect under
-    torch.profiler, and the idle share of ``wall_ms``, its wall without the
-    profiler."""
+    intervals), cuDNN's convolutions (kernels named as CONV_KERNEL_MARKS)
+    and the rest (cuBLAS, elementwise, copies), with the eight largest
+    kernels of the last two by name, per detect under torch.profiler, and
+    the idle share of ``wall_ms``, its wall without the profiler."""
     from torch.profiler import ProfilerActivity, profile
     det.detect(image, THRESH)
     torch.cuda.synchronize()
@@ -1141,7 +1198,8 @@ def detect_device_split(det, image, wall_ms, n=2):
         for _ in range(n):
             det.detect(image, THRESH)
         torch.cuda.synchronize()
-    split = {"q1": 0.0, "k1": 0.0, "v1": 0.0, "other": 0.0}
+    split = {"q1": 0.0, "k1": 0.0, "v1": 0.0, "conv": 0.0, "other": 0.0}
+    convs, others = {}, {}
     cuda = torch.autograd.DeviceType.CUDA
     is_v1 = lambda key: any(f"::{k}<" in key for k in V1_KERNELS)  # noqa: E731
     for ev in prof.key_averages():
@@ -1154,8 +1212,12 @@ def detect_device_split(det, image, wall_ms, n=2):
             split["q1"] += us
         elif any(f"::{k}(" in ev.key for k in STEM_KERNELS.values()):
             split["k1"] += us
+        elif any(m in ev.key for m in CONV_KERNEL_MARKS):
+            split["conv"] += us
+            convs[ev.key[:90]] = convs.get(ev.key[:90], 0.0) + us
         elif not is_v1(ev.key):
             split["other"] += us
+            others[ev.key[:90]] = others.get(ev.key[:90], 0.0) + us
     # V1's second and third launches start while the one before runs
     # (programmatic dependent launch) and wait for it, so their durations
     # overlap: V1's time is the union of its kernels' intervals
@@ -1169,8 +1231,12 @@ def detect_device_split(det, image, wall_ms, n=2):
         end = max(end, b)
     ms = {k: v / n / 1e3 for k, v in split.items()}
     busy = sum(ms.values())
+    def top(d):
+        return {k: v / n / 1e3
+                for k, v in sorted(d.items(), key=lambda kv: -kv[1])[:8]}
     return {"device_ms": ms, "device_ms_sum": busy, "wall_ms": wall_ms,
-            "idle_share": max(0.0, 1.0 - busy / wall_ms)}
+            "idle_share": max(0.0, 1.0 - busy / wall_ms),
+            "conv_top_ms": top(convs), "other_top_ms": top(others)}
 
 
 def int8_phase(cfg, tdm, params, images, dm_images, dev, stem, nms_device,
@@ -1416,6 +1482,261 @@ def int8_phase(cfg, tdm, params, images, dm_images, dev, stem, nms_device,
     entry["launches_detect_many"] = many_counts["conv3x3_int8"]
     entry["launches_serve"] = serve_launches
     return entry
+
+
+def bf16_conv_check(dev):
+    """The 1×1 convolutions and the deconv of the forward at the 1408×1872
+    level (batch 2), as the bf16 forward runs them on the card (cuDNN on
+    bf16 tensors), against the fp32 sum of the same bf16 products (TF32
+    off) rounded to bf16 once (``conv_map.bf16_vs_fp32``; the bf16 cliff
+    map checks every 3×3 shape the same way): at most
+    BF16_CONV_MAX_DIFFER of the outputs differ, each within its bound.
+    Returns the worst share."""
+    from smallhardface_tpu_torch.models import layers
+    from smallhardface_tpu_torch.tools import conv_map
+    gen = torch.Generator(device=dev).manual_seed(SEED + 12)
+    hb, wb = INT8_LEVEL
+    shapes = [("conv5_256", 512, 256, hb // 16, wb // 16),
+              ("conv4_256", 512, 256, hb // 8, wb // 8),
+              ("cls_score_k", 128, 2, hb // 8, wb // 8),
+              ("bbox_pred_k", 128, 4, hb // 8, wb // 8),
+              ("conv5_256_up", 256, 256, hb // 16, wb // 16)]
+    rows, worst = [], 0.0
+    with torch.inference_mode():
+        for name, C, O, H, W in shapes:
+            x = (torch.randn((2, C, H, W), device=dev, generator=gen)
+                 * 3).to(torch.bfloat16).contiguous(
+                memory_format=torch.channels_last)
+            if name == "conv5_256_up":
+                # four exact products of the dyadic bilinear weights a pixel
+                w = torch.from_numpy(np.ascontiguousarray(
+                    layers.bilinear_kernel(2, C).transpose(3, 2, 0, 1))).to(
+                    dev)
+                got = layers.upsample2x_bilinear(x, w)
+                ref = layers.upsample2x_bilinear(x.float(), w).to(
+                    torch.bfloat16)
+                row = {"differ_share": (got != ref).float().mean().item(),
+                       "max_err_over_bound": (0.0 if torch.equal(got, ref)
+                                              else math.inf),
+                       "dtype": str(got.dtype)}
+            else:
+                w = (torch.randn((O, C, 1, 1), device=dev, generator=gen)
+                     * math.sqrt(2 / C))
+                row = conv_map.bf16_vs_fp32(x, w, 1, padding=0)
+            rows.append({"layer": name, "shape": [2, C, O, H, W], **row})
+            worst = max(worst, row["differ_share"])
+            del x, w
+    torch.cuda.empty_cache()
+    say("bf16_conv_vs_fp32", level=list(INT8_LEVEL), rows=rows,
+        max_differ_share=worst, limit_differ_share=BF16_CONV_MAX_DIFFER,
+        reference="fp32 cuDNN (TF32 off) on the same bf16 values, rounded "
+                  "to bf16 once")
+    if any(r["dtype"] != "torch.bfloat16"
+           or r["differ_share"] > BF16_CONV_MAX_DIFFER
+           or r["max_err_over_bound"] > 1.0 for r in rows):
+        raise AssertionError("a bf16 convolution disagrees with its fp32 "
+                             "sum rounded once")
+    return worst
+
+
+def _loose_match(a, b):
+    """The bf16 drift test's rule: the fraction of rows of `a` with an IoU
+    > 0.6, |Δscore| < 0.1 partner in `b`."""
+    if len(a) == 0:
+        return 1.0 if len(b) == 0 else 0.0
+    from smallhardface_tpu_torch.ops import bbox_np
+    iou = bbox_np.bbox_overlaps(a[:, :4], b[:, :4])
+    best = iou.argmax(axis=1)
+    hit = (iou[np.arange(len(a)), best] > 0.6) & (
+        np.abs(a[:, 4] - b[best, 4]) < 0.1)
+    return float(hit.mean())
+
+
+def _bf16_rule(a, b, min_match=BF16_MATCH_MIN):
+    """(holds, loose a→b, loose b→a, strict a→b, strict b→a): the counts
+    within max(3, BF16_COUNT_SLACK) and each side matched at min_match by
+    the loose rule; the golden tests' strict rule beside it."""
+    fwd, bwd = _loose_match(a, b), _loose_match(b, a)
+    ok = (abs(len(a) - len(b)) <= max(3, BF16_COUNT_SLACK * len(b))
+          and min(fwd, bwd) >= min_match)
+    return ok, fwd, bwd, _match_fraction(a, b), _match_fraction(b, a)
+
+
+def bf16_phase(cfg, tdm, params, images, dm_images, dev, stem, nms_device,
+               fp32_dets):
+    """The bf16 mode on the card (TPU.PRECISION = "bfloat16", the flagship
+    config): its convolutions against the fp32 sums rounded once
+    (``bf16_conv_check``), then warm ``detect`` of the three images (walls,
+    peak, K1's and V1's launches, the device split and idle share), image
+    0 against the port's bf16 CPU path (plain, and fed the card's K1
+    outputs), bf16 against the fp32 detections (``fp32_dets``, printed),
+    ``detect_many`` at max_batch 4 against per-image bf16 ``detect`` and
+    one service request. Returns K1's and V1's launch counts of a detect
+    and of the detect_many run."""
+    import threading
+    import urllib.request
+    import cv2
+    from smallhardface_tpu_torch import serve as serve_mod
+    from smallhardface_tpu_torch.detect import TorchDetector
+    conv_share = bf16_conv_check(dev)
+    cfg.TPU.PRECISION = "bfloat16"
+    spec = tdm.build_spec(cfg)
+    det = TorchDetector(params, spec, dev)
+    fns = (stem.fused_stem, nms_device.bbox_vote_device)
+
+    def timed_detect(im):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        dets = det.detect(im, THRESH)[0][0]
+        torch.cuda.synchronize()
+        return dets, time.perf_counter() - t
+
+    # the first detect of each image: cuDNN picks its bf16 algorithms
+    first_walls = [timed_detect(im)[1] for im in images]
+    set_counts_zero(*fns)
+    torch.cuda.reset_peak_memory_stats()
+    dets0, wall = timed_detect(images[0])
+    peak = torch.cuda.max_memory_allocated()
+    counts = {"fused_stem": stem.fused_stem.launches,
+              "route_writes": stem.fused_stem.route_writes,
+              "bbox_vote": nms_device.bbox_vote_device.launches}
+    walls0, again = [wall], []
+    for _ in range(BF16_WALL_REPS - 1):
+        d, wall = timed_detect(images[0])
+        walls0.append(wall)
+        again.append(d)
+    deterministic = all(np.array_equal(d, dets0) for d in again)
+    split = detect_device_split(det, images[0],
+                                float(np.median(walls0)) * 1e3)
+    bf16_dets, per_image = [dets0], []
+    for i, im in enumerate(images):
+        if i:
+            runs = [timed_detect(im) for _ in range(2)]
+            bf16_dets.append(runs[0][0])
+            deterministic = deterministic and np.array_equal(
+                runs[0][0], runs[1][0])
+        dets = bf16_dets[i]
+        h, w = im.shape[:2]
+        ok = (dets.ndim == 2 and dets.shape[1] == 5
+              and np.isfinite(dets).all() and (dets[:, 4] > THRESH).any()
+              and (dets[:, :4] >= 0).all()
+              and (dets[:, 2] <= w + 8).all() and (dets[:, 3] <= h + 8).all())
+        vs32 = _bf16_rule(dets, fp32_dets[i])
+        per_image.append({
+            "image": i, "hw": [h, w], "dets": int(dets.shape[0]),
+            "checks_ok": bool(ok), "dets_fp32": int(len(fp32_dets[i])),
+            "bf16_vs_fp32": {"loose": [vs32[1], vs32[2]],
+                             "strict": [vs32[3], vs32[4]]},
+            "walls_s": walls0 if i == 0 else [r[1] for r in runs]})
+    # K1's outputs of one more detect of image 0, for the CPU path below
+    recorded = []
+    run_stem = tdm.fused_stem
+
+    def record(*args, **kwargs):
+        out = run_stem(*args, **kwargs)
+        recorded.append(out.cpu())
+        return out
+    tdm.fused_stem = record
+    try:
+        det.detect(images[0], THRESH)
+    finally:
+        tdm.fused_stem = run_stem
+
+    # detect_many at max_batch 4 against per-image bf16 detect
+    singles = [det.detect(im, THRESH)[0][0] for im in dm_images]
+    det.detect_many(dm_images, THRESH, max_batch=4)                # warm
+    set_counts_zero(*fns)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    many = [d[0] for d in det.detect_many(dm_images, THRESH, max_batch=4)]
+    torch.cuda.synchronize()
+    many_wall = time.perf_counter() - t
+    many_peak = torch.cuda.max_memory_allocated()
+    many_counts = {"fused_stem": stem.fused_stem.launches,
+                   "bbox_vote": nms_device.bbox_vote_device.launches}
+    many_rules = [_bf16_rule(a, b) for a, b in zip(many, singles)]
+
+    # one request to the service
+    service = serve_mod.DetectorService(params, spec, device=dev)
+    srv = serve_mod.serve(service, "127.0.0.1", 0)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    try:
+        service.warmup()
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{srv.server_address[1]}/detect"
+            f"?thresh={THRESH}",
+            data=cv2.imencode(".png", images[0])[1].tobytes(),
+            method="POST")
+        t = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=600) as r:
+            payload = json.loads(r.read())
+        served_s = time.perf_counter() - t
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    served = np.asarray(payload["detections"], np.float32).reshape(-1, 5)
+    served_ok = (len(served) == len(dets0)
+                 and _match_fraction(served, dets0) == 1.0
+                 and _match_fraction(dets0, served) == 1.0)
+    del service, det
+    torch.cuda.empty_cache()
+
+    # the port's bf16 CPU path on image 0: plain, and fed the card's K1
+    cpu_det = TorchDetector(params, spec, "cpu")
+    t = time.perf_counter()
+    cpu = cpu_det.detect(images[0], THRESH)[0][0]
+    cpu_s = time.perf_counter() - t
+    replay = iter(recorded)
+    tdm.fused_stem = lambda *args, **kwargs: next(replay)
+    try:
+        cpu_fed = cpu_det.detect(images[0], THRESH)[0][0]
+    finally:
+        tdm.fused_stem = run_stem
+    cfg.TPU.PRECISION = "float32"
+    card_cpu = _bf16_rule(dets0, cpu, BF16_CPU_MATCH_MIN)
+    card_fed = _bf16_rule(dets0, cpu_fed, BF16_CPU_MATCH_MIN)
+    n_levels = len(cfg.TEST.SCALES)
+    want = {"fused_stem": n_levels, "route_writes": 0, "bbox_vote": 1}
+    say("bf16_detect", images=per_image, deterministic=deterministic,
+        first_walls_s=first_walls, warm_walls_s=walls0,
+        median_wall_s=float(np.median(walls0)),
+        max_memory_allocated_bytes=peak, launches=counts,
+        launches_expected=want, device_split=split,
+        card_vs_cpu={"dets_cpu": int(len(cpu)),
+                     "loose": [card_cpu[1], card_cpu[2]],
+                     "strict": [card_cpu[3], card_cpu[4]],
+                     "rule_holds": card_cpu[0], "cpu_seconds": cpu_s,
+                     "fed_the_card_k1": {
+                         "dets_cpu": int(len(cpu_fed)),
+                         "loose": [card_fed[1], card_fed[2]],
+                         "strict": [card_fed[3], card_fed[4]],
+                         "rule_holds": card_fed[0]}},
+        match_min=BF16_CPU_MATCH_MIN, conv_max_differ_share=conv_share,
+        timing="host clock after torch.cuda.synchronize(); peak: "
+               "max_memory_allocated in a warm detect of image 0; split: "
+               "torch.profiler over two detects, per detect")
+    say("bf16_detect_many", images=len(dm_images), max_batch=4,
+        match_min=BF16_MATCH_MIN,
+        wall_s=many_wall, images_per_s=len(dm_images) / many_wall,
+        max_memory_allocated_bytes=many_peak, launches=many_counts,
+        rule_holds=[r[0] for r in many_rules],
+        loose=[[r[1], r[2]] for r in many_rules],
+        strict=[[r[3], r[4]] for r in many_rules],
+        count_diffs=[len(a) - len(b) for a, b in zip(many, singles)],
+        reference="per-image bf16 detect")
+    say("bf16_serve", dets=int(len(served)), latency_s=served_s,
+        rows_match_detect=served_ok)
+    if not (all(p["checks_ok"] for p in per_image) and deterministic
+            and counts == want and split["device_ms"]["k1"] > 0
+            and split["device_ms"]["conv"] > 0 and card_cpu[0]):
+        raise AssertionError("the bf16 detect fails its checks")
+    if not (all(r[0] for r in many_rules) and served_ok
+            and many_counts["fused_stem"] > 0
+            and many_counts["bbox_vote"] > 0):
+        raise AssertionError("bf16 detect_many or the bf16 service "
+                             "disagrees or missed a kernel")
+    return counts, many_counts
 
 
 def _output_dir():
@@ -2091,21 +2412,29 @@ def serve_phase(params, spec, images, dev):
                              "its per-request ones, or its checks fail")
 
 
-def cliff_map(dev):
+def cliff_map(dev, dtype=torch.float32):
     """Every 3×3 convolution of the forward, as the forward runs it
     (``layers.conv3x3``), at each distinct shape of the pyramid levels of
     five WIDER-sized images, exact and bucketed, at batch 2, 4 and 8
-    (``tools/conv_map.py``): its device time beside its fp32 bound and the
-    memory it adds. The rows go to output/cliff_map.json; the line gives
-    each layer's worst, the shapes over the limits and the largest
-    ``conv4_fuse_final_dim_red`` shape. Fails where a convolution adds
-    more than CLIFF_MAX_ADDED bytes, or where one whose bound is at least
-    CLIFF_FLOOR_MS takes more than CLIFF_MAX_OF_BOUND times its bound."""
+    (``tools/conv_map.py``), on ``dtype`` inputs: its device time beside
+    its bound in that dtype (fp32 on the CUDA cores, bf16 on the tensor
+    cores) and the memory it adds. The rows go to output/cliff_map.json
+    (cliff_map_bf16.json); the line gives each layer's worst, the shapes
+    over the limits, the slowest shapes against their bound and the
+    largest ``conv4_fuse_final_dim_red`` shape. Fails where a convolution
+    adds more than CLIFF_MAX_ADDED bytes, or, in fp32, where one whose
+    bound is at least CLIFF_FLOOR_MS takes more than CLIFF_MAX_OF_BOUND
+    times its bound (bf16 reports that share and holds the memory only);
+    in bf16 also where a shape's outputs differ from the fp32 sum of the
+    same bf16 products rounded once beyond BF16_CONV_MAX_DIFFER or their
+    bound (``conv_map.bf16_vs_fp32``)."""
     from smallhardface_tpu_torch.models import layers
     from smallhardface_tpu_torch.tools import conv_map
+    bf16 = dtype == torch.bfloat16
     t = time.perf_counter()
-    rows = conv_map.conv_map(dev, log=lambda row: None)
-    with open(os.path.join(_output_dir(), "cliff_map.json"), "w") as f:
+    rows = conv_map.conv_map(dev, log=lambda row: None, dtype=dtype)
+    phase = "cliff_map_bf16" if bf16 else "cliff_map"
+    with open(os.path.join(_output_dir(), phase + ".json"), "w") as f:
         json.dump(rows, f)
     layers_worst = {}
     for r in rows:
@@ -2115,12 +2444,27 @@ def cliff_map(dev):
             w["of_bound"] = max(w["of_bound"], r["of_bound"])
             w["added_bytes"] = max(w["added_bytes"], r["added_bytes"])
     over = [r for r in rows if r["added_bytes"] > CLIFF_MAX_ADDED or (
-        r["bound_ms"] >= CLIFF_FLOOR_MS
-        and r["of_bound"] > CLIFF_MAX_OF_BOUND)]
+        not bf16 and r["bound_ms"] >= CLIFF_FLOOR_MS
+        and r["of_bound"] > CLIFF_MAX_OF_BOUND) or (
+        bf16 and (r["differ_share"] > BF16_CONV_MAX_DIFFER
+                  or r["max_err_over_bound"] > 1.0))]
+    numerics = {} if not bf16 else {
+        "max_differ_share": max(r["differ_share"] for r in rows),
+        "max_err_over_bound": max(r["max_err_over_bound"] for r in rows),
+        "limit_differ_share": BF16_CONV_MAX_DIFFER,
+        "reference": "fp32 cuDNN (TF32 off) on the same bf16 values, "
+                     "rounded to bf16 once"}
     floor = [r for r in rows if r["bound_ms"] < CLIFF_FLOOR_MS]
+    above = [r for r in rows if r["bound_ms"] >= CLIFF_FLOOR_MS]
     cliff = [r for r in rows if r["shape"] == [2, 512, 128, 176, 234, 1]]
-    say("cliff_map", shapes=len(rows), seconds=time.perf_counter() - t,
-        taps_min_flop=layers.TAPS_MIN_FLOP,
+    worst = sorted(above, key=lambda r: -r["of_bound"])[:5]
+    say(phase, shapes=len(rows), seconds=time.perf_counter() - t,
+        dtype=str(dtype).split(".")[1], taps_min_flop=layers.TAPS_MIN_FLOP,
+        max_of_bound_above_floor=max((r["of_bound"] for r in above),
+                                     default=0.0),
+        worst_of_bound_above_floor=[
+            {k: r[k] for k in ("shape", "layers", "ms", "bound_ms",
+                               "of_bound", "added_bytes")} for r in worst],
         max_of_bound=max(r["of_bound"] for r in rows),
         max_added_bytes=max(r["added_bytes"] for r in rows),
         sum_device_ms=sum(r["ms"] for r in rows), by_layer=layers_worst,
@@ -2131,11 +2475,12 @@ def cliff_map(dev):
                      "max_of_bound": max((r["of_bound"] for r in floor),
                                          default=0.0),
                      "max_ms": max((r["ms"] for r in floor), default=0.0)},
-        over_limits=over, limit_of_bound=CLIFF_MAX_OF_BOUND,
+        over_limits=over, limit_of_bound=CLIFF_MAX_OF_BOUND, **numerics,
         limit_added_bytes=CLIFF_MAX_ADDED, floor_bound_ms=CLIFF_FLOOR_MS,
         timing="device: calls in one CUDA graph, median of 3 replays; "
-               "bound: 2·B·H·W·9·C·O FLOP at 67 TFLOP/s or the bytes at "
-               "3.35 TB/s, the larger")
+               "bound: 2·B·H·W·9·C·O FLOP at "
+               + ("989 TFLOP/s (bf16)" if bf16 else "67 TFLOP/s")
+               + " or the bytes at 3.35 TB/s, the larger")
     if over or not cliff:
         raise AssertionError(f"{len(over)} convolutions of the map are over "
                              "its limits")
@@ -2144,12 +2489,16 @@ def cliff_map(dev):
 def eval_cli(cfg, stem, iou, nms_device, work):
     """Train-then-test from the command line on a synthetic WIDER tree:
     the files and the result line it must give, the seconds per image of
-    test_net and the launch counts. Returns the counts."""
+    test_net and the launch counts; the same test with TPU.EVAL_BATCH 2,
+    and with the run's final.caffemodel as TEST.MODEL (its weights and
+    detections equal to final.npz's to the bit). Returns the counts."""
     sys.path.insert(0, os.path.join(REPO, "scripts"))
     import synth_wider
     from smallhardface_tpu_torch import __main__ as cli
     from smallhardface_tpu_torch import test_runner
     from smallhardface_tpu_torch.config import CONFIG_DIR
+    from smallhardface_tpu_torch.io import caffemodel
+    from smallhardface_tpu_torch.io.weights import load_params
     root = os.path.join(work, "wider")
     synth_wider.build(root, n_images=EVAL_IMAGES, im_size=EVAL_SIZE,
                       seed=SEED)
@@ -2184,7 +2533,8 @@ def eval_cli(cfg, stem, iou, nms_device, work):
         found = {name: sorted(os.path.relpath(os.path.join(r, name), out)
                               for r, _, files in os.walk(out)
                               if name in files)
-                 for name in ("final.npz", "detections.pkl", "result.tar.gz",
+                 for name in ("final.npz", "final.caffemodel",
+                              "detections.pkl", "result.tar.gz",
                               "cfgs.txt", "stderr.log")}
         first_stats = dict(stats)
         # the same weights and images again, with TPU.EVAL_BATCH 2
@@ -2208,9 +2558,35 @@ def eval_cli(cfg, stem, iou, nms_device, work):
                 if "detections.pkl" in files]
         with open(pkl, "rb") as f:
             batched = pickle.load(f)[1]
+        batch_stats = dict(stats)
+        # the trained weights through final.caffemodel: the same file
+        # loaded, then the same test with it as TEST.MODEL
+        npz = os.path.join(out, found["final.npz"][0])
+        caffe = os.path.join(out, found["final.caffemodel"][0])
+        from_npz = load_params(npz)
+        from_caffe = caffemodel.load_into_params(caffe, from_npz,
+                                                 strict=True)
+        caffe_equal = all(torch.equal(from_caffe[n][k], v)
+                          for n, leaf in from_npz.items()
+                          for k, v in leaf.items())
+        set_counts_zero(*fns)
+        caffe_result = cli.main([
+            "--train", "false", "--test", "true", "--device", "cuda",
+            "--conf", os.path.join(CONFIG_DIR, "smallhardface.toml"),
+            "--amend", "DATA_DIR", root, "EXP_DIR", exp_dir + "_caffemodel",
+            "TEST.DB", "wider_val", "TEST.NO_CACHE", "False",
+            "TEST.MODEL", caffe, "TPU.EVAL_BATCH", "1"])
+        torch.cuda.synchronize()
+        caffe_counts = dict(zip(("fused_stem", "bbox_vote"), (
+            stem.fused_stem.launches, nms_device.bbox_vote_device.launches)))
+        pkl, = [os.path.join(r, "detections.pkl") for r, _, files in
+                os.walk(os.path.join(REPO, "output", exp_dir + "_caffemodel"))
+                if "detections.pkl" in files]
+        with open(pkl, "rb") as f:
+            via_caffe = pickle.load(f)[1]
     finally:
         test_runner.run_inference = run_inference
-        for d in (exp_dir, exp_dir + "_batch"):
+        for d in (exp_dir, exp_dir + "_batch", exp_dir + "_caffemodel"):
             shutil.rmtree(os.path.join(REPO, "output", d), ignore_errors=True)
     micro = EVAL_ITERS * int(cfg.TRAIN.ITERSIZE)
     want = {"fused_stem": micro + len(cfg.TEST.SCALES) * EVAL_IMAGES,
@@ -2222,8 +2598,8 @@ def eval_cli(cfg, stem, iou, nms_device, work):
                         str(result)):
         raise AssertionError(f"eval_cli gave no Easy/Medium/Hard line: "
                              f"{result!r}")
-    if not all(found[n] for n in ("final.npz", "detections.pkl",
-                                  "result.tar.gz")):
+    if not all(found[n] for n in ("final.npz", "final.caffemodel",
+                                  "detections.pkl", "result.tar.gz")):
         raise AssertionError(f"eval_cli is missing files: {found}")
     if counts != want:
         raise AssertionError(f"eval_cli launches {counts}, expected {want}")
@@ -2236,13 +2612,26 @@ def eval_cli(cfg, stem, iou, nms_device, work):
         images=len(batched), rule_holds=[r[0] for r in rules],
         min_match=[min(r[1], r[2]) for r in rules],
         count_diffs=[len(a) - len(b) for a, b in zip(batched, one_by_one)],
-        launches=batch_counts, launches_expected=want, **stats)
+        launches=batch_counts, launches_expected=want, **batch_stats)
     if len(batched) != EVAL_IMAGES or not all(r[0] for r in rules):
         raise AssertionError("EVAL_BATCH 2 detections differ from "
                              "EVAL_BATCH 1's")
     if batch_counts != want:
         raise AssertionError(f"eval_cli with EVAL_BATCH 2 launches "
                              f"{batch_counts}, expected {want}")
+    same = (len(via_caffe) == len(one_by_one)
+            and all(np.array_equal(a, b)
+                    for a, b in zip(via_caffe, one_by_one)))
+    want = {"fused_stem": len(cfg.TEST.SCALES) * EVAL_IMAGES,
+            "bbox_vote": EVAL_IMAGES}
+    say("eval_cli_caffemodel", model=found["final.caffemodel"][0],
+        result=caffe_result, loads_equal_to_final_npz=caffe_equal,
+        detections_equal_to_the_bit=same, launches=caffe_counts,
+        launches_expected=want)
+    if not (caffe_equal and same and caffe_result == result
+            and caffe_counts == want):
+        raise AssertionError("test_net through final.caffemodel differs "
+                             "from final.npz's")
     return counts
 
 

@@ -36,7 +36,11 @@ vote.
 detect.py:121-146, :453-500): ``calibrate_int8`` sets ``qstate`` and the
 forward runs the calibrated int8 chain; without it each int8 conv takes a
 dynamic activation step, shared by exactly the items one JAX forward call
-would see (``_scale_groups``). bfloat16 and spatial meshes wait (ROADMAP).
+would see (``_scale_groups``). ``TPU.PRECISION = "bfloat16"`` is the JAX
+bf16 mode (JAX detect.py:121-123): preprocessing stays fp32, the forward
+runs in bf16 (``Detector.forward``) and gives fp32 logits, and softmax,
+decode, the merge and the vote run in fp32 as in the other modes. Spatial
+meshes wait (ROADMAP).
 """
 
 from __future__ import annotations
@@ -177,15 +181,15 @@ class TorchDetector:
     TPU.PRECISION = "int8" the forward runs the int8 mode: the calibrated
     chain once ``calibrate_int8`` (or the caller) has set ``qstate``
     (``models.detector.make_qstate``), the dynamic mode while it is None.
+    Under "bfloat16" it runs the bf16 mode.
     """
 
     def __init__(self, params, spec=None, device=None):
         precision = str(cfg.TPU.PRECISION)
-        if precision not in ("float32", "int8"):
-            raise NotImplementedError(
-                f"TPU.PRECISION={precision!r}: the PyTorch port runs "
-                "float32 and int8; bfloat16 waits (ROADMAP queue 1 item "
-                "10, 'bf16')")
+        if precision not in ("float32", "int8", "bfloat16"):
+            raise ValueError(
+                f"TPU.PRECISION={precision!r}: expected 'float32', "
+                "'bfloat16' or 'int8'")
         if precision == "int8":
             mode = str(cfg.TPU.MASK_MODE)
             if mode not in ("band", "band_margin", "where", "exact"):

@@ -1,10 +1,9 @@
 """Weights between the JAX package's layout and the port's.
 
-Counterpart of ``smallhardface_tpu/io/checkpoint.load_params`` (and of the
-name mapping at ``io/caffemodel.py:148-185``, whose ``.caffemodel``
-loading waits: ROADMAP queue 1, '.caffemodel loading'). Both packages
-address parameters by the names of ``detector.param_shapes``; the JAX package stores conv weights
-HWIO, the port OIHW. ``conv5_256_up`` is (4, 4, 1, C) in HWIO and
+Counterpart of ``smallhardface_tpu/io/checkpoint.load_params``
+(``.caffemodel`` files: ``io/caffemodel.py``). Both packages address
+parameters by the names of ``detector.param_shapes``; the JAX package
+stores conv weights HWIO, the port OIHW. ``conv5_256_up`` is (4, 4, 1, C) in HWIO and
 (C, 1, 4, 4) here, the grouped-deconv layout: the same transpose.
 
 ``qstate_from_numpy`` / ``qstate_to_numpy`` carry the int8 mode's

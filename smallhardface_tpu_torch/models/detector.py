@@ -5,10 +5,12 @@ Counterpart of ``smallhardface_tpu/models/detector.py``: the spec and
 shape tables (:32-234), ``init_params`` (:133-163), ``param_multipliers``
 (:166-194), the graph of ``forward`` (:313-649) under the ``"exact"``
 and ``"where"`` mask modes, in fp32 and in the int8 serving mode
-(``precision="int8"``, :399-419, :456-519, :597-600, :613-621), and the
-int8 calibration helpers ``int8_layer_names``, ``make_qstate`` and
-``collect_int8_amax`` (:652-702); training runs ``"where"``, the
-``mask_plan(train=True)`` choice (train_loop.py:147-148).
+(``precision="int8"``, :399-419, :456-519, :597-600, :613-621) and in
+the bfloat16 mode (``precision="bfloat16"``, :420-421, :547-566,
+:649-650; inference only: the JAX package's own bf16 gradient does not
+run), and the int8 calibration helpers ``int8_layer_names``,
+``make_qstate`` and ``collect_int8_amax`` (:652-702); training runs
+``"where"``, the ``mask_plan(train=True)`` choice (train_loop.py:147-148).
 
 Layouts follow the JAX package at the public surface: images in are NHWC
 ``(B, H, W, 3)``, outputs are ``cls_logits (B, h, w, A, 2)`` and
@@ -217,10 +219,13 @@ def forward_flops(spec: ModelSpec, h, w, batch=1):
 
 
 def pin_fp32_numerics():
-    """Turn TF32 off for cuDNN convolutions and CUDA matmuls, and make
-    cuDNN pick deterministic algorithms. Process-wide PyTorch flags."""
+    """Turn TF32 off for cuDNN convolutions and CUDA matmuls, keep cuBLAS
+    from reducing bf16 sums in bf16 (PyTorch allows it by default; the JAX
+    bf16 mode sums in fp32), and make cuDNN pick deterministic algorithms.
+    Process-wide PyTorch flags."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     torch.backends.cudnn.deterministic = True
 
 
@@ -278,6 +283,20 @@ class Detector(nn.Module):
     def _w(self, name):
         return self.params[name]["w"], self.params[name]["b"]
 
+    def bf16_tree(self):
+        """The weights and biases rounded to bf16, {name: {'w', 'b'}}: the
+        JAX forward rounds them at every conv (layers.py:33-34, :46); here
+        they are rounded once and kept until a parameter is replaced or
+        changed in place (its storage or version counter moves)."""
+        key = tuple((p.data_ptr(), p._version) for p in self.parameters())
+        if getattr(self, "_bf16_key", None) != key:
+            with torch.no_grad():
+                self._bf16 = {name: {k: v.to(torch.bfloat16)
+                                     for k, v in leaf.items()}
+                              for name, leaf in self.params.items()}
+            self._bf16_key = key
+        return self._bf16
+
     def forward(self, x, valid_hw=None, precision="float32", qstate=None,
                 int8_amax=None, scale_groups=None):
         """x: NHWC (B, H, W, 3) float32, BGR mean-subtracted, H and W
@@ -306,12 +325,24 @@ class Detector(nn.Module):
         call shares it). ``int8_amax``: a dict to fold max|input| of every
         int8 conv into (0-d tensors; "head" on its input ``ff``), the
         fp32 calibration forward's hook.
+
+        ``precision="bfloat16"`` is the JAX bf16 mode: x is rounded to
+        bf16 first (detector.py:420-421); the stem runs in fp32
+        (``fused_stem``) on that rounded input, as the JAX forward runs
+        the fp32 Pallas kernel, and its output is rounded to bf16; every
+        other conv is a bf16 product rounded once, then its bf16 bias
+        (``layers.conv2d``), on the weights of ``bf16_tree``; the outputs
+        are cast to fp32 (:649-650).
         """
         spec = self.spec
-        if precision not in ("float32", "int8"):
-            raise ValueError(f"precision must be 'float32' or 'int8', got "
-                             f"{precision!r}")
+        if precision not in ("float32", "int8", "bfloat16"):
+            raise ValueError(f"precision must be 'float32', 'int8' or "
+                             f"'bfloat16', got {precision!r}")
         int8 = precision == "int8"
+        bf16 = precision == "bfloat16"
+        weights = self.bf16_tree() if bf16 else self.params
+        if bf16:
+            x = x.to(torch.bfloat16)
         succ = _qsucc(spec) if int8 and qstate is not None else {}
         stride = 1
 
@@ -352,7 +383,7 @@ class Detector(nn.Module):
                     return mask(q_conv(h, name))
                 if int8_amax is not None:
                     record(name, h)
-            w, b = self._w(name)
+            w, b = weights[name]["w"], weights[name]["b"]
             return mask(F.relu(conv3x3(h, w, b)))
 
         # VGG-16's stem runs fused (the kernel on the card), in fp32 in the
@@ -364,8 +395,9 @@ class Detector(nn.Module):
         if fused:
             w1, b1 = self._w("conv1_1")
             w2, b2 = self._w("conv1_2")
-            h = fused_stem(x, w1, b1, w2, b2, valid_hw=valid_hw)
-            h = h.permute(0, 3, 1, 2)
+            h = fused_stem(x.float() if bf16 else x, w1, b1, w2, b2,
+                           valid_hw=valid_hw)
+            h = h.permute(0, 3, 1, 2).to(x.dtype)
             stride *= 2
             h = mask(h)
         else:
@@ -381,17 +413,18 @@ class Detector(nn.Module):
                 h = max_pool_2x2(h)
                 stride *= 2
 
-        w, b = self._w("conv5_256")
-        f5 = mask(F.relu(conv2d(feats["conv5"], w, b)))
-        up = upsample2x_bilinear(f5, self.params["conv5_256_up"]["w"])
+        def w_b(name):
+            return weights[name]["w"], weights[name]["b"]
+
+        f5 = mask(F.relu(conv2d(feats["conv5"], *w_b("conv5_256"))))
+        up = upsample2x_bilinear(f5, weights["conv5_256_up"]["w"])
         stride //= 2                       # back to the stride-8 grid
         f4 = feats["conv4"]
         if f4.dtype == torch.int8:
             # the chain left conv4_3's output on conv5_1's grid; the fp32
             # 1×1 lateral reads it dequantized
             f4 = f4.float() * input_step(qstate, "conv5_1")
-        w, b = self._w("conv4_256")
-        lat4 = F.relu(conv2d(f4, w, b))
+        lat4 = F.relu(conv2d(f4, *w_b("conv4_256")))
         ff = cbr(mask(torch.cat([mask(up), lat4], dim=1)), "conv4_fuse_final")
 
         bsz, _, hh, ww = ff.shape
@@ -400,28 +433,28 @@ class Detector(nn.Module):
             ff = cbr(ff, "conv4_fuse_final_dim_red")
             if int8_amax is not None:
                 record("head", ff)
-            hw, hb = self._w("head")
+            hw, hb = w_b("head")
             cls_list, box_list = [], []
             for k, d in zip(ANCHOR_SCALES, HEAD_DILATIONS):
                 if int8:
                     hd = q_conv(ff, "head", d)
                 else:
                     hd = F.relu(conv3x3(ff, hw, hb, dilation=d))
-                cls_list.append(conv2d(hd, *self._w(f"cls_score_{k}")))
-                box_list.append(conv2d(hd, *self._w(f"bbox_pred_{k}")))
+                cls_list.append(conv2d(hd, *w_b(f"cls_score_{k}")))
+                box_list.append(conv2d(hd, *w_b(f"bbox_pred_{k}")))
             # (B, C, h, w) per anchor → (B, h, w, A, C)
             cls_logits = torch.stack(cls_list, dim=-1).permute(0, 2, 3, 4, 1)
             bbox_deltas = torch.stack(box_list, dim=-1).permute(0, 2, 3, 4, 1)
         else:
             hd = cbr(ff, "head")
-            raw_cls = conv2d(hd, *self._w("cls_score")).permute(0, 2, 3, 1)
-            raw_box = conv2d(hd, *self._w("bbox_pred")).permute(0, 2, 3, 1)
+            raw_cls = conv2d(hd, *w_b("cls_score")).permute(0, 2, 3, 1)
+            raw_box = conv2d(hd, *w_b("bbox_pred")).permute(0, 2, 3, 1)
             # cls channels are [bg_a0.. bg_aA, fg_a0.. fg_aA]; bbox channels
             # are anchor-major groups of 4
             cls_logits = raw_cls.reshape(bsz, hh, ww, 2, A).transpose(3, 4)
             bbox_deltas = raw_box.reshape(bsz, hh, ww, A, 4)
-        return {"cls_logits": cls_logits.contiguous(),
-                "bbox_deltas": bbox_deltas.contiguous()}
+        return {"cls_logits": cls_logits.float().contiguous(),
+                "bbox_deltas": bbox_deltas.float().contiguous()}
 
 
 def int8_layer_names(spec: ModelSpec):

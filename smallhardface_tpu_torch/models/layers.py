@@ -11,6 +11,12 @@ or for the large 3×3 ones of detection nine cuBLAS products
 (``conv3x3``): the JAX package leaves them to XLA outside any Pallas
 kernel. The int8 3×3 products run through ``ops/conv_int8.conv3x3_int8``
 (the kernel Q1 on the card).
+
+On a bfloat16 input, ``conv2d``, ``conv3x3`` and ``upsample2x_bilinear``
+compute what the JAX functions compute with ``compute_dtype=bfloat16``
+(:29-46, :208-213): x and w rounded to bf16, exact products summed in
+fp32, the sum rounded to bf16 once, and only then the bias, itself
+rounded to bf16, added in bf16 (``bf16_product``).
 """
 
 from __future__ import annotations
@@ -24,8 +30,30 @@ from smallhardface_tpu_torch.ops.conv_int8 import conv3x3_int8, fdiv
 
 def conv2d(x, w, b=None, *, dilation=1, padding=0):
     """Conv with explicit symmetric zero padding and dilation. For a 3×3
-    kernel at dilation d the Caffe templates pad by d."""
-    return F.conv2d(x, w, b, padding=padding, dilation=dilation)
+    kernel at dilation d the Caffe templates pad by d. On a bf16 x, the
+    product rounds once to bf16 and the bf16 bias is added after it."""
+    if x.dtype != torch.bfloat16:
+        return F.conv2d(x, w, b, padding=padding, dilation=dilation)
+    out = bf16_product(F.conv2d, x, w, padding=padding, dilation=dilation)
+    if b is None:
+        return out
+    # in place on the product, which nothing else holds: no second output
+    return out.add_(b.to(torch.bfloat16)[:, None, None])
+
+
+def bf16_product(fn, x, w, **kwargs):
+    """fn(x, w, **kwargs), a convolution, with x and w rounded to bf16, the
+    products summed in fp32 and the sum rounded to bf16 once (the JAX
+    package's ``preferred_element_type=float32`` then ``.astype(bf16)``),
+    with no bias: a bias fused into the product would be added before the
+    rounding. On the card fn runs on the bf16 tensors (cuDNN sums bf16 in
+    fp32 and rounds its output once); on the CPU it runs in fp32 on the
+    rounded values, whose products are exact in fp32, and the sum is
+    rounded after it."""
+    w = w.to(torch.bfloat16)
+    if x.is_cuda:
+        return fn(x, w, **kwargs)
+    return fn(x.float(), w.float(), **kwargs).to(torch.bfloat16)
 
 
 # From this many FLOP up, a 3×3 convolution of detection runs as nine
@@ -44,9 +72,10 @@ def conv3x3(x, w, b, *, dilation=1):
     """The forward's 3×3 convolutions, zero padding ``dilation``: under
     no_grad / inference_mode, those of at least TAPS_MIN_FLOP run as
     ``conv3x3_taps``, the rest (and all of training, where autograd runs
-    cuDNN's backward) as cuDNN's ``conv2d``. Both are deterministic."""
+    cuDNN's backward) as cuDNN's ``conv2d``. Both are deterministic. A
+    bf16 x always runs as ``conv2d``'s bf16 product."""
     B, C, H, W = x.shape
-    if (not torch.is_grad_enabled()
+    if (x.dtype != torch.bfloat16 and not torch.is_grad_enabled()
             and 18.0 * B * H * W * C * w.shape[0] >= TAPS_MIN_FLOP):
         return conv3x3_taps(x, w, b, dilation=dilation)
     return conv2d(x, w, b, dilation=dilation, padding=dilation)
@@ -209,6 +238,11 @@ def upsample2x_bilinear(x, w):
 
     The JAX version correlates the 2-dilated input with ``w``; a transposed
     conv correlates it with the spatially flipped kernel, so the flip here
-    makes the two agree for any kernel (the bilinear one is symmetric)."""
-    return F.conv_transpose2d(x, torch.flip(w, (2, 3)), stride=2, padding=1,
-                              groups=x.shape[1])
+    makes the two agree for any kernel (the bilinear one is symmetric).
+    On a bf16 x it is a bf16 product, rounded once (JAX :208-213)."""
+    def deconv(x, w):
+        return F.conv_transpose2d(x, torch.flip(w, (2, 3)), stride=2,
+                                  padding=1, groups=x.shape[1])
+    if x.dtype == torch.bfloat16:
+        return bf16_product(deconv, x, w)
+    return deconv(x, w)

@@ -21,12 +21,14 @@ raises when there is no card):
   python -m smallhardface_tpu_torch.serve --conf \
       smallhardface_tpu/configs/smallhardface.toml --model final.npz \
       [--device cpu] [--port 8400] [--host 127.0.0.1] \
-      [--batch-window-ms 20 --max-batch 4]
+      [--batch-window-ms 20 --max-batch 4] [--amend KEY VALUE ...]
 
-The int8 serving mode (``--conf smallhardface_tpu/configs/
-smallhardface-int8.toml``) calibrates at start-up on ``--calib-images
-a.jpg b.jpg ...``; without them it serves the dynamic int8 mode, with a
-warning.
+``--model`` takes an ``.npz`` checkpoint of either package or a
+``.caffemodel``; ``--amend`` sets config keys as the main command line's
+does (``--amend TPU.PRECISION bfloat16`` serves the bf16 mode). The int8
+serving mode (``--conf smallhardface_tpu/configs/smallhardface-int8.toml``)
+calibrates at start-up on ``--calib-images a.jpg b.jpg ...``; without
+them it serves the dynamic int8 mode, with a warning.
 """
 
 from __future__ import annotations
@@ -242,14 +244,19 @@ def main(argv=None):
                    help="representative images for the one-time int8 "
                         "calibration (TPU.PRECISION='int8'); without them "
                         "the int8 service runs the dynamic mode")
+    p.add_argument("--amend", nargs="+", default=[], metavar="KEY VALUE",
+                   help="config keys to set after --conf, as key/value "
+                        "pairs (e.g. TPU.PRECISION bfloat16)")
     args = p.parse_args(argv)
 
     logging.basicConfig(level=logging.INFO)
-    from smallhardface_tpu_torch.config import cfg_from_file
+    from smallhardface_tpu_torch.config import cfg_from_file, cfg_from_list
     from smallhardface_tpu_torch.models import detector as detector_mod
     from smallhardface_tpu_torch.test_runner import _load_params
     if args.conf:
         cfg_from_file(args.conf)
+    if args.amend:
+        cfg_from_list(args.amend)
     if args.model:
         cfg.TEST.MODEL = args.model
     spec = detector_mod.build_spec(cfg)

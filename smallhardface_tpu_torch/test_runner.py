@@ -34,7 +34,7 @@ import torch
 
 from smallhardface_tpu_torch.config import cfg
 from smallhardface_tpu_torch.detect import TorchDetector, _imread
-from smallhardface_tpu_torch.io import weights
+from smallhardface_tpu_torch.io import caffemodel, weights
 from smallhardface_tpu_torch.models import detector as detector_mod
 from smallhardface_tpu_torch.utils.tensorboard import tb
 from smallhardface_tpu_torch.utils.timer import Timer
@@ -47,17 +47,17 @@ PIPELINE_DEPTH = 3
 
 def _load_params(spec):
     """TEST.MODEL as the port's parameter tree: random init from
-    cfg.RNG_SEED when empty, else a JAX-package ``.npz`` checkpoint."""
+    cfg.RNG_SEED when empty; a ``.caffemodel`` loaded by layer name over
+    that init (JAX test_runner.py:31-43); else an ``.npz`` checkpoint of
+    either package."""
     path = cfg.TEST.MODEL
-    if not path:
-        logger.warning("TEST.MODEL is empty; using random-init weights")
+    if not path or path.endswith(".caffemodel"):
         gen = torch.Generator().manual_seed(int(cfg.RNG_SEED))
-        return detector_mod.init_params(gen, spec)
-    if path.endswith(".caffemodel"):
-        raise NotImplementedError(
-            ".caffemodel loading is not ported yet (ROADMAP queue 1, "
-            "'.caffemodel import and export'); convert it to .npz with the "
-            "JAX package")
+        params = detector_mod.init_params(gen, spec)
+        if not path:
+            logger.warning("TEST.MODEL is empty; using random-init weights")
+            return params
+        return caffemodel.load_into_params(path, params)
     return weights.load_params(path)
 
 
@@ -85,7 +85,7 @@ def inference_worker(rank, device, imdb, params, spec, start, end, thresh):
     through ``detect_many`` and the rest one at a time; under
     TPU.HOST_PREPROC the images run one at a time. Under TPU.PRECISION
     "int8" the detector first calibrates on the shard's first
-    TPU.INT8_CALIB_IMAGES images."""
+    TPU.INT8_CALIB_IMAGES images; "bfloat16" needs no set-up."""
     det = TorchDetector(params, spec, device)
     if det.precision == "int8":
         # the calibrated int8 chain: activation ranges from the first

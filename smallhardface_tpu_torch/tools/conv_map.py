@@ -1,10 +1,10 @@
 """Map the 3×3 convolutions of the detector's forward over the pyramid
 levels of WIDER-sized images on one CUDA card: each distinct shape's
-device time beside its fp32 bound, the device kernels it launches and the
-device memory the call adds.
+device time beside its bound, the device kernels it launches and the
+device memory the call adds, in fp32 or in bf16.
 
     python -m smallhardface_tpu_torch.tools.conv_map [--levers | --levels] \
-        [--out conv_map.json]
+        [--dtype bfloat16] [--out conv_map.json]
 
 The levels are those of the flagship config (TEST.SCALES 100..1400 over
 PYRAMID_BASE_SIZE 800×1200) for the images in ``IMAGES``, both at the
@@ -14,8 +14,11 @@ mirrors). Each shape runs as the forward runs it (``layers.conv3x3``);
 ``--levers`` also times every shape under the other ways of running it
 (``LEVERS``) and traces the ``conv4_fuse_final_dim_red`` shape of the
 1408×1872 level through cuDNN cold and warm; ``--levels`` times the
-flagship detector's forward per level and ``detect`` instead. Device
-times come from CUDA graphs, so the host is not in them.
+flagship detector's forward per level and ``detect`` instead.
+``--dtype bfloat16`` runs the map (and ``--levels``' forward and
+``detect``, under TPU.PRECISION "bfloat16") in bf16, against the bf16
+bound; its ``--levers`` are cuDNN with the bias fused and the taps summed
+in fp32. Device times come from CUDA graphs, so the host is not in them.
 ``chip_smoke.py`` runs ``conv_map`` as its ``cliff_map`` phase. Needs a
 CUDA card.
 """
@@ -39,7 +42,9 @@ SCALES = (100, 300, 600, 1000, 1400)
 BASE = (800, 1200)                  # TEST.PYRAMID_BASE_SIZE
 BATCHES = (2, 4, 8)
 BUCKETS = {"exact": 16, "bucket": 128}
-PEAK_FP32, PEAK_BYTES = 67e12, 3.35e12
+# published H100 SXM rates: fp32 on the CUDA cores, dense bf16 on the
+# tensor cores, device-memory bandwidth
+PEAK_FP32, PEAK_BF16, PEAK_BYTES = 67e12, 989e12, 3.35e12
 
 
 def _round_up(x, m):
@@ -92,12 +97,15 @@ def shape_map(images=IMAGES, batches=BATCHES):
     return shapes
 
 
-def bound_ms(B, C, O, H, W):
-    """The larger of the FLOP at the fp32 CUDA-core peak and the bytes
-    (input, weights and output once) at the memory rate."""
+def bound_ms(B, C, O, H, W, dtype=torch.float32):
+    """The larger of the FLOP at the dtype's peak (fp32 on the CUDA cores,
+    bf16 on the tensor cores) and the bytes (input, weights and output
+    once, in the dtype) at the memory rate."""
+    bf16 = dtype == torch.bfloat16
     flop = 2.0 * B * H * W * 9 * C * O
-    n_bytes = 4.0 * (B * H * W * (C + O) + 9 * C * O + O)
-    t_f, t_b = flop / PEAK_FP32 * 1e3, n_bytes / PEAK_BYTES * 1e3
+    n_bytes = (2.0 if bf16 else 4.0) * (B * H * W * (C + O) + 9 * C * O + O)
+    t_f = flop / (PEAK_BF16 if bf16 else PEAK_FP32) * 1e3
+    t_b = n_bytes / PEAK_BYTES * 1e3
     return max(t_f, t_b), ("operations" if t_f >= t_b else "bytes"), flop
 
 
@@ -122,7 +130,29 @@ def cudnn_nondet(x, w, b, d):
 
 
 def taps(x, w, b, d):
-    return layers.conv3x3_taps(x, w, b, dilation=d)
+    """The nine products of ``layers.conv3x3_taps``; in bf16 each product
+    sums into an fp32 accumulator (cuBLAS with ``out_dtype``), which is
+    rounded to bf16 once before the bf16 bias, the rounding the bf16
+    forward needs."""
+    if x.dtype != torch.bfloat16:
+        return layers.conv3x3_taps(x, w, b, dilation=d)
+    B, C, H, W = x.shape
+    O = w.shape[0]
+    Hp, Wp = H + 2 * d, W + 2 * d
+    w9 = w.permute(2, 3, 1, 0)                      # (3, 3, C, O)
+    rows = F.pad(x.permute(0, 2, 3, 1), (0, 0, d, d, d, d)).reshape(-1, C)
+    acc = torch.mm(rows, w9[1, 1], out_dtype=torch.float32)
+    n = acc.shape[0]
+    for ky in range(3):
+        for kx in range(3):
+            s = (ky - 1) * d * Wp + (kx - 1) * d
+            if s:
+                lo, hi = max(0, -s), n - max(0, s)
+                part = acc[lo:hi]
+                torch.addmm(part, rows[lo + s:hi + s], w9[ky, kx],
+                            out_dtype=torch.float32, out=part)
+    out = acc.view(B, Hp, Wp, O)[:, d:d + H, d:d + W].to(torch.bfloat16) + b
+    return out.permute(0, 3, 1, 2)
 
 
 def gemm9(x, w, b, d):
@@ -150,15 +180,37 @@ LEVERS = {"port": port, "cudnn": cudnn, "cudnn_b1": cudnn_b1,
 GEMM9_BYTES = 4e9
 
 
-def inputs(shape, dev, gen):
+def inputs(shape, dev, gen, dtype=torch.float32):
     B, C, O, H, W, _ = shape
-    x = torch.randn((B, C, H, W), device=dev, generator=gen).contiguous(
-        memory_format=torch.channels_last)
+    x = torch.randn((B, C, H, W), device=dev, generator=gen).to(
+        dtype).contiguous(memory_format=torch.channels_last)
     w = (torch.randn((O, C, 3, 3), device=dev, generator=gen)
-         * math.sqrt(2 / (9 * C))).contiguous(
+         * math.sqrt(2 / (9 * C))).to(dtype).contiguous(
         memory_format=torch.channels_last)
-    b = torch.randn((O,), device=dev, generator=gen) * 0.1
+    b = (torch.randn((O,), device=dev, generator=gen) * 0.1).to(dtype)
     return x, w, b
+
+
+def bf16_vs_fp32(x, w, d, padding=None):
+    """A bf16 convolution as the forward runs it (``layers.conv2d`` on a
+    bf16 x, no bias) against the fp32 sum of the same bf16 products (TF32
+    off) rounded to bf16 once: the share of outputs that differ, and the
+    largest difference over its bound, two fp32 sums of the same terms in
+    different orders (2·K·2⁻²³·Σ|x·w|, K terms) plus a bf16 ulp (> 1: a
+    rounding the JAX bf16 mode does not make)."""
+    pad = d if padding is None else padding
+    got = layers.conv2d(x, w, None, dilation=d, padding=pad)
+    wr = w.to(torch.bfloat16).float()
+    plain = F.conv2d(x.float(), wr, None, dilation=d, padding=pad)
+    abs_sum = F.conv2d(x.float().abs(), wr.abs(), None, dilation=d,
+                       padding=pad)
+    ref = plain.to(torch.bfloat16)
+    ulp = torch.maximum(got.float().abs(), ref.float().abs()) * 2.0 ** -7
+    bound = 2 * w[0].numel() * 2.0 ** -23 * abs_sum + ulp
+    over = ((got.float() - ref.float()).abs()
+            / bound.clamp_min(1e-30)).max().item()
+    return {"differ_share": (got != ref).float().mean().item(),
+            "max_err_over_bound": over, "dtype": str(got.dtype)}
 
 
 def device_kernels(fn, n=1):
@@ -240,9 +292,13 @@ def time_call(fn):
 
 
 @torch.inference_mode()
-def conv_map(dev, levers=("port",), profile_over=5.0, log=print):
+def conv_map(dev, levers=("port",), profile_over=5.0, log=print,
+             dtype=torch.float32):
     """Time every distinct shape of ``shape_map()`` under each
-    lever, under inference_mode as detection runs them. A shape's kernels
+    lever, under inference_mode as detection runs them, on inputs of
+    ``dtype`` against that dtype's bound; in bf16 the forward's way is
+    also held against the fp32 sum rounded once (``bf16_vs_fp32``). A
+    shape's kernels
     are traced where it takes more than ``profile_over`` times its bound,
     adds more than 1 GB or is a shape of ``conv4_fuse_final_dim_red``.
     Returns the rows, one per (shape, lever)."""
@@ -251,8 +307,8 @@ def conv_map(dev, levers=("port",), profile_over=5.0, log=print):
     for shape, where in sorted(shape_map().items(),
                                key=lambda kv: kv[0]):
         B, C, O, H, W, d = shape
-        bnd, by, flop = bound_ms(B, C, O, H, W)
-        x, w, b = inputs(shape, dev, gen)
+        bnd, by, flop = bound_ms(B, C, O, H, W, dtype)
+        x, w, b = inputs(shape, dev, gen, dtype)
         for lever in levers:
             fn = LEVERS[lever]
             if lever == "gemm9" and 36.0 * B * H * W * O > GEMM9_BYTES:
@@ -261,13 +317,16 @@ def conv_map(dev, levers=("port",), profile_over=5.0, log=print):
             first, wall, ms, added = time_call(call)
             row = {"shape": list(shape), "layers": sorted({
                 s.rsplit("/", 1)[1] for s in where}), "n_levels": len(where),
-                "lever": lever, "ms": ms, "wall_ms": wall,
+                "lever": lever, "dtype": str(dtype).split(".")[1],
+                "ms": ms, "wall_ms": wall,
                 "first_ms": first,
                 "bound_ms": bnd, "bound_by": by, "of_bound": ms / bnd,
                 "tflops": flop / ms / 1e9, "added_bytes": added}
             if ((ms > profile_over * bnd and bnd >= 0.05) or added > 1e9
                     or "conv4_fuse_final_dim_red" in row["layers"]):
                 row["kernels"], row["runtime"] = device_kernels(call)
+            if lever == "port" and dtype == torch.bfloat16:
+                row.update(bf16_vs_fp32(x, w, d))
             rows.append(row)
             log(row)
         del x, w, b
@@ -302,11 +361,12 @@ def trace_cliff(dev, shape=(2, 512, 128, 176, 234, 1)):
     return {"shape": list(shape), **out}
 
 
-def level_walls(dev, image_hw=(768, 1024), reps=3):
+def level_walls(dev, image_hw=(768, 1024), reps=3, precision="float32"):
     """The flagship detector (random weights from seed 0) on one seeded
-    image: each level's forward at batch 2 (image and mirror) on the host
-    clock after a synchronisation, with the device memory it adds beyond
-    its input, and warm ``detect`` walls with the peak of the process."""
+    image in ``precision``: each level's forward at batch 2 (image and
+    mirror) on the host clock after a synchronisation, with the device
+    memory it adds beyond its input, and warm ``detect`` walls with the
+    peak of the process."""
     from smallhardface_tpu_torch.config import CONFIG_DIR, cfg, cfg_from_file
     from smallhardface_tpu_torch.detect import TorchDetector
     from smallhardface_tpu_torch.models import detector as tdm
@@ -314,6 +374,7 @@ def level_walls(dev, image_hw=(768, 1024), reps=3):
     cfg_from_file(os.path.join(CONFIG_DIR, "smallhardface.toml"))
     cfg.TEST.SCALES = list(SCALES)
     cfg.TEST.FLIP = True
+    cfg.TPU.PRECISION = precision
     spec = tdm.build_spec(cfg)
     params = tdm.init_params(torch.Generator().manual_seed(0), spec)
     det = TorchDetector(params, spec, dev)
@@ -329,7 +390,7 @@ def level_walls(dev, image_hw=(768, 1024), reps=3):
                 base = torch.cuda.memory_allocated()
                 torch.cuda.reset_peak_memory_stats()
                 t = time.perf_counter()
-                det.model(x)
+                det.model(x, precision=precision)
                 torch.cuda.synchronize()
                 walls.append((time.perf_counter() - t) * 1e3)
             levels.append({"level": [hb, wb], "forward_ms": walls[1:],
@@ -344,7 +405,8 @@ def level_walls(dev, image_hw=(768, 1024), reps=3):
         det.detect(image, 0.05)
         torch.cuda.synchronize()
         detect.append(time.perf_counter() - t)
-    return {"image": list(image_hw), "levels": levels,
+    return {"image": list(image_hw), "precision": precision,
+            "levels": levels,
             "detect_s": detect[1:], "detect_first_s": detect[0],
             "detect_peak_bytes": torch.cuda.max_memory_allocated()}
 
@@ -354,8 +416,11 @@ def main(argv=None):
     p.add_argument("--levers", action="store_true")
     p.add_argument("--levels", action="store_true",
                    help="only the per-level forward and detect walls")
+    p.add_argument("--dtype", choices=("float32", "bfloat16"),
+                   default="float32")
     p.add_argument("--out", default="")
     args = p.parse_args(argv)
+    dtype = getattr(torch, args.dtype)
     if not torch.cuda.is_available():
         raise SystemExit("conv_map needs a CUDA card")
     from smallhardface_tpu_torch.models.detector import pin_fp32_numerics
@@ -369,16 +434,21 @@ def main(argv=None):
               "cudnn": torch.backends.cudnn.version()}
     log = lambda r: print(json.dumps(r), flush=True)   # noqa: E731
     if args.levels:
-        result["level_walls"] = level_walls(dev)
+        result["level_walls"] = level_walls(dev, precision=args.dtype)
         log(result["level_walls"])
     else:
-        if args.levers:
+        bf16 = dtype == torch.bfloat16
+        if args.levers and not bf16:
             result["trace"] = trace_cliff(dev)
             log(result["trace"])
-        result["map"] = conv_map(dev, log=log)
+        result["map"] = conv_map(dev, log=log, dtype=dtype)
         if args.levers:
+            # in bf16: cuDNN with its bias fused (one rounding, so not the
+            # forward's numbers: a yardstick) and the fp32-summed taps
             result["levers"] = conv_map(
-                dev, levers=("cudnn", "cudnn_b1", "taps", "gemm9"), log=log)
+                dev, levers=(("cudnn", "taps") if bf16 else
+                             ("cudnn", "cudnn_b1", "taps", "gemm9")),
+                log=log, dtype=dtype)
     if args.out:
         with open(args.out, "w") as f:
             json.dump(result, f)

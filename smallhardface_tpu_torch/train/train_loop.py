@@ -22,14 +22,16 @@ replaced by one ``device``:
   (HWIO, the JAX package's layout, so either package loads them), the
   optimizer slots, the iteration and the pickled loader state;
   ``TRAIN.RESUME`` restores all of them, so a resumed run replays the same
-  data stream and reaches the same weights to the bit.
+  data stream and reaches the same weights to the bit; ``final.caffemodel``
+  is written beside ``final.npz``, and a ``.caffemodel`` pretrained model
+  is loaded by layer name.
 
 The host builds the next iteration's batch while the device runs the
 current one (no thread: the order of loader calls is fixed, so resume
-stays bit-reproducible). ``final.caffemodel`` is not written: the port has
-no ``.caffemodel`` writer yet (ROADMAP queue 1). Multi-device, spatial and
-grouped steps, SIGINT/SIGHUP handling and ``AUTO_RESUME`` are not ported
-yet (ROADMAP queue 1).
+stays bit-reproducible). Training runs in float32: int8 has no gradient,
+and the JAX package's bf16 gradient fails (see ``train_net``).
+Multi-device, spatial and grouped steps, SIGINT/SIGHUP handling and
+``AUTO_RESUME`` are not ported yet (ROADMAP queue 1).
 """
 
 from __future__ import annotations
@@ -45,7 +47,7 @@ import torch
 
 from smallhardface_tpu_torch.config import cfg
 from smallhardface_tpu_torch.detect import linear_resize_weights
-from smallhardface_tpu_torch.io import checkpoint, weights
+from smallhardface_tpu_torch.io import caffemodel, checkpoint, weights
 from smallhardface_tpu_torch.models import detector as detector_mod
 from smallhardface_tpu_torch.ops import anchors as anchors_mod
 from smallhardface_tpu_torch.train import solver as solver_mod
@@ -237,13 +239,12 @@ def _init_params(spec, pretrained_model):
     params = detector_mod.init_params(
         torch.Generator().manual_seed(int(cfg.RNG_SEED)), spec)
     if pretrained_model and osp.exists(str(pretrained_model)):
-        if str(pretrained_model).endswith(".caffemodel"):
-            raise NotImplementedError(
-                ".caffemodel loading is not ported yet (ROADMAP queue 1, "
-                "'.caffemodel loading'); convert it to .npz with the JAX "
-                "package")
         logger.info("Loading pretrained model weights from %s",
                     pretrained_model)
+        if str(pretrained_model).endswith(".caffemodel"):
+            # by layer name, unmatched parameters keep their init (JAX
+            # train_loop.py:495-511): the ImageNet VGG-16 path
+            return caffemodel.load_into_params(str(pretrained_model), params)
         loaded = weights.load_params(str(pretrained_model))
         for name in params:
             if name in loaded:
@@ -263,6 +264,15 @@ def _save(path, model, opt_state, iteration, extra):
                     {slot: weights.params_to_numpy(tree)
                      for slot, tree in opt_state.items()},
                     iteration, extra=extra)
+
+
+def _save_final(output_dir, model, opt_state, iteration, extra):
+    """final.npz and, beside it, final.caffemodel (JAX
+    train_loop.py:624-632, :944-952)."""
+    _save(osp.join(output_dir, "final.npz"), model, opt_state, iteration,
+          extra)
+    caffemodel.export_params(osp.join(output_dir, "final.caffemodel"),
+                             model.tree())
 
 
 def _resume(model, opt_state, solver_type):
@@ -309,8 +319,12 @@ def train_net(roidb, output_dir, pretrained_model, max_iter, device=None,
             "has no gradient); train with 'float32'")
     if precision != "float32":
         raise NotImplementedError(
-            f"TPU.PRECISION={precision!r}: the port trains in float32 only "
-            "(bfloat16 is on ROADMAP queue 1)")
+            f"TPU.PRECISION={precision!r}: the port trains in float32 only. "
+            "The JAX reference's own bfloat16 gradient fails: jax.grad "
+            "through its bf16 convolution raises TypeError "
+            "(lax.conv_general_dilated requires arguments to have the same "
+            "dtypes, got bfloat16, float32), so a bf16 training step has "
+            "nothing to be held against; bf16 runs in inference")
     if int(cfg.TPU.SPATIAL_DEVICES) > 1:
         raise NotImplementedError(
             "spatial and grouped training are not ported yet (ROADMAP "
@@ -335,10 +349,7 @@ def train_net(roidb, output_dir, pretrained_model, max_iter, device=None,
     if start_iter >= max_iter:
         logger.warning("Resume iteration %d >= max_iter %d: writing final "
                        "weights without training", start_iter, max_iter)
-        _save(osp.join(output_dir, "final.npz"), model, opt_state,
-              start_iter, resume_extra)
-        logger.warning("final.caffemodel not written: the port has no "
-                       ".caffemodel writer yet (ROADMAP queue 1)")
+        _save_final(output_dir, model, opt_state, start_iter, resume_extra)
         return model
 
     loader = RoIDataLoader(roidb, rank=0)
@@ -437,10 +448,7 @@ def train_net(roidb, output_dir, pretrained_model, max_iter, device=None,
         _save(osp.join(output_dir, f"{snapshot_prefix}_iter_{it1}.npz"),
               model, opt_state, it1, extra)
         if it1 == max_iter:
-            _save(osp.join(output_dir, "final.npz"), model, opt_state, it1,
-                  extra)
-            logger.warning("final.caffemodel not written: the port has no "
-                           ".caffemodel writer yet (ROADMAP queue 1)")
+            _save_final(output_dir, model, opt_state, it1, extra)
         else:
             pending = build_batch(it1)
         t.toc()

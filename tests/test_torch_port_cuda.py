@@ -52,7 +52,11 @@ a machine that has only PyTorch:
   every K chunk and channel block its plan takes
   (``tests/test_torch_port_conv_int8_tiles.py`` models the same shapes on
   the CPU); on outputs that are all ties (settled without its reciprocal
-  product) and on steps at both ends of the range its product takes.
+  product) and on steps at both ends of the range its product takes;
+- bf16 (TPU.PRECISION = "bfloat16"): a bf16 convolution as the forward
+  runs it against the fp32 sum of the same bf16 products rounded once,
+  then its bf16 bias; the flagship bf16 forward and a bf16 detect on the
+  card against the port's CPU path, with K1's and V1's launches.
 """
 
 import numpy as np
@@ -618,3 +622,126 @@ def test_conv_int8_kernel_steps_at_the_ends_of_the_range(cuda, step):
     want = conv_int8.conv3x3_int8_reference(x, w, scale, bias, s_out=step)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+# bf16 (TPU.PRECISION = "bfloat16") on the card: the share of a bf16
+# convolution's outputs that may differ from the fp32 sum of the same bf16
+# products rounded once (chip_smoke.py's BF16_CONV_MAX_DIFFER), and the
+# match floor of the loose rule of tests/test_full_detect_golden.py's bf16
+# drift test for a two-level detect on the card against the CPU path
+# (chip_smoke.py holds detect_many to it, and its five-level card-vs-CPU
+# comparison on a crowded image to 0.90)
+BF16_CONV_MAX_DIFFER = 0.01
+BF16_MATCH_MIN = 0.95
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,dilation,C,O", [
+    (3, 1, 64, 128), (3, 4, 128, 128), (1, 1, 512, 256)],
+    ids=["3x3_d1", "3x3_d4", "1x1"])
+def test_bf16_conv_rounds_once_on_the_card(cuda, k, dilation, C, O):
+    """A bf16 convolution as the forward runs it on the card (cuDNN on bf16
+    tensors, no bias, then the bf16 bias) against the plain version, the
+    fp32 sum of the same products (TF32 off) rounded once: at most
+    BF16_CONV_MAX_DIFFER of the outputs differ, each within two fp32 sums
+    of the same terms plus a bf16 ulp; where the products agree, the
+    biased outputs agree to the bit."""
+    import math
+    import torch.nn.functional as F
+    from smallhardface_tpu_torch.models import layers
+    gen = torch.Generator(device=cuda).manual_seed(k + dilation)
+    x = (torch.randn((2, C, 88, 120), device=cuda, generator=gen)
+         * 3).to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    w = torch.randn((O, C, k, k), device=cuda, generator=gen) * math.sqrt(
+        2 / (k * k * C))
+    b = torch.randn((O,), device=cuda, generator=gen)
+    pad = dilation if k == 3 else 0
+    with torch.inference_mode():
+        got = layers.conv2d(x, w, None, dilation=dilation, padding=pad)
+        wr = w.to(torch.bfloat16).float()
+        ref = F.conv2d(x.float(), wr, None, dilation=dilation,
+                       padding=pad).to(torch.bfloat16)
+        abs_sum = F.conv2d(x.float().abs(), wr.abs(), None,
+                           dilation=dilation, padding=pad)
+        got_b = layers.conv2d(x, w, b, dilation=dilation, padding=pad)
+    assert got.dtype == got_b.dtype == torch.bfloat16
+    differ = got != ref
+    ulp = torch.maximum(got.float().abs(), ref.float().abs()) * 2.0 ** -7
+    bound = 2 * k * k * C * 2.0 ** -23 * abs_sum + ulp
+    assert differ.float().mean().item() <= BF16_CONV_MAX_DIFFER
+    assert ((got.float() - ref.float()).abs() <= bound).all()
+    want_b = ref + b.to(torch.bfloat16)[:, None, None]
+    assert torch.equal(got_b[~differ], want_b[~differ])
+
+
+@pytest.mark.cuda
+def test_bf16_forward_on_the_card_vs_cpu(cuda):
+    """The flagship network in bf16 at full width on a 1×64×128 input, on
+    the card (K1 in fp32 on the bf16-rounded input, cuDNN's bf16
+    convolutions) against the port's CPU path: the bf16 noise of a deep
+    network, rtol 1e-1, atol 0.025·peak (tests/test_torch_port_bf16.py's
+    bound against JAX); K1 launches once."""
+    from smallhardface_tpu_torch.models import detector as tdm
+    spec = tdm.ModelSpec(different_dilation=True)
+    params = tdm.init_params(torch.Generator().manual_seed(7), spec)
+    x = torch.from_numpy(np.random.RandomState(0).randn(
+        1, 64, 128, 3).astype(np.float32) * 30)
+    cpu = tdm.Detector(params, spec, "cpu")
+    card = tdm.Detector(params, spec, cuda)
+    stem.fused_stem.launches = 0
+    with torch.inference_mode():
+        want = cpu(x, precision="bfloat16")
+        got = card(x.to(cuda), precision="bfloat16")
+        torch.cuda.synchronize()
+    assert stem.fused_stem.launches == 1
+    for k in ("cls_logits", "bbox_deltas"):
+        g, r = got[k].cpu(), want[k]
+        assert g.dtype == torch.float32 and g.shape == r.shape
+        torch.testing.assert_close(g, r, rtol=1e-1,
+                                   atol=0.025 * r.abs().max().item())
+
+
+def _loose_match(a, b):
+    """The bf16 drift test's rule: IoU > 0.6 and |Δscore| < 0.1."""
+    if len(a) == 0:
+        return 1.0 if len(b) == 0 else 0.0
+    from smallhardface_tpu_torch.ops import bbox_np
+    iou = bbox_np.bbox_overlaps(a[:, :4], b[:, :4])
+    best = iou.argmax(axis=1)
+    ok = (iou[np.arange(len(a)), best] > 0.6) & (
+        np.abs(a[:, 4] - b[best, 4]) < 0.1)
+    return float(ok.mean())
+
+
+@pytest.mark.cuda
+def test_bf16_detect_on_the_card_vs_cpu(cuda):
+    """TorchDetector in bf16 on a seeded 300×400 image at TEST.SCALES
+    [100, 300] with flip, on the card against the CPU path: the counts
+    within max(3, 5 %), each side matched at BF16_MATCH_MIN by the loose
+    rule; K1 launches once a level and V1 once."""
+    import copy
+    from smallhardface_tpu_torch.config import cfg
+    from smallhardface_tpu_torch.detect import TorchDetector
+    from smallhardface_tpu_torch.models import detector as tdm
+    saved = copy.deepcopy(cfg)
+    try:
+        cfg.TEST.SCALES, cfg.TEST.FLIP = [100, 300], True
+        cfg.TPU.PRECISION = "bfloat16"
+        spec = tdm.ModelSpec(different_dilation=True)
+        params = tdm.init_params(torch.Generator().manual_seed(3), spec)
+        for k in tdm.ANCHOR_SCALES:
+            params[f"cls_score_{k}"]["b"] = torch.tensor([1.2, -1.2])
+        im = np.random.RandomState(5).randint(0, 256, (300, 400, 3),
+                                              dtype=np.uint8)
+        want = TorchDetector(params, spec, "cpu").detect(im, 0.05)[0][0]
+        stem.fused_stem.launches = nms_device.bbox_vote_device.launches = 0
+        got = TorchDetector(params, spec, cuda).detect(im, 0.05)[0][0]
+        assert stem.fused_stem.launches == 2
+        assert nms_device.bbox_vote_device.launches == 1
+    finally:
+        cfg.clear()
+        cfg.update(saved)
+    assert len(want) > 5
+    assert abs(len(got) - len(want)) <= max(3, 0.05 * len(want))
+    assert _loose_match(got, want) >= BF16_MATCH_MIN
+    assert _loose_match(want, got) >= BF16_MATCH_MIN

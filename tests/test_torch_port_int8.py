@@ -381,8 +381,16 @@ def test_detector_init_rejects_int8_band(full, int8_cfg, mode):
 
 
 def test_detector_refuses_bfloat16(full, int8_cfg):
+    """bfloat16 is ported: the detector builds, and refuses int8
+    calibration as the JAX one does; a precision the JAX package has no
+    mode for ("float16") raises."""
     _set(TPU__PRECISION="bfloat16")
-    with pytest.raises(NotImplementedError, match="item 10"):
+    det = TorchDetector(full["det"].tree(), full["det"].spec, "cpu")
+    assert det.precision == "bfloat16" and det.qstate is None
+    with pytest.raises(ValueError, match="int8"):
+        det.calibrate_int8([_small_image(3)])
+    _set(TPU__PRECISION="float16")
+    with pytest.raises(ValueError, match="float16"):
         TorchDetector(full["det"].tree(), full["det"].spec, "cpu")
 
 

@@ -132,14 +132,21 @@ def test_level_inputs_flip_and_padding(port_cfg):
 
 
 def test_non_float32_precision_raises(port_cfg):
-    """bfloat16 is not ported (ROADMAP queue 1 item 10) and raises; int8 is
-    ported (tests/test_torch_port_int8.py) and raises, as the JAX
-    detector does, with a "band" mask mode."""
+    """bfloat16 is ported (tests/test_torch_port_bf16.py) and builds; a
+    precision the JAX package has no mode for raises; int8 is ported
+    (tests/test_torch_port_int8.py) and raises, as the JAX detector does,
+    with a "band" mask mode."""
     saved = tcfg.TPU.PRECISION, tcfg.TPU.MASK_MODE
+    _, _, params = _fixture_inputs()
+    tree = params_from_numpy({k: {kk: np.asarray(vv) for kk, vv in v.items()}
+                              for k, v in params.items()})
     try:
         tcfg.TPU.PRECISION = "bfloat16"
-        with pytest.raises(NotImplementedError, match="item 10"):
-            TorchDetector(None, tdm.ModelSpec(), "cpu")
+        assert TorchDetector(tree, tdm.ModelSpec(),
+                             "cpu").precision == "bfloat16"
+        tcfg.TPU.PRECISION = "float16"
+        with pytest.raises(ValueError, match="float16"):
+            TorchDetector(tree, tdm.ModelSpec(), "cpu")
         tcfg.TPU.PRECISION, tcfg.TPU.MASK_MODE = "int8", "band"
         with pytest.raises(ValueError, match="MASK_MODE"):
             TorchDetector(None, tdm.ModelSpec(), "cpu")
@@ -173,15 +180,15 @@ def test_demo_cli():
 @pytest.mark.parametrize("args,what", [
     (["--train", "true", "--test", "false", "--amend",
       "TPU.SPATIAL_DEVICES", "2"], "spatial"),
-    (["--train", "false", "--test", "true", "--amend", "TPU.PRECISION",
-      "bfloat16"], "bfloat16"),
+    (["--train", "false", "--test", "true", "--amend",
+      "TPU.SPATIAL_DEVICES", "2"], "spatial"),
 ], ids=["args0-training", "args1-dataset evaluation"])
 def test_cli_unported_branches_raise(args, what, tmp_path):
     """Both branches of the command line are ported; what they do not
-    cover yet raises: spatial training (TPU.SPATIAL_DEVICES > 1) and
-    evaluation in bfloat16 (TPU.PRECISION, ROADMAP queue 1 item 10).
-    Batched evaluation (TPU.EVAL_BATCH > 1) is ported
-    (tests/test_torch_port_batch.py)."""
+    cover yet raises: spatial training and spatial evaluation
+    (TPU.SPATIAL_DEVICES > 1, ROADMAP queue 1 item 14). Batched evaluation
+    (TPU.EVAL_BATCH > 1, tests/test_torch_port_batch.py) and evaluation in
+    bfloat16 (tests/test_torch_port_bf16.py) are ported."""
     from smallhardface_tpu_torch.__main__ import main
     import copy
     saved = copy.deepcopy(tcfg)
