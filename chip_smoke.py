@@ -107,7 +107,9 @@ Then, each phase printing one line:
    plain stem's;
 10. training: ``train_net`` for 6 iterations of the flagship configuration
    over all three scales on four seeded synthetic images and their
-   mirrors (conv1 frozen: K1 writes no routing, K2 never runs), then a
+   mirrors (conv1 frozen: K1 writes no routing, K2 never runs), with its
+   split (the loader's host time per batch, the snapshot writes, the
+   device's busy time under torch.profiler and the idle share), then a
    resume from the iteration-3 snapshot that must reach
    the same final.npz to the bit;
 11. one training iteration of a small skeletal network on the CPU and on
@@ -121,7 +123,23 @@ Then, each phase printing one line:
    (three detect_many batches), whose detections.pkl must agree with the
    first image by image by the detect_many rule; then with the run's
    final.caffemodel as TEST.MODEL, which must load equal to final.npz and
-   give its detections to the bit.
+   give its detections to the bit;
+13. TRAIN.AUTO_RESUME and the signals, each run a ``python -m
+   smallhardface_tpu_torch --device cuda`` process at the flagship config
+   on the same tree (the kernels come from the build cache): device_query's
+   output; a device-side assert from a plain torch op in a fresh process,
+   with its class and message, and the add, matmul, convolution and K3
+   launch after it failing too, each classified as a device fault by
+   ``__main__._device_fault``; a fault injected at iteration 4
+   (SHF_FAULT_ITER) with a snapshot at 2 and one relaunch: two run
+   directories and a final.npz equal to the bit to an unfaulted run's,
+   with the relaunch's walls from the exec to its first log line, its
+   resume and its first iteration line; SIGINT once the first "iter" line
+   is out: a stop at a snapshot, and a resume from it to iteration 6 equal
+   to the bit to a straight 6-iteration run; a fault in the evaluation
+   (SHF_FAULT_TEST) relaunched with training off, whose detections.pkl
+   equals an unfaulted evaluation's to the bit. These processes' launches
+   are their own: the kernels line keeps the counts of the phases above.
 
 Each main path runs with the launch counts set to 0 just before it and read
 just after. The second-to-last line is a JSON summary of the kernels; the
@@ -130,12 +148,14 @@ prints no such line. Without a CUDA card it exits nonzero at once.
 """
 
 import copy
+import glob
 import json
 import math
 import re
 import os
 import pickle
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -929,7 +949,9 @@ def main():
         cpu_vs_card(cfg, tdm, dev, work)
         cfg.clear()
         cfg.update(copy.deepcopy(pristine))
-        eval_counts = eval_cli(cfg, stem, iou, nms_device, work)
+        root = wider_tree(work)
+        eval_counts = eval_cli(cfg, stem, iou, nms_device, root)
+        auto_resume_phase(work, root)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1810,11 +1832,30 @@ def full_tree_grad(cfg, tdm, stem, iou, dev, work):
     return counts
 
 
+def device_busy_s(prof):
+    """The union of the intervals of the device's own events (kernels,
+    copies) of a torch.profiler run, in seconds."""
+    cuda = torch.autograd.DeviceType.CUDA
+    spans = sorted((ev.time_range.start, ev.time_range.end)
+                   for ev in prof.events()
+                   if getattr(ev, "device_type", None) == cuda)
+    busy, end = 0.0, -math.inf
+    for a, b in spans:
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    return busy / 1e6
+
+
 def train_path(cfg, tdm, stem, iou, dev, work):
     """The slice's path: train_net at the flagship configuration, then a
-    resume from the iteration-3 snapshot. Returns the launch counts."""
+    resume from the iteration-3 snapshot. The first run's split: the
+    loader's host time (RoIDataLoader.get_minibatch, wrapped here only),
+    the snapshot writes, the device's busy time (torch.profiler, device
+    events only) and the idle share. Returns the launch counts."""
+    from torch.profiler import ProfilerActivity, profile
     from smallhardface_tpu_torch.io import checkpoint
     from smallhardface_tpu_torch.train import train_loop
+    from smallhardface_tpu_torch.train.loader import RoIDataLoader
     _flagship(cfg)
     rng = np.random.RandomState(SEED + 4)
     roidb = face_roidb(rng, [(768, 1024), (1024, 768), (768, 1024),
@@ -1849,13 +1890,61 @@ def train_path(cfg, tdm, stem, iou, dev, work):
     first, second = os.path.join(work, "run"), os.path.join(work, "resume")
     os.makedirs(first)
     os.makedirs(second)
+    spent = {"loader": [], "save": 0.0, "first_fetch": None, "depth": 0}
+    saved = (RoIDataLoader.get_minibatch, train_loop._save,
+             train_loop._save_final)
+    get_minibatch = saved[0]
+
+    def timed_minibatch(self, *args):
+        t = time.perf_counter()
+        if spent["first_fetch"] is None:
+            spent["first_fetch"] = t
+        out = get_minibatch(self, *args)
+        spent["loader"].append(time.perf_counter() - t)
+        return out
+
+    def timed_write(fn):
+        def write(*args):
+            t = time.perf_counter()
+            spent["depth"] += 1
+            try:
+                fn(*args)
+            finally:
+                spent["depth"] -= 1     # _save_final calls _save
+                if not spent["depth"]:
+                    spent["save"] += time.perf_counter() - t
+        return write
+
     set_counts_zero(stem.fused_stem, stem.fused_stem_grad, iou.max_iou)
     torch.cuda.reset_peak_memory_stats()
-    clock["t"] = t_start = time.perf_counter()
-    model = train_loop.train_net(roidb, first, None, TRAIN_ITERS, device=dev,
-                                 progress_hook=hook)
-    torch.cuda.synchronize()
-    train_wall = time.perf_counter() - t_start
+    RoIDataLoader.get_minibatch = timed_minibatch
+    train_loop._save, train_loop._save_final = (timed_write(saved[1]),
+                                                timed_write(saved[2]))
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            clock["t"] = t_start = time.perf_counter()
+            model = train_loop.train_net(roidb, first, None, TRAIN_ITERS,
+                                         device=dev, progress_hook=hook)
+            torch.cuda.synchronize()
+            train_wall = time.perf_counter() - t_start
+    finally:
+        (RoIDataLoader.get_minibatch, train_loop._save,
+         train_loop._save_final) = saved
+    busy = device_busy_s(prof)
+    size = int(cfg.TRAIN.ITERSIZE)
+    loader_ms = [1e3 * sum(spent["loader"][i:i + size])
+                 for i in range(0, len(spent["loader"]), size)]
+    setup = spent["first_fetch"] - t_start
+    loop = train_wall - setup - spent["save"]
+    split = {"loader_ms_per_batch": loader_ms,
+             "loader_ms_per_iteration": sum(loader_ms) / TRAIN_ITERS,
+             "device_busy_ms_per_iteration": 1e3 * busy / TRAIN_ITERS,
+             "setup_s": setup, "snapshot_writes_s": spent["save"],
+             "device_busy_s": busy, "idle_share": 1.0 - busy / train_wall,
+             "idle_share_iterations": 1.0 - busy / loop,
+             "loader_share_iterations": sum(loader_ms) / 1e3 / loop,
+             "timing": "host walls; device busy = union of the device "
+                       "events under torch.profiler (device activity only)"}
     counts = {"fused_stem": stem.fused_stem.launches,
               "route_writes": stem.fused_stem.route_writes,
               "fused_stem_grad": stem.fused_stem_grad.launches,
@@ -1876,6 +1965,7 @@ def train_path(cfg, tdm, stem, iou, dev, work):
     # around snapshots; the run's wall is the number to read
     say("train_path", iterations=TRAIN_ITERS, micro_batches=micro,
         wall_s=train_wall, s_per_iteration=train_wall / TRAIN_ITERS,
+        split=split,
         scales_visited=sorted({r["scale"] for r in rows}), launches=counts,
         losses_finite=all(math.isfinite(v) for v in losses),
         frozen_changed=frozen_moved, trainable_unchanged=trainable_still)
@@ -2486,22 +2576,29 @@ def cliff_map(dev, dtype=torch.float32):
                              "its limits")
 
 
-def eval_cli(cfg, stem, iou, nms_device, work):
-    """Train-then-test from the command line on a synthetic WIDER tree:
-    the files and the result line it must give, the seconds per image of
-    test_net and the launch counts; the same test with TPU.EVAL_BATCH 2,
-    and with the run's final.caffemodel as TEST.MODEL (its weights and
-    detections equal to final.npz's to the bit). Returns the counts."""
+def wider_tree(work):
+    """The seeded synthetic WIDER tree (scripts/synth_wider.py) of the
+    command-line phases, under ``work``."""
     sys.path.insert(0, os.path.join(REPO, "scripts"))
     import synth_wider
+    root = os.path.join(work, "wider")
+    synth_wider.build(root, n_images=EVAL_IMAGES, im_size=EVAL_SIZE,
+                      seed=SEED)
+    return root
+
+
+def eval_cli(cfg, stem, iou, nms_device, root):
+    """Train-then-test from the command line on the synthetic WIDER tree
+    ``root``: the files and the result line it must give, the seconds per
+    image of test_net and the launch counts; the same test with
+    TPU.EVAL_BATCH 2, and with the run's final.caffemodel as TEST.MODEL
+    (its weights and detections equal to final.npz's to the bit). Returns
+    the counts."""
     from smallhardface_tpu_torch import __main__ as cli
     from smallhardface_tpu_torch import test_runner
     from smallhardface_tpu_torch.config import CONFIG_DIR
     from smallhardface_tpu_torch.io import caffemodel
     from smallhardface_tpu_torch.io.weights import load_params
-    root = os.path.join(work, "wider")
-    synth_wider.build(root, n_images=EVAL_IMAGES, im_size=EVAL_SIZE,
-                      seed=SEED)
     exp_dir = f"chip_smoke_eval_{os.getpid()}"
     stats = {}
     run_inference = test_runner.run_inference
@@ -2634,6 +2731,271 @@ def eval_cli(cfg, stem, iou, nms_device, work):
                              "from final.npz's")
     return counts
 
+
+
+# the first phase of auto_resume: a device-side assert from a plain torch
+# op (an index out of range on the card), then the ops that follow it in
+# the same process, each with its class, its message and the port's
+# classifier. cuBLAS's and cuDNN's handles and K3's library are made
+# before the fault, as in a training run; a matmul and a convolution in
+# a new thread, whose handles are made after the fault, are printed too
+STICKY_CODE = r"""
+import json, threading, torch
+from smallhardface_tpu_torch import __main__ as cli
+from smallhardface_tpu_torch.ops import iou
+dev = torch.device("cuda", 0)
+iou.IOU.load()
+anchors = torch.rand(256, 4, device=dev)
+anchors[:, 2:] += anchors[:, :2]
+gt = anchors[:8].clone()
+mask = torch.ones(8, dtype=torch.bool, device=dev)
+m = torch.randn(64, 64, device=dev)
+x = torch.randn(1, 3, 16, 16, device=dev)
+w = torch.randn(8, 3, 3, 3, device=dev)
+m @ m
+torch.nn.functional.conv2d(x, w)
+torch.cuda.synchronize()
+rows = []
+
+
+def attempt(op, fn):
+    try:
+        fn()
+        torch.cuda.synchronize()
+        rows.append({"op": op, "class": None})
+    except Exception as e:
+        rows.append({"op": op, "class": type(e).__module__ + "."
+                     + type(e).__qualname__, "message": str(e),
+                     "device_fault": cli._device_fault(e)})
+
+
+small = torch.zeros(4, device=dev)
+attempt("index_out_of_range", lambda: small[torch.tensor([10], device=dev)])
+attempt("add_after", lambda: small + 1)
+attempt("matmul_after", lambda: m @ m)
+attempt("conv2d_after", lambda: torch.nn.functional.conv2d(x, w))
+attempt("max_iou_after", lambda: iou.max_iou(anchors, gt, mask))
+for op, fn in (("matmul_new_thread_after", lambda: m @ m),
+               ("conv2d_new_thread_after",
+                lambda: torch.nn.functional.conv2d(x, w))):
+    thread = threading.Thread(target=attempt, args=(op, fn))
+    thread.start()
+    thread.join()
+print("STICKY " + json.dumps(rows))
+"""
+AR_TIMEOUT = 300            # seconds for any one command of auto_resume
+
+
+def _ar_env(**extra):
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("SHF_AUTO_RESUME_LEFT", "SHF_FAULT_ITER",
+                        "SHF_FAULT_TEST")}
+    env.update(extra)
+    return env
+
+
+def _ar_start(work, tag, amend, train=True, env=None, stderr=None):
+    """``python -m smallhardface_tpu_torch --device cuda`` at the flagship
+    config, started; stdout (the config) and stderr to files under
+    ``work/<tag>`` unless ``stderr`` is a pipe. Returns (process, the run's
+    output root, start time on the performance counter and since the
+    epoch)."""
+    from smallhardface_tpu_torch.config import CONFIG_DIR
+    root = os.path.join(work, tag)
+    os.makedirs(root)
+    cmd = [sys.executable, "-m", "smallhardface_tpu_torch", "--device",
+           "cuda", "--train", "true" if train else "false", "--test",
+           "false" if train else "true", "--conf",
+           os.path.join(CONFIG_DIR, "smallhardface.toml"), "--amend",
+           "ROOT_DIR", root, "EXP_DIR", "ar", "NAME", "ar",
+           "TRAIN.PRETRAINED", "", "TRAIN.SNAPSHOT", "2"] + amend
+    out = open(os.path.join(root, "stdout.txt"), "w")
+    err = stderr or open(os.path.join(root, "stderr.txt"), "w")
+    t0, t0_epoch = time.perf_counter(), time.time()
+    proc = subprocess.Popen(cmd, cwd=REPO, env=env or _ar_env(), stdout=out,
+                            stderr=err, text=True)
+    out.close()
+    if stderr is None:
+        err.close()
+    return proc, root, t0, t0_epoch
+
+
+def _ar_wait(started, rc=0):
+    """Wait for a started command; its wall, its run directories (each
+    with its log) and its stderr. Raises unless it exits with ``rc``."""
+    proc, root, t0, _ = started
+    try:
+        proc.wait(timeout=AR_TIMEOUT)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    wall = time.perf_counter() - t0
+    dirs = sorted(os.path.dirname(p) for p in glob.glob(os.path.join(
+        root, "output", "ar", "*", "ar_*", "stderr.log")))
+    err_path = os.path.join(root, "stderr.txt")
+    err = open(err_path).read() if os.path.exists(err_path) else ""
+    if proc.returncode != rc:
+        raise AssertionError(f"{root}: exit {proc.returncode}, expected "
+                             f"{rc}:\n{err[-3000:]}")
+    return wall, dirs, err
+
+
+def _log_times(path):
+    """(seconds since the epoch, message) of each line of a run's log."""
+    from smallhardface_tpu_torch.__main__ import LOG_DATEFMT
+    rows = []
+    for line in open(path):
+        m = re.match(r"(\S+),(\d+) ", line)
+        if m:
+            t = time.mktime(time.strptime(m.group(1), LOG_DATEFMT))
+            rows.append((t + int(m.group(2)) / 1e3, line))
+    return rows
+
+
+def _first(rows, text):
+    return next(t for t, line in rows if text in line)
+
+
+def _same_npz(a, b):
+    a, b = np.load(a), np.load(b)
+    return sorted(a.files) == sorted(b.files) and all(
+        np.array_equal(a[k], b[k]) for k in a.files)
+
+
+def _one(dirs, name):
+    found = [os.path.join(d, name) for d in dirs
+             if os.path.exists(os.path.join(d, name))]
+    if len(found) != 1:
+        raise AssertionError(f"want one {name}, found {found}")
+    return found[0]
+
+
+def auto_resume_phase(work, root):
+    """TRAIN.AUTO_RESUME and the signals through ``python -m
+    smallhardface_tpu_torch --device cuda`` at the flagship config on the
+    synthetic WIDER tree ``root``: a real sticky fault and what follows it;
+    a fault injected at iteration 4 relaunched from the iteration-2
+    snapshot, equal to the bit to an unfaulted run; SIGINT, a snapshot and
+    a resume equal to the bit to a straight run; a fault in the evaluation
+    relaunched with training off, its detections equal to the bit to an
+    unfaulted evaluation's. Commands whose walls are not read run side by
+    side."""
+    data = ["DATA_DIR", root, "TRAIN.RESUME", ""]
+    t_phase = time.perf_counter()
+    query = subprocess.run(
+        [sys.executable, "-m", "smallhardface_tpu_torch.tools.device_query"],
+        cwd=REPO, capture_output=True, text=True, timeout=AR_TIMEOUT)
+    say("device_query", rc=query.returncode,
+        output=query.stdout.strip().splitlines())
+    if query.returncode != 0 or "capability=9.0" not in query.stdout:
+        raise AssertionError(f"device_query: {query.stderr[-2000:]}")
+    control = _ar_start(work, "control", data + ["TRAIN.ITERS", "4"])
+    straight = _ar_start(work, "straight", data + ["TRAIN.ITERS", "6"])
+    sticky = subprocess.run([sys.executable, "-c", STICKY_CODE], cwd=REPO,
+                            capture_output=True, text=True,
+                            timeout=AR_TIMEOUT, env=_ar_env())
+    line = [ln for ln in sticky.stdout.splitlines()
+            if ln.startswith("STICKY ")]
+    rows = json.loads(line[0][len("STICKY "):]) if line else []
+    say("auto_resume_sticky", rc=sticky.returncode, ops=rows)
+    if (len(rows) != 7 or not all(r["class"] and r["device_fault"]
+                                  for r in rows[:5])):
+        raise AssertionError(f"the sticky fault was not classified as one: "
+                             f"{rows} {sticky.stderr[-2000:]}")
+    ctl_wall, ctl_dirs, _ = _ar_wait(control)
+    straight_wall, straight_dirs, _ = _ar_wait(straight)
+
+    # a fault injected at iteration 4, relaunched from the iteration-2
+    # snapshot; alone on the card, for its walls
+    faulted = _ar_start(work, "faulted",
+                        data + ["TRAIN.ITERS", "4", "TRAIN.AUTO_RESUME", "1"],
+                        env=_ar_env(SHF_FAULT_ITER="4"))
+    flt_wall, flt_dirs, _ = _ar_wait(faulted)
+    if len(flt_dirs) != 2:
+        raise AssertionError(f"want the faulted and the relaunched run "
+                             f"directories: {flt_dirs}")
+    # both processes log to the command's stderr (execve keeps it)
+    lines = _log_times(os.path.join(faulted[1], "stderr.txt"))
+    t_exec, source = next((t, ln) for t, ln in lines
+                          if "relaunching from" in ln)
+    second = [(t, ln) for t, ln in lines if t >= t_exec][1:]
+    same = _same_npz(_one(ctl_dirs, "final.npz"), _one(flt_dirs, "final.npz"))
+    relaunch = {
+        "start_to_exec_s": t_exec - faulted[3],
+        "exec_to_first_log_line_s": second[0][0] - t_exec,
+        "exec_to_resumed_s": _first(second, "Resumed from") - t_exec,
+        "exec_to_iter_3_line_s": _first(second, "iter 3/4") - t_exec,
+        "exec_to_end_s": faulted[3] + flt_wall - t_exec,
+        "control_start_to_first_log_line_s": _log_times(os.path.join(
+            control[1], "stderr.txt"))[0][0] - control[3]}
+    say("auto_resume_train", fault_iter=4, snapshot=2,
+        relaunched_from=os.path.basename(source.split()[-1]),
+        run_dirs=len(flt_dirs), final_npz_bit_identical=same,
+        faulted_command_wall_s=flt_wall, control_wall_s=ctl_wall,
+        relaunch=relaunch)
+    if not same:
+        raise AssertionError("the relaunched run's final.npz differs from "
+                             "the unfaulted run's")
+
+    # SIGINT once the first "iter" line is out: a snapshot and a stop
+    signalled = _ar_start(work, "signal", data + ["TRAIN.ITERS", "6"],
+                          stderr=subprocess.PIPE)
+    proc, sent = signalled[0], None
+    for line in proc.stderr:
+        if sent is None and " iter " in line and "/6 cls_loss" in line:
+            proc.send_signal(signal.SIGINT)
+            sent = time.perf_counter() - signalled[2]
+    sig_wall, sig_dirs, _ = _ar_wait(signalled)
+    log = open(os.path.join(sig_dirs[0], "stderr.log")).read()
+    stop = re.search(r"Stopping at iteration (\d+) on signal", log)
+    snaps = sorted(int(m) for m in re.findall(
+        r"_iter_(\d+)\.npz", " ".join(os.listdir(sig_dirs[0]))))
+    if sent is None or stop is None or snaps[-1] != int(stop.group(1)):
+        raise AssertionError(f"no stop on SIGINT: sent {sent}, snapshots "
+                             f"{snaps}")
+    resumed = _ar_start(work, "resumed", [
+        "DATA_DIR", root, "TRAIN.ITERS", "6", "TRAIN.RESUME",
+        os.path.join(sig_dirs[0], f"ar_iter_{snaps[-1]}.npz")])
+
+    # a fault in the evaluation, relaunched with training off, beside an
+    # unfaulted evaluation of the same weights
+    model = _one(ctl_dirs, "final.npz")
+    evaluate = ["DATA_DIR", root, "TEST.DB", "wider_val", "TEST.NO_CACHE",
+                "False", "TEST.MODEL", model]
+    eval_plain = _ar_start(work, "eval_plain", evaluate, train=False)
+    eval_fault = _ar_start(work, "eval_fault",
+                           evaluate + ["TRAIN.AUTO_RESUME", "1"],
+                           train=False, env=_ar_env(SHF_FAULT_TEST="1"))
+    res_wall, res_dirs, _ = _ar_wait(resumed)
+    same_resume = _same_npz(_one(straight_dirs, "final.npz"),
+                            _one(res_dirs, "final.npz"))
+    say("auto_resume_signal", sigint_after_s=sent, stopped_at=int(
+        stop.group(1)), snapshots=snaps, final_npz_bit_identical=same_resume,
+        signalled_wall_s=sig_wall, straight_wall_s=straight_wall,
+        resumed_wall_s=res_wall)
+    if not same_resume:
+        raise AssertionError("the run resumed after SIGINT differs from the "
+                             "straight run")
+    plain_wall, plain_dirs, _ = _ar_wait(eval_plain)
+    fault_wall, fault_dirs, _ = _ar_wait(eval_fault)
+    logs = "".join(open(os.path.join(d, "stderr.log")).read()
+                   for d in fault_dirs)
+    with open(_one(plain_dirs, "detections.pkl"), "rb") as f:
+        want = pickle.load(f)
+    with open(_one(fault_dirs, "detections.pkl"), "rb") as f:
+        got = pickle.load(f)
+    same_dets = len(got) == len(want) and all(
+        len(a) == len(b) and all(np.array_equal(x, y) for x, y in zip(a, b))
+        for a, b in zip(got, want))
+    say("auto_resume_eval", run_dirs=len(fault_dirs),
+        relaunched="relaunching eval" in logs,
+        injected="SHF_FAULT_TEST" in logs, images=len(got[1]),
+        detections_bit_identical=same_dets, faulted_wall_s=fault_wall,
+        unfaulted_wall_s=plain_wall,
+        phase_wall_s=time.perf_counter() - t_phase)
+    if not (same_dets and len(fault_dirs) == 2 and "relaunching eval" in logs):
+        raise AssertionError("the relaunched evaluation differs")
 
 def _match_fraction(a, b):
     """Fraction of rows of `a` with an IoU > 0.9, |Δscore| < 0.01 partner in

@@ -30,6 +30,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 VP, CI = ctypes.c_void_p, ctypes.c_int
+# what ``CudaLibrary.check`` puts before cudaGetErrorString's text
+LAUNCH_FAILED = "kernel launch failed: "
 
 
 def nvcc():
@@ -110,7 +112,7 @@ class CudaLibrary:
     def check(self, err, what):
         if err:
             raise RuntimeError(
-                f"{what}: kernel launch failed: "
+                f"{what}: {LAUNCH_FAILED}"
                 + self._lib.shf_cuda_error_string(err).decode())
 
 

@@ -14,7 +14,9 @@ Counterpart of ``smallhardface_tpu/test_runner.py``: ``_load_params``
   images of one ``_prep`` key runs as one ``detect_many`` batch, and the
   images left over run one at a time (JAX test_runner.py:89-122);
 - ``test_net`` caches the detections in ``detections.pkl`` and hands them
-  to the imdb's evaluator.
+  to the imdb's evaluator; ``SHF_FAULT_TEST=1`` makes the first process
+  of a ``TRAIN.AUTO_RESUME`` run meet an injected sticky CUDA fault
+  before it detects.
 
 Spatial meshes (``TPU.SPATIAL_DEVICES > 1``) and more than one process
 raise: they wait for spatial sharding and multi-GPU evaluation (ROADMAP
@@ -36,6 +38,7 @@ from smallhardface_tpu_torch.config import cfg
 from smallhardface_tpu_torch.detect import TorchDetector, _imread
 from smallhardface_tpu_torch.io import caffemodel, weights
 from smallhardface_tpu_torch.models import detector as detector_mod
+from smallhardface_tpu_torch.utils.faults import injected_fault
 from smallhardface_tpu_torch.utils.tensorboard import tb
 from smallhardface_tpu_torch.utils.timer import Timer
 
@@ -229,6 +232,13 @@ def test_net(imdb, output_dir, thresh=0.05, no_cache=False, step=0,
                            "detecting from scratch!")
             dets = None
     if dets is None:
+        if (os.environ.get("SHF_FAULT_TEST") == "1"
+                and "SHF_AUTO_RESUME_LEFT" not in os.environ):
+            # test-only fault injection (JAX test_runner.py:299-307): the
+            # first process (no relaunch marker in the env yet) meets a
+            # sticky device fault; the TRAIN.AUTO_RESUME relaunch, which
+            # carries the marker, completes
+            raise injected_fault("SHF_FAULT_TEST")
         dets = run_inference(imdb, params, spec, thresh, device)
         assert len(dets[0]) == len(imdb), "Detection result compromised"
         if not no_cache:

@@ -24,22 +24,30 @@ replaced by one ``device``:
   ``TRAIN.RESUME`` restores all of them, so a resumed run replays the same
   data stream and reaches the same weights to the bit; ``final.caffemodel``
   is written beside ``final.npz``, and a ``.caffemodel`` pretrained model
-  is loaded by layer name.
+  is loaded by layer name;
+- SIGINT writes a snapshot and stops, SIGHUP writes a snapshot at the next
+  iteration (the Caffe solver's signal actions, JAX train_loop.py:779-805,
+  one process); ``SHF_FAULT_ITER=K`` makes a run from scratch raise an
+  injected sticky CUDA fault at iteration K, which the command line's
+  ``TRAIN.AUTO_RESUME`` relaunch recovers from.
 
 The host builds the next iteration's batch while the device runs the
 current one (no thread: the order of loader calls is fixed, so resume
 stays bit-reproducible). Training runs in float32: int8 has no gradient,
 and the JAX package's bf16 gradient fails (see ``train_net``).
-Multi-device, spatial and grouped steps, SIGINT/SIGHUP handling and
-``AUTO_RESUME`` are not ported yet (ROADMAP queue 1).
+Multi-device, spatial and grouped steps are not ported yet (ROADMAP
+queue 1).
 """
 
 from __future__ import annotations
 
+import datetime
 import logging
 import math
+import os
 import os.path as osp
 import pickle
+import signal
 from collections import deque
 
 import numpy as np
@@ -56,6 +64,8 @@ from smallhardface_tpu_torch.train.loader import RoIDataLoader
 from smallhardface_tpu_torch.train.losses import (
     smooth_l1, softmax_ce_with_ignore)
 from smallhardface_tpu_torch.utils.device import resolve_device
+from smallhardface_tpu_torch.utils.faults import injected_fault
+from smallhardface_tpu_torch.utils.tensorboard import tb
 from smallhardface_tpu_torch.utils.timer import Timer
 
 logger = logging.getLogger(__name__)
@@ -310,7 +320,9 @@ def train_net(roidb, output_dir, pretrained_model, max_iter, device=None,
     ``output_dir``. ``progress_hook(it, metrics)`` is called after every
     iteration with (1, iter_size) float32 arrays under METRIC_KEYS
     ("easy" as bool) and the iteration's bucket under "bucket". Returns
-    the trained ``Detector``."""
+    the trained ``Detector``. On the main thread SIGINT and SIGHUP act
+    as in the module docstring; the previous handlers are back when it
+    returns or raises."""
     device = resolve_device(device)
     precision = str(cfg.TPU.PRECISION)
     if precision == "int8":
@@ -352,6 +364,10 @@ def train_net(roidb, output_dir, pretrained_model, max_iter, device=None,
         _save_final(output_dir, model, opt_state, start_iter, resume_extra)
         return model
 
+    # test-only fault injection: SHF_FAULT_ITER=K makes a run from scratch
+    # raise a sticky device fault at iteration K (a resumed run is immune,
+    # so the relaunch completes): tests/test_torch_port_auto_resume.py
+    fault_iter = int(os.environ.get("SHF_FAULT_ITER", "0") or 0)
     loader = RoIDataLoader(roidb, rank=0)
     if resume_extra.get("loader_state") is not None:
         states = pickle.loads(
@@ -397,60 +413,108 @@ def train_net(roidb, output_dir, pretrained_model, max_iter, device=None,
         reg_l = float(metrics["reg_loss"].mean())
         loss_window.append(cls_l + reg_l)
         if it1 % 20 == 0 or it1 == max_iter or it1 == start_iter + 1:
+            acc = float(metrics["accuracy"].mean())
+            speed = 1.0 / max(t.average_time, 1e-9)
+            eta = int((max_iter - it1) * t.average_time)
             logger.info(
                 "iter %d/%d cls_loss: %.5f reg_loss: %.5f smoothed_loss: "
-                "%.5f accuracy: %.5f lr: %.2e bucket: %s speed: %.3f iter/s",
-                it1, max_iter, cls_l, reg_l,
-                sum(loss_window) / len(loss_window),
-                float(metrics["accuracy"].mean()), m_rate, m_bucket,
-                1.0 / max(t.average_time, 1e-9))
+                "%.5f accuracy: %.5f lr: %.2e bucket: %s speed: %.3f iter/s "
+                "ETA: %s", it1, max_iter, cls_l, reg_l,
+                sum(loss_window) / len(loss_window), acc, m_rate, m_bucket,
+                speed, datetime.timedelta(seconds=eta))
+            tb.sess.add_scalar_value("cls_loss", cls_l, step=it1)
+            tb.sess.add_scalar_value("reg_loss", reg_l, step=it1)
+            tb.sess.add_scalar_value("target_layer_accuracy", acc, step=it1)
+            tb.sess.add_scalar_value("speed", speed, step=it1)
+            tb.sess.add_scalar_value("ETA (min)", eta / 60.0, step=it1)
         if progress_hook is not None:
             metrics["bucket"] = m_bucket
             progress_hook(it1, metrics)
 
-    # The JAX loop's schedule (its train_loop.py:881-922): iteration it
-    # fetches batch it + 1, then applies the easy-image marks of iteration
-    # it - 1, so the marks of step k reach the loader after the fetch of
-    # batch k + 2 (they act at an epoch reshuffle). A snapshot iteration
-    # applies every mark up to its own before it captures the sampler and
-    # fetches the next batch, so a resume replays the same stream.
-    deferred = None
-    pending = build_batch(start_iter)
-    for it in range(start_iter, max_iter):
-        t.tic()
-        batch, im_idx, bucket = pending
-        it1 = it + 1
-        will_snap = it1 % int(cfg.TRAIN.SNAPSHOT) == 0 or it1 == max_iter
-        rate = solver_mod.learning_rate(it, cfg)
-        metrics_dev = grad_step(model, loss_fn, batch, bucket[2:4],
-                                iter_size)
-        solver_mod.apply_update(
-            params, {n: {k: v.grad for k, v in leaf.items()}
-                     for n, leaf in params.items()},
-            opt_state, solver_type=solver_type, rate=rate,
-            lr_mults=lr_mults, decay_mults=decay_mults,
-            weight_decay=float(cfg.TRAIN.WEIGHT_DECAY),
-            momentum=float(cfg.TRAIN.MOMENTUM), iteration=it)
-        if not will_snap:
-            # the host builds the next batch while the device runs this step
-            pending = build_batch(it1)
-        if deferred is not None:
-            process_metrics(deferred)
-            deferred = None
-        record = (it1, metrics_dev, im_idx, rate, bucket)
-        if not will_snap:
-            deferred = record
-            t.toc()
-            continue
-        process_metrics(record)
-        extra = {"loader_state": np.frombuffer(
-            pickle.dumps([loader.state_dict()]), dtype=np.uint8)}
-        _save(osp.join(output_dir, f"{snapshot_prefix}_iter_{it1}.npz"),
-              model, opt_state, it1, extra)
-        if it1 == max_iter:
-            _save_final(output_dir, model, opt_state, it1, extra)
+    # Signal actions, polled once per iteration like the Caffe solver loop
+    # (JAX train_loop.py:779-805): SIGINT → snapshot and stop, SIGHUP →
+    # snapshot. The handler only sets a flag; a signal that lands during a
+    # blocking CUDA call is handled when the call returns.
+    actions = {"stop": False, "snapshot": False}
+    prev_handlers = {}
+
+    def on_signal(signum, frame):
+        if signum == signal.SIGINT:
+            actions["stop"] = True
+            logger.warning("SIGINT received: stopping after this iteration "
+                           "(snapshot will be written)")
         else:
-            pending = build_batch(it1)
-        t.toc()
+            actions["snapshot"] = True
+            logger.warning("SIGHUP received: snapshot at next iteration")
+
+    try:
+        for sig in (signal.SIGINT, signal.SIGHUP):
+            prev_handlers[sig] = signal.signal(sig, on_signal)
+    except ValueError:
+        prev_handlers = {}      # not on the main thread
+    try:
+        # The JAX loop's schedule (its train_loop.py:881-922): iteration
+        # it fetches batch it + 1, then applies the easy-image marks of
+        # iteration it - 1, so the marks of step k reach the loader after
+        # the fetch of batch k + 2 (they act at an epoch reshuffle). A
+        # snapshot iteration applies every mark up to its own before it
+        # captures the sampler and fetches the next batch, so a resume
+        # replays the same stream.
+        deferred = None
+        pending = build_batch(start_iter)
+        for it in range(start_iter, max_iter):
+            t.tic()
+            batch, im_idx, bucket = pending
+            it1 = it + 1
+            if fault_iter and it1 == fault_iter and start_iter == 0:
+                raise injected_fault("SHF_FAULT_ITER")
+            # the snapshot and stop decision up front (JAX :873-880): a
+            # signal that lands later in this iteration acts at the next
+            # one; pop reads and clears the flag in one step against the
+            # handler
+            will_stop = bool(actions["stop"])
+            snap_req = bool(actions.pop("snapshot", False))
+            will_snap = (it1 % int(cfg.TRAIN.SNAPSHOT) == 0
+                         or it1 == max_iter or snap_req or will_stop)
+            rate = solver_mod.learning_rate(it, cfg)
+            metrics_dev = grad_step(model, loss_fn, batch, bucket[2:4],
+                                    iter_size)
+            solver_mod.apply_update(
+                params, {n: {k: v.grad for k, v in leaf.items()}
+                         for n, leaf in params.items()},
+                opt_state, solver_type=solver_type, rate=rate,
+                lr_mults=lr_mults, decay_mults=decay_mults,
+                weight_decay=float(cfg.TRAIN.WEIGHT_DECAY),
+                momentum=float(cfg.TRAIN.MOMENTUM), iteration=it)
+            if not will_snap:
+                # the host builds the next batch while the device runs
+                # this step
+                pending = build_batch(it1)
+            if deferred is not None:
+                process_metrics(deferred)
+                deferred = None
+            record = (it1, metrics_dev, im_idx, rate, bucket)
+            if not will_snap:
+                deferred = record
+                t.toc()
+                continue
+            process_metrics(record)
+            extra = {"loader_state": np.frombuffer(
+                pickle.dumps([loader.state_dict()]), dtype=np.uint8)}
+            _save(osp.join(output_dir,
+                           f"{snapshot_prefix}_iter_{it1}.npz"),
+                  model, opt_state, it1, extra)
+            if it1 == max_iter:
+                _save_final(output_dir, model, opt_state, it1, extra)
+            elif not will_stop:
+                # a stop iteration fetches no next batch
+                pending = build_batch(it1)
+            t.toc()
+            if will_stop:
+                logger.warning("Stopping at iteration %d on signal", it1)
+                break
+    finally:
+        for sig, handler in prev_handlers.items():
+            signal.signal(sig, handler)
     logger.info("done solving!")
     return model

@@ -54,6 +54,27 @@ def test_port_imports_no_jax():
         assert f"smallhardface_tpu_torch.{mod}" in names.split(), mod
 
 
+def test_device_query_runs_without_jax():
+    """``python -m smallhardface_tpu_torch.tools.device_query`` is a query,
+    not an entry point that needs the card: it exits 0 here, and loads no
+    jax."""
+    proc = _run([sys.executable, "-m",
+                 "smallhardface_tpu_torch.tools.device_query"])
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    code = (
+        "import runpy, sys\n"
+        "try:\n"
+        "    runpy.run_module('smallhardface_tpu_torch.tools.device_query',"
+        " run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    assert e.code == 0, e.code\n"
+        "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'smallhardface_tpu')))\n")
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip().splitlines()[-1] == "[]"
+
+
 def test_chip_smoke_fails_without_a_card():
     proc = _run([sys.executable, "chip_smoke.py"])
     assert proc.returncode != 0
