@@ -107,11 +107,16 @@ Then, each phase printing one line:
    plain stem's;
 10. training: ``train_net`` for 6 iterations of the flagship configuration
    over all three scales on four seeded synthetic images and their
-   mirrors (conv1 frozen: K1 writes no routing, K2 never runs), with its
-   split (the loader's host time per batch, the snapshot writes, the
-   device's busy time under torch.profiler and the idle share), then a
-   resume from the iteration-3 snapshot that must reach
-   the same final.npz to the bit;
+   mirrors (conv1 frozen: K1 writes no routing, K2 never runs), its batches
+   built by the prefetch thread beside the steps, with its split (the
+   worker's draws and renders per image and its job per batch, the main
+   thread's wait for the fetch, which must stay below the worker's time,
+   and its time to queue a step, the snapshot writes, the device's busy
+   time under torch.profiler, the idle share and the iteration wall);
+   ``train_prefetch``: the same run in the serial order (the executors
+   replaced by an inline stand-in) and with the thread again, each
+   final.npz equal to the bit to the first; then a resume from the
+   iteration-3 snapshot that must reach the same final.npz to the bit;
 11. one training iteration of a small skeletal network on the CPU and on
    the card from the same weights;
 12. train-then-test from the command line:
@@ -1846,16 +1851,198 @@ def device_busy_s(prof):
     return busy / 1e6
 
 
+class _InlineExecutor:
+    """A ThreadPoolExecutor stand-in that runs each job at submit: the
+    training loop's serial order (``train_prefetch``)."""
+
+    def __init__(self, *args, **kwargs):
+        pass
+
+    def submit(self, fn, *args, **kwargs):
+        from concurrent.futures import Future
+        fut = Future()
+        fut.set_result(fn(*args, **kwargs))
+        return fut
+
+    def shutdown(self, *args, **kwargs):
+        pass
+
+
+class _TrainingClock:
+    """Host clocks around the training loop's parts, set up by patching
+    the names ``train_net`` looks up at call time, and restored on exit:
+    the loader's draws (``RoIDataLoader.plan_minibatch``) and renders
+    (``train_loop.render_minibatch``) per image, the prefetch worker's
+    whole job per batch and the main thread's wait for it (the executors
+    ``train_loop.ThreadPoolExecutor`` makes), the main thread's time to
+    queue a step (``grad_step`` and ``solver.apply_update``), and the
+    snapshot writes. ``inline``: the executors run each job at submit
+    (the serial order), and the worker's job and the wait go untimed."""
+
+    def __init__(self, inline=False):
+        from concurrent.futures import ThreadPoolExecutor
+        self.spent = {"draw": [], "render": [], "worker": [], "wait": [],
+                      "queue": [], "save": 0.0, "first_draw": None}
+        self._depth = 0
+        spent = self.spent
+
+        class TimedExecutor(ThreadPoolExecutor):
+            def __init__(self, *args, **kwargs):
+                super().__init__(*args, **kwargs)
+                self.timed = kwargs.get("thread_name_prefix") == \
+                    "shf-prefetch"
+
+            def submit(self, fn, *args, **kwargs):
+                if not self.timed:
+                    return super().submit(fn, *args, **kwargs)
+
+                def job():
+                    t = time.perf_counter()
+                    try:
+                        return fn(*args, **kwargs)
+                    finally:
+                        spent["worker"].append(time.perf_counter() - t)
+                fut = super().submit(job)
+                result = fut.result
+
+                def timed_result(timeout=None):
+                    t = time.perf_counter()
+                    try:
+                        return result(timeout)
+                    finally:
+                        spent["wait"].append(time.perf_counter() - t)
+                fut.result = timed_result
+                return fut
+
+        self.executor = _InlineExecutor if inline else TimedExecutor
+
+    def _timed(self, fn, key):
+        spent = self.spent
+
+        def run(*args, **kwargs):
+            t = time.perf_counter()
+            if key == "draw" and spent["first_draw"] is None:
+                spent["first_draw"] = t
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                spent[key].append(time.perf_counter() - t)
+        return run
+
+    def _timed_write(self, fn):
+        def write(*args):
+            t = time.perf_counter()
+            self._depth += 1
+            try:
+                fn(*args)
+            finally:
+                self._depth -= 1        # _save_final calls _save
+                if not self._depth:
+                    self.spent["save"] += time.perf_counter() - t
+        return write
+
+    def __enter__(self):
+        from smallhardface_tpu_torch.train import solver, train_loop
+        from smallhardface_tpu_torch.train.loader import RoIDataLoader
+        self._saved = [
+            (RoIDataLoader, "plan_minibatch", self._timed, "draw"),
+            (train_loop, "render_minibatch", self._timed, "render"),
+            (train_loop, "grad_step", self._timed, "queue"),
+            (solver, "apply_update", self._timed, "queue"),
+            (train_loop, "_save", self._timed_write, None),
+            (train_loop, "_save_final", self._timed_write, None),
+            (train_loop, "ThreadPoolExecutor", None, None)]
+        self._saved = [(obj, name, getattr(obj, name), wrap, key)
+                       for obj, name, wrap, key in self._saved]
+        for obj, name, orig, wrap, key in self._saved:
+            if wrap is None:
+                setattr(obj, name, self.executor)
+            elif key is None:
+                setattr(obj, name, wrap(orig))
+            else:
+                setattr(obj, name, wrap(orig, key))
+        return self.spent
+
+    def __exit__(self, *exc):
+        for obj, name, orig, _, _ in self._saved:
+            setattr(obj, name, orig)
+        return False
+
+
+def loader_split(cfg, roidb, seq):
+    """Where a render's host time goes, and what rendering an iteration's
+    images at once gains: the training run's plans (a fresh loader, the
+    same scales) rendered one by one with the loader's steps timed
+    (decode and flip, the distortion and its HSV round trip, the host
+    downscale), then each iteration's pair on two threads, as
+    ``train_net`` renders them."""
+    from concurrent.futures import ThreadPoolExecutor
+    from smallhardface_tpu_torch.train import loader
+    size = int(cfg.TRAIN.ITERSIZE)
+    ld = loader.RoIDataLoader(roidb)
+    plans = [[ld.plan_minibatch(int(k)) for _ in range(size)] for k in seq]
+    steps = {"_read_image": "decode", "apply_distortion": "distortion",
+             "bgr_to_hsv": "hsv", "hsv_to_bgr": "hsv",
+             "resize_linear": "downscale"}
+    spent = {}
+    saved = {name: getattr(loader, name) for name in steps}
+
+    def timed(fn, key):
+        def run(*args):
+            t = time.perf_counter()
+            try:
+                return fn(*args)
+            finally:
+                spent[key] = spent.get(key, 0.0) + time.perf_counter() - t
+        return run
+
+    rows = []
+    try:
+        for name, key in steps.items():
+            setattr(loader, name, timed(saved[name], key))
+        for batch in plans:
+            for plan in batch:
+                spent.clear()
+                t = time.perf_counter()
+                loader.render_minibatch(plan)
+                rows.append(dict({k: 1e3 * v for k, v in spent.items()},
+                                 total=1e3 * (time.perf_counter() - t)))
+    finally:
+        for name, fn in saved.items():
+            setattr(loader, name, fn)
+    pair_ms = []
+    with ThreadPoolExecutor(max_workers=size) as pool:
+        for batch in plans:
+            t = time.perf_counter()
+            list(pool.map(loader.render_minibatch, batch))
+            pair_ms.append(1e3 * (time.perf_counter() - t))
+    serial = [sum(r["total"] for r in rows[i:i + size])
+              for i in range(0, len(rows), size)]
+    total = sum(r["total"] for r in rows)
+    say("train_loader_split", images=len(rows),
+        render_ms_per_image=[r["total"] for r in rows],
+        share_of_render={k: sum(r.get(k, 0.0) for r in rows) / total
+                         for k in ("decode", "distortion", "hsv",
+                                   "downscale")},
+        serial_ms_per_iteration=serial, parallel_ms_per_iteration=pair_ms,
+        parallel_gain=sum(serial) / sum(pair_ms),
+        cpu_count=os.cpu_count(),
+        timing="host walls; hsv (the BGR<->HSV round trip) is part of "
+               "distortion; the parallel pairs run after the serial pass")
+
+
 def train_path(cfg, tdm, stem, iou, dev, work):
-    """The slice's path: train_net at the flagship configuration, then a
-    resume from the iteration-3 snapshot. The first run's split: the
-    loader's host time (RoIDataLoader.get_minibatch, wrapped here only),
-    the snapshot writes, the device's busy time (torch.profiler, device
-    events only) and the idle share. Returns the launch counts."""
+    """The slice's path: train_net at the flagship configuration, with its
+    prefetch thread, then the same run in the serial order and a resume
+    from the iteration-3 snapshot. The first run's split (``_TrainingClock``,
+    host clocks; the device's busy time under torch.profiler, device events
+    only): the worker's draws and renders per image and its job per batch,
+    the main thread's wait for the fetch (the exposed loader) and its time
+    to queue a step, the snapshot writes, the idle share and the iteration
+    wall. Returns the launch counts of the first run."""
     from torch.profiler import ProfilerActivity, profile
     from smallhardface_tpu_torch.io import checkpoint
     from smallhardface_tpu_torch.train import train_loop
-    from smallhardface_tpu_torch.train.loader import RoIDataLoader
     _flagship(cfg)
     rng = np.random.RandomState(SEED + 4)
     roidb = face_roidb(rng, [(768, 1024), (1024, 768), (768, 1024),
@@ -1890,66 +2077,48 @@ def train_path(cfg, tdm, stem, iou, dev, work):
     first, second = os.path.join(work, "run"), os.path.join(work, "resume")
     os.makedirs(first)
     os.makedirs(second)
-    spent = {"loader": [], "save": 0.0, "first_fetch": None, "depth": 0}
-    saved = (RoIDataLoader.get_minibatch, train_loop._save,
-             train_loop._save_final)
-    get_minibatch = saved[0]
-
-    def timed_minibatch(self, *args):
-        t = time.perf_counter()
-        if spent["first_fetch"] is None:
-            spent["first_fetch"] = t
-        out = get_minibatch(self, *args)
-        spent["loader"].append(time.perf_counter() - t)
-        return out
-
-    def timed_write(fn):
-        def write(*args):
-            t = time.perf_counter()
-            spent["depth"] += 1
-            try:
-                fn(*args)
-            finally:
-                spent["depth"] -= 1     # _save_final calls _save
-                if not spent["depth"]:
-                    spent["save"] += time.perf_counter() - t
-        return write
-
     set_counts_zero(stem.fused_stem, stem.fused_stem_grad, iou.max_iou)
     torch.cuda.reset_peak_memory_stats()
-    RoIDataLoader.get_minibatch = timed_minibatch
-    train_loop._save, train_loop._save_final = (timed_write(saved[1]),
-                                                timed_write(saved[2]))
-    try:
+    with _TrainingClock() as spent:
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             clock["t"] = t_start = time.perf_counter()
             model = train_loop.train_net(roidb, first, None, TRAIN_ITERS,
                                          device=dev, progress_hook=hook)
             torch.cuda.synchronize()
             train_wall = time.perf_counter() - t_start
-    finally:
-        (RoIDataLoader.get_minibatch, train_loop._save,
-         train_loop._save_final) = saved
     busy = device_busy_s(prof)
     size = int(cfg.TRAIN.ITERSIZE)
-    loader_ms = [1e3 * sum(spent["loader"][i:i + size])
-                 for i in range(0, len(spent["loader"]), size)]
-    setup = spent["first_fetch"] - t_start
+    ms = {k: [1e3 * v for v in spent[k]]
+          for k in ("draw", "render", "worker", "wait")}
+    queue_ms = [1e3 * (spent["queue"][i] + spent["queue"][i + 1])
+                for i in range(0, len(spent["queue"]), 2)]
+    setup = spent["first_draw"] - t_start
     loop = train_wall - setup - spent["save"]
-    split = {"loader_ms_per_batch": loader_ms,
-             "loader_ms_per_iteration": sum(loader_ms) / TRAIN_ITERS,
+    split = {"draw_ms_per_image": ms["draw"],
+             "render_ms_per_image": ms["render"],
+             "worker_ms_per_batch": ms["worker"],
+             "worker_ms_per_iteration": sum(ms["worker"]) / TRAIN_ITERS,
+             "exposed_wait_ms_per_iteration_each": ms["wait"],
+             "exposed_wait_ms_per_iteration": sum(ms["wait"]) / TRAIN_ITERS,
+             "queue_step_ms_per_iteration_each": queue_ms,
+             "queue_step_ms_per_iteration": sum(queue_ms) / TRAIN_ITERS,
              "device_busy_ms_per_iteration": 1e3 * busy / TRAIN_ITERS,
+             "iteration_wall_s": loop / TRAIN_ITERS,
              "setup_s": setup, "snapshot_writes_s": spent["save"],
              "device_busy_s": busy, "idle_share": 1.0 - busy / train_wall,
              "idle_share_iterations": 1.0 - busy / loop,
-             "loader_share_iterations": sum(loader_ms) / 1e3 / loop,
-             "timing": "host walls; device busy = union of the device "
-                       "events under torch.profiler (device activity only)"}
+             "exposed_share_iterations": sum(ms["wait"]) / 1e3 / loop,
+             "images_per_iteration": size,
+             "timing": "host walls (perf_counter) in the worker and on the "
+                       "main thread; the iteration wall is the run's less "
+                       "its set-up and snapshot writes; device busy = union "
+                       "of the device events under torch.profiler (device "
+                       "activity only)"}
     counts = {"fused_stem": stem.fused_stem.launches,
               "route_writes": stem.fused_stem.route_writes,
               "fused_stem_grad": stem.fused_stem_grad.launches,
               "max_iou": iou.max_iou.launches}
-    micro = TRAIN_ITERS * int(cfg.TRAIN.ITERSIZE)
+    micro = TRAIN_ITERS * size
     losses = [v for r in rows for v in r["cls_loss"] + r["reg_loss"]]
     frozen_moved, trainable_still = [], []
     for name, leaf in model.tree().items():
@@ -1976,8 +2145,43 @@ def train_path(cfg, tdm, stem, iou, dev, work):
     if (counts["fused_stem"] != micro or counts["max_iou"] != micro
             or counts["fused_stem_grad"] != 0 or counts["route_writes"] != 0):
         raise AssertionError(f"training launches: {counts}")
+    if (len(ms["worker"]) != TRAIN_ITERS or len(ms["render"]) != micro
+            or split["exposed_wait_ms_per_iteration"]
+            >= split["worker_ms_per_iteration"]):
+        raise AssertionError("the loader did not overlap the steps")
     del model
     torch.cuda.empty_cache()
+
+    # the serial order: the executors run each job at submit, so every
+    # batch is built before its step is queued and no render runs beside
+    # the main thread; then the thread again
+    again = {}
+    for key in ("inline", "thread"):
+        out = os.path.join(work, f"run_{key}")
+        os.makedirs(out)
+        with _TrainingClock(inline=key == "inline") as spent:
+            t0 = time.perf_counter()
+            train_loop.train_net(roidb, out, None, TRAIN_ITERS, device=dev)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        queue = 1e3 * sum(spent["queue"]) / TRAIN_ITERS
+        again[key] = {
+            "final_npz_bit_identical": _same_npz(
+                os.path.join(first, "final.npz"),
+                os.path.join(out, "final.npz")),
+            "wall_s": wall, "snapshot_writes_s": spent["save"],
+            "iteration_wall_s": (wall - (spent["first_draw"] - t0)
+                                 - spent["save"]) / TRAIN_ITERS,
+            "queue_step_ms_per_iteration": queue,
+            "render_ms_per_image": 1e3 * sum(spent["render"]) / micro}
+        torch.cuda.empty_cache()
+    say("train_prefetch", iterations=TRAIN_ITERS, **again,
+        timing="host walls, not under the profiler, after the profiled "
+               "run; iteration wall = the run's less its set-up and "
+               "snapshot writes")
+    if not all(v["final_npz_bit_identical"] for v in again.values()):
+        raise AssertionError("the threaded and the serial runs differ")
+    loader_split(cfg, roidb, seq)
 
     cfg.TRAIN.RESUME = os.path.join(
         first, f"{cfg.NAME}_iter_{SNAPSHOT}.npz")

@@ -25,6 +25,9 @@ and cv2 is imported only to read an image path. A roidb entry's
     (minibatch.py:100-146)
   - images return unpadded; the train loop pads the global batch to a
     shared bucket shape
+  - a sample is its draws (``plan_minibatch``: every RNG draw and state
+    change, in order, on one thread) and its pixels (``render_minibatch``:
+    no RNG), so the images of one iteration render in parallel
 
 Deviation from the reference: augmentation randomness comes from a
 per-replica numpy RandomState(RNG_SEED + rank) instead of the forked global
@@ -109,43 +112,66 @@ def _read_image(image):
     return im
 
 
+def draw_distortion(rng):
+    """Every draw of the photometric augmentation (blob.py:73-120), from
+    ``rng`` in the JAX package's order: brightness (the test, then the
+    delta), the contrast-first coin, then contrast, saturation and hue
+    (each the test, then the value) in the order they apply. A value is
+    None where its test failed."""
+    aug = cfg.TRAIN.AUGMENT
+
+    def draw(node, lo, hi):
+        return rng.uniform(lo, hi) if rng.rand() < node.PROB else None
+
+    def contrast():
+        return draw(aug.CONTRAST, aug.CONTRAST.LOWER, aug.CONTRAST.UPPER)
+
+    def saturation_hue():
+        sat = draw(aug.SATURATION, aug.SATURATION.LOWER,
+                   aug.SATURATION.UPPER)
+        return sat, draw(aug.HUE, -aug.HUE.DELTA, aug.HUE.DELTA)
+
+    d = {"brightness": draw(aug.BRIGHTNESS, -aug.BRIGHTNESS.DELTA,
+                            aug.BRIGHTNESS.DELTA),
+         "contrast_first": bool(rng.randint(2))}
+    if d["contrast_first"]:
+        d["contrast"] = contrast()
+        d["saturation"], d["hue"] = saturation_hue()
+    else:
+        d["saturation"], d["hue"] = saturation_hue()
+        d["contrast"] = contrast()
+    return d
+
+
+def apply_distortion(im, d):
+    """The photometric augmentation of the float BGR image with the values
+    ``draw_distortion`` drew; touches no RNG."""
+    def contrast(x):
+        if d["contrast"] is not None:
+            x = np.clip(x * d["contrast"], 0.0, 255.0)
+        return x
+
+    def saturation_hue(x):
+        hsv = bgr_to_hsv(x)
+        if d["saturation"] is not None:
+            hsv[..., 1] = np.clip(hsv[..., 1] * d["saturation"], 0.0, 1.0)
+        if d["hue"] is not None:
+            hsv[..., 0] = (hsv[..., 0] + d["hue"]) % 360.0
+        return hsv_to_bgr(hsv)
+
+    if d["brightness"] is not None:
+        im = np.clip(im + d["brightness"], 0.0, 255.0)
+    if d["contrast_first"]:
+        im = saturation_hue(contrast(im))
+    else:
+        im = contrast(saturation_hue(im))
+    return np.clip(np.round(im), 0.0, 255.0)
+
+
 def _distortion(im, rng):
     """Photometric augmentation on the float BGR image (blob.py:73-120),
     with the JAX package's draws from ``rng`` in the same order."""
-    aug = cfg.TRAIN.AUGMENT
-
-    def brightness(x):
-        if rng.rand() < aug.BRIGHTNESS.PROB:
-            delta = rng.uniform(-aug.BRIGHTNESS.DELTA, aug.BRIGHTNESS.DELTA)
-            x = np.clip(x + delta, 0.0, 255.0)
-        return x
-
-    def contrast(x):
-        if rng.rand() < aug.CONTRAST.PROB:
-            alpha = rng.uniform(aug.CONTRAST.LOWER, aug.CONTRAST.UPPER)
-            x = np.clip(x * alpha, 0.0, 255.0)
-        return x
-
-    def saturation(hsv):
-        if rng.rand() < aug.SATURATION.PROB:
-            alpha = rng.uniform(aug.SATURATION.LOWER, aug.SATURATION.UPPER)
-            hsv[..., 1] = np.clip(hsv[..., 1] * alpha, 0.0, 1.0)
-        return hsv
-
-    def hue(hsv):
-        if rng.rand() < aug.HUE.PROB:
-            delta = rng.uniform(-aug.HUE.DELTA, aug.HUE.DELTA)
-            hsv[..., 0] = (hsv[..., 0] + delta) % 360.0
-        return hsv
-
-    im = brightness(im)
-    if rng.randint(2):
-        im = contrast(im)
-        im = hsv_to_bgr(hue(saturation(bgr_to_hsv(im))))
-    else:
-        im = hsv_to_bgr(hue(saturation(bgr_to_hsv(im))))
-        im = contrast(im)
-    return np.clip(np.round(im), 0.0, 255.0)
+    return apply_distortion(im, draw_distortion(rng))
 
 
 def _sample_crop(img_h, img_w, gt_boxes, rng):
@@ -192,10 +218,12 @@ class RoIDataLoader:
     def __init__(self, roidb, rank=0):
         self.rank = rank
         self._roidb = roidb
-        # two independent streams: self.rng feeds the (single) fetch
-        # thread's sampling/augmentation; the feedback stream feeds
-        # mark_easy, which the MAIN thread calls concurrently — separate
-        # streams keep the per-replica fetch RNG reproducible
+        # two independent streams, as in the JAX loader: self.rng feeds
+        # the sampling and augmentation draws (plan_minibatch), the
+        # feedback stream feeds mark_easy. The port's train loop calls
+        # both in one fixed order (the prefetch thread applies the marks
+        # it is handed before its first draw), so each stream replays
+        # at resume
         self.rng = np.random.RandomState(int(cfg.RNG_SEED) + rank)
         self._feedback_rng = np.random.RandomState(
             int(cfg.RNG_SEED) + rank + 7919)
@@ -203,8 +231,8 @@ class RoIDataLoader:
         # GPU, so skip/prob flags were rank-private (lib/train.py:249-258);
         # the shared roidb here stays read-only and flags live locally
         self._mining = {}          # im_idx -> {"prob": p} or {"skip": k}
-        # the lock guards _perm/_cur/_mining, which the fetch thread and
-        # the main thread (mark_easy) both touch
+        # the lock guards _perm/_cur/_mining against a caller that plans
+        # on one thread while another marks or snapshots
         self._lock = threading.Lock()
         self._shuffle()
 
@@ -298,7 +326,8 @@ class RoIDataLoader:
                 logger.warning("%d ignored at rank: %d", im_idx, self.rank)
 
     def get_minibatch(self, scale_idx):
-        """Build one training sample at the given scale index.
+        """Build one training sample at the given scale index: its draws
+        (``plan_minibatch``), then its pixels (``render_minibatch``).
 
         Host work stops at the distorted uint8 ORIGINAL: the resize to the
         training scale and the random crop fuse into the device step
@@ -310,18 +339,23 @@ class RoIDataLoader:
         Returns dict: data (h0, w0, 3) uint8 original, gt_boxes (G, 5),
         im_scale, crop (hs, ws) in resized coords, im_idx, height, width
         (the FINAL post-crop extent driving bucket/valid shapes)."""
+        return render_minibatch(self.plan_minibatch(scale_idx))
+
+    def plan_minibatch(self, scale_idx):
+        """Every random draw and every loader-state change of one sample,
+        in ``get_minibatch``'s order: the index (and an epoch reshuffle),
+        the distortion's values, the scale, the crop and the transformed
+        gt, and the ``seen_scale`` record. Reads no pixel: the extent comes
+        from the roidb entry's ``height`` and ``width``. Returns the plan
+        that ``render_minibatch`` turns into the sample."""
         mode = cfg.TRAIN.SCALES.MODE
         assert mode in ("SHORT_SIDE", "FACE_AREA"), \
             f"Unknown TRAIN.SCALES.MODE: {mode}"
         idx = self._next_index()
         entry = self._roidb[idx]
-        im = _read_image(entry["image"])
-        if entry["flipped"]:
-            im = im[:, ::-1, :]
-
-        im = im.astype(np.float32)
-        if cfg.TRAIN.AUGMENT.ENABLE:
-            im = _distortion(im, self.rng)
+        h0, w0 = int(entry["height"]), int(entry["width"])
+        distortion = (draw_distortion(self.rng) if cfg.TRAIN.AUGMENT.ENABLE
+                      else None)
         # NOTE: pixel-mean subtraction happens ON DEVICE (train step), so
         # the batch ships as uint8 (4× less host→device traffic). The
         # reference subtracts before resizing (blob.py:45), but bilinear
@@ -330,8 +364,7 @@ class RoIDataLoader:
         # photometric augmentation noise (brightness ±32).
 
         target_size = cfg.TRAIN.SCALES.SHORT_SIDE[scale_idx]
-        size_min = min(im.shape[:2])
-        size_max = max(im.shape[:2])
+        size_min, size_max = min(h0, w0), max(h0, w0)
         if cfg.TRAIN.ORIG_SIZE:
             im_scale = 1.0
         else:
@@ -348,20 +381,10 @@ class RoIDataLoader:
                     im_scale = float(np.sqrt(target_size / face_median))
             if np.round(im_scale * size_max) > cfg.TRAIN.SCALES.MAX_SIZE:
                 im_scale = float(cfg.TRAIN.SCALES.MAX_SIZE) / size_max
-        # Downscales resize on the HOST (the resized image is SMALLER than
-        # the original, so shipping it minimizes the upload and keeps the
-        # compiled original-shape set bounded by the scale buckets);
-        # upscales ship the original and resize on device (the original is
-        # the minimal representation). Either way the device step sees
-        # (data, ship_scale, crop) with cv2 fx-sampling semantics.
-        ship_scale = im_scale
-        if im_scale < 1.0:
-            im = resize_linear(im, im_scale)
-            ship_scale = 1.0
-        # resized extent with cv2's dst-rounding convention (the device
-        # resize samples at 1/ship_scale, identical to cv2.resize fx=)
-        hr = int(round(im.shape[0] * ship_scale))
-        wr = int(round(im.shape[1] * ship_scale))
+        # resized extent with cv2's dst-rounding convention, whether the
+        # host downscales (resize_linear's extent) or the device upscales
+        # (it samples at 1/im_scale, identical to cv2.resize fx=)
+        hr, wr = int(round(h0 * im_scale)), int(round(w0 * im_scale))
 
         gt_inds = np.where(entry["gt_classes"] != 0)[0]
         gt = np.zeros((len(gt_inds), 5), dtype=np.float32)
@@ -379,14 +402,46 @@ class RoIDataLoader:
         with self._lock:
             self._mining.setdefault(idx, {}).setdefault(
                 "seen_scale", []).append(im_scale)
-        data = np.ascontiguousarray(
-            np.clip(np.round(im), 0, 255), dtype=np.uint8)
-        return {
-            "data": data,
-            "gt_boxes": gt,
-            "im_scale": float(ship_scale),
-            "crop": (hs, ws),
-            "im_idx": idx,
-            "height": height,
-            "width": width,
-        }
+        return {"image": entry["image"], "flipped": bool(entry["flipped"]),
+                "extent": (h0, w0), "distortion": distortion,
+                "im_scale": im_scale, "gt_boxes": gt, "crop": (hs, ws),
+                "im_idx": idx, "height": height, "width": width}
+
+
+def render_minibatch(plan):
+    """The pixels of a ``plan_minibatch`` plan: read the image (and check
+    it against the roidb's extent), flip it, distort it with the drawn
+    values, downscale it on the host when the scale is below 1, and round
+    to uint8. Touches no RNG and no loader state, so the plans of one
+    iteration render in parallel. Returns ``get_minibatch``'s sample."""
+    im = _read_image(plan["image"])
+    if im.shape[:2] != plan["extent"]:
+        raise ValueError(
+            f"image {plan['im_idx']} decodes to {im.shape[:2]} but its "
+            f"roidb entry says (height, width) = {plan['extent']}")
+    if plan["flipped"]:
+        im = im[:, ::-1, :]
+    im = im.astype(np.float32)
+    if plan["distortion"] is not None:
+        im = apply_distortion(im, plan["distortion"])
+    # Downscales resize on the HOST (the resized image is SMALLER than the
+    # original, so shipping it minimizes the upload and keeps the compiled
+    # original-shape set bounded by the scale buckets); upscales ship the
+    # original and resize on device (the original is the minimal
+    # representation). Either way the device step sees (data, ship_scale,
+    # crop) with cv2 fx-sampling semantics.
+    ship_scale = plan["im_scale"]
+    if ship_scale < 1.0:
+        im = resize_linear(im, ship_scale)
+        ship_scale = 1.0
+    data = np.ascontiguousarray(np.clip(np.round(im), 0, 255),
+                                dtype=np.uint8)
+    return {
+        "data": data,
+        "gt_boxes": plan["gt_boxes"],
+        "im_scale": float(ship_scale),
+        "crop": plan["crop"],
+        "im_idx": plan["im_idx"],
+        "height": plan["height"],
+        "width": plan["width"],
+    }

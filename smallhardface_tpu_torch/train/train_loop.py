@@ -31,10 +31,17 @@ replaced by one ``device``:
   injected sticky CUDA fault at iteration K, which the command line's
   ``TRAIN.AUTO_RESUME`` relaunch recovers from.
 
-The host builds the next iteration's batch while the device runs the
-current one (no thread: the order of loader calls is fixed, so resume
-stays bit-reproducible). Training runs in float32: int8 has no gradient,
-and the JAX package's bf16 gradient fails (see ``train_net``).
+A prefetch thread builds the next iteration's batch while the device runs
+the current one, as the JAX loop's does (its train_loop.py:808-922): it
+draws the iteration's samples in order (``RoIDataLoader.plan_minibatch``),
+renders their pixels on a pool of ``TRAIN.ITERSIZE`` threads
+(``loader.render_minibatch``) and returns the padded batch in host memory
+(pinned on a CUDA device), which the main thread copies to the device
+without blocking at the start of the step. The easy-image marks reach the
+loader in one fixed order whatever the threads' timing (see ``train_net``),
+so the data stream, the weights and a resume stay equal to the bit to the
+serial order. Training runs in float32: int8 has no gradient, and the JAX
+package's bf16 gradient fails (see ``train_net``).
 Multi-device, spatial and grouped steps are not ported yet (ROADMAP
 queue 1).
 """
@@ -49,6 +56,7 @@ import os.path as osp
 import pickle
 import signal
 from collections import deque
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -60,7 +68,8 @@ from smallhardface_tpu_torch.models import detector as detector_mod
 from smallhardface_tpu_torch.ops import anchors as anchors_mod
 from smallhardface_tpu_torch.train import solver as solver_mod
 from smallhardface_tpu_torch.train import targets as targets_mod
-from smallhardface_tpu_torch.train.loader import RoIDataLoader
+from smallhardface_tpu_torch.train.loader import (
+    RoIDataLoader, render_minibatch)
 from smallhardface_tpu_torch.train.losses import (
     smooth_l1, softmax_ce_with_ignore)
 from smallhardface_tpu_torch.utils.device import resolve_device
@@ -321,8 +330,9 @@ def train_net(roidb, output_dir, pretrained_model, max_iter, device=None,
     iteration with (1, iter_size) float32 arrays under METRIC_KEYS
     ("easy" as bool) and the iteration's bucket under "bucket". Returns
     the trained ``Detector``. On the main thread SIGINT and SIGHUP act
-    as in the module docstring; the previous handlers are back when it
-    returns or raises."""
+    as in the module docstring; the previous handlers are back, and the
+    prefetch and render threads have ended, when it returns or raises.
+    An error in the prefetch thread is raised here as the same object."""
     device = resolve_device(device)
     precision = str(cfg.TPU.PRECISION)
     if precision == "int8":
@@ -383,14 +393,34 @@ def train_net(roidb, output_dir, pretrained_model, max_iter, device=None,
     num_scales = len(cfg.TRAIN.SCALES.SHORT_SIDE)
     scale_seq = host_rng.randint(0, num_scales, size=max_iter)
 
-    def build_batch(it):
-        samples = [loader.get_minibatch(int(scale_seq[it]))
-                   for _ in range(iter_size)]
-        arrays, im_idx, bucket = assemble_batch(samples, iter_size,
-                                                gt_buckets)
+    pin = device.type == "cuda"
+
+    def build_batch(it, marks):
+        """Batch ``it``, on the prefetch thread: the easy-image marks it was
+        handed, then every draw of the iteration in order, then the pixels
+        of its images in parallel and the padding. Returns host tensors,
+        pinned for a CUDA device."""
+        for idx in marks:
+            loader.mark_easy(idx)
+        plans = [loader.plan_minibatch(int(scale_seq[it]))
+                 for _ in range(iter_size)]
+        renders = [renderers.submit(render_minibatch, p) for p in plans]
+        arrays, im_idx, bucket = assemble_batch(
+            [r.result() for r in renders], iter_size, gt_buckets)
         for k in ("data", "gt", "gt_mask"):
-            arrays[k] = torch.from_numpy(arrays[k]).to(device)
+            arrays[k] = torch.from_numpy(arrays[k])
+            if pin:
+                arrays[k] = arrays[k].pin_memory()
         return arrays, im_idx, bucket
+
+    pending_marks = []      # easy-image marks not yet handed to the loader
+
+    def fetch(it):
+        """Start batch ``it`` on the prefetch thread with the marks
+        collected since the last fetch."""
+        marks = list(pending_marks)
+        pending_marks.clear()
+        return prefetch.submit(build_batch, it, marks)
 
     snapshot_prefix = (cfg.NAME if cfg.TRAIN.SNAPSHOT_INFIX == ""
                        else f"{cfg.NAME}_{cfg.TRAIN.SNAPSHOT_INFIX}")
@@ -399,7 +429,7 @@ def train_net(roidb, output_dir, pretrained_model, max_iter, device=None,
     t = Timer()
 
     def process_metrics(rec):
-        """Read one step's metrics back, give its easy-image marks to the
+        """Read one step's metrics back, queue its easy-image marks for the
         loader, log, and call the hook."""
         it1, metrics_dev, m_idx, m_rate, m_bucket = rec
         m = metrics_dev.cpu().numpy()
@@ -408,7 +438,7 @@ def train_net(roidb, output_dir, pretrained_model, max_iter, device=None,
         if cfg.TRAIN.DISABLE_EASY_IMAGE.ENABLE:
             for k, flag in enumerate(metrics["easy"].reshape(-1)):
                 if flag:
-                    loader.mark_easy(m_idx[k])
+                    pending_marks.append(m_idx[k])
         cls_l = float(metrics["cls_loss"].mean())
         reg_l = float(metrics["reg_loss"].mean())
         loss_window.append(cls_l + reg_l)
@@ -452,19 +482,30 @@ def train_net(roidb, output_dir, pretrained_model, max_iter, device=None,
             prev_handlers[sig] = signal.signal(sig, on_signal)
     except ValueError:
         prev_handlers = {}      # not on the main thread
+    # the module's ThreadPoolExecutor, which tests replace with an inline
+    # stand-in: one prefetch worker, and the iteration's renders at once
+    prefetch = ThreadPoolExecutor(max_workers=1,
+                                  thread_name_prefix="shf-prefetch")
+    renderers = ThreadPoolExecutor(max_workers=iter_size,
+                                   thread_name_prefix="shf-render")
+    pending = None          # the fetch in flight
     try:
-        # The JAX loop's schedule (its train_loop.py:881-922): iteration
-        # it fetches batch it + 1, then applies the easy-image marks of
-        # iteration it - 1, so the marks of step k reach the loader after
-        # the fetch of batch k + 2 (they act at an epoch reshuffle). A
-        # snapshot iteration applies every mark up to its own before it
-        # captures the sampler and fetches the next batch, so a resume
-        # replays the same stream.
+        # The JAX loop's schedule (its train_loop.py:808-922): iteration it
+        # starts the fetch of batch it + 1 before it queues its step, and
+        # reads step it - 1's metrics back after. The marks of step k go to
+        # the fetch of batch k + 3, which applies them before its first
+        # draw: the loader sees them after batch k + 2's draws whatever the
+        # threads' timing, the order of the serial loop and of the JAX loop
+        # when its thread wins the race. A snapshot iteration starts no
+        # fetch before its step, so none is in flight when it applies every
+        # pending mark, captures the sampler, writes the snapshot, and only
+        # then starts the next fetch: a resume replays the same stream.
+        pending = fetch(start_iter)
         deferred = None
-        pending = build_batch(start_iter)
         for it in range(start_iter, max_iter):
             t.tic()
-            batch, im_idx, bucket = pending
+            fut, pending = pending, None
+            host, im_idx, bucket = fut.result()
             it1 = it + 1
             if fault_iter and it1 == fault_iter and start_iter == 0:
                 raise injected_fault("SHF_FAULT_ITER")
@@ -476,6 +517,11 @@ def train_net(roidb, output_dir, pretrained_model, max_iter, device=None,
             snap_req = bool(actions.pop("snapshot", False))
             will_snap = (it1 % int(cfg.TRAIN.SNAPSHOT) == 0
                          or it1 == max_iter or snap_req or will_stop)
+            if not will_snap:
+                pending = fetch(it1)
+            batch = dict(host)
+            for k in ("data", "gt", "gt_mask"):
+                batch[k] = host[k].to(device, non_blocking=True)
             rate = solver_mod.learning_rate(it, cfg)
             metrics_dev = grad_step(model, loss_fn, batch, bucket[2:4],
                                     iter_size)
@@ -486,10 +532,6 @@ def train_net(roidb, output_dir, pretrained_model, max_iter, device=None,
                 lr_mults=lr_mults, decay_mults=decay_mults,
                 weight_decay=float(cfg.TRAIN.WEIGHT_DECAY),
                 momentum=float(cfg.TRAIN.MOMENTUM), iteration=it)
-            if not will_snap:
-                # the host builds the next batch while the device runs
-                # this step
-                pending = build_batch(it1)
             if deferred is not None:
                 process_metrics(deferred)
                 deferred = None
@@ -499,6 +541,9 @@ def train_net(roidb, output_dir, pretrained_model, max_iter, device=None,
                 t.toc()
                 continue
             process_metrics(record)
+            for idx in pending_marks:
+                loader.mark_easy(idx)
+            pending_marks.clear()
             extra = {"loader_state": np.frombuffer(
                 pickle.dumps([loader.state_dict()]), dtype=np.uint8)}
             _save(osp.join(output_dir,
@@ -508,12 +553,22 @@ def train_net(roidb, output_dir, pretrained_model, max_iter, device=None,
                 _save_final(output_dir, model, opt_state, it1, extra)
             elif not will_stop:
                 # a stop iteration fetches no next batch
-                pending = build_batch(it1)
+                pending = fetch(it1)
             t.toc()
             if will_stop:
                 logger.warning("Stopping at iteration %d on signal", it1)
                 break
     finally:
+        # no worker outlives the call: a queued fetch is cancelled and the
+        # one in flight finishes before this returns or raises (and before
+        # the previous signal handlers are back); its error, if any, is
+        # logged beside the one that is propagating
+        prefetch.shutdown(wait=True, cancel_futures=True)
+        renderers.shutdown(wait=True, cancel_futures=True)
+        if (pending is not None and not pending.cancelled()
+                and pending.exception() is not None):
+            logger.error("The batch fetch in flight failed too",
+                         exc_info=pending.exception())
         for sig, handler in prev_handlers.items():
             signal.signal(sig, handler)
     logger.info("done solving!")

@@ -10,6 +10,8 @@ JPEGs written by cv2 and the same settings in their own configs:
 - mark_easy with smooth and non-smooth skipping gives the JAX epochs.
 """
 
+import pickle
+
 import cv2
 import numpy as np
 import pytest
@@ -139,6 +141,27 @@ def test_mark_easy_epochs_match_jax(tmp_path, both_cfgs, smooth):
     finally:
         jcfg.TRAIN.DISABLE_EASY_IMAGE.SMOOTH, \
             tcfg.TRAIN.DISABLE_EASY_IMAGE.SMOOTH = old
+
+
+def test_distortion_matches_jax(both_cfgs):
+    """_distortion (the draws, then the pixels) against the JAX one from
+    the same RandomState, over seeds that take both orders of the
+    contrast-first coin: the same draws in the same order (the states
+    after it equal) and the pixels within ±1."""
+    from smallhardface_tpu.train.loader import _distortion as jax_distortion
+    coins = set()
+    for seed in range(8):
+        im = np.random.RandomState(100 + seed).randint(
+            0, 256, (40, 56, 3)).astype(np.float32)
+        rj, rt = np.random.RandomState(seed), np.random.RandomState(seed)
+        want = jax_distortion(im.copy(), rj)
+        got = tloader._distortion(im.copy(), rt)
+        assert pickle.dumps(rj.get_state()) == pickle.dumps(rt.get_state())
+        assert got.dtype == want.dtype
+        assert np.abs(got - want).max() <= 1
+        coins.add(tloader.draw_distortion(
+            np.random.RandomState(seed))["contrast_first"])
+    assert coins == {False, True}
 
 
 def test_hsv_round_trip_matches_cv2():
