@@ -145,6 +145,24 @@ Then, each phase printing one line:
    (SHF_FAULT_TEST) relaunched with training off, whose detections.pkl
    equals an unfaulted evaluation's to the bit. These processes' launches
    are their own: the kernels line keeps the counts of the phases above.
+14. data parallelism through the user's command, ``python -m
+   torch.distributed.run --standalone --nproc_per_node N -m
+   smallhardface_tpu_torch --device cuda --train true --test true`` at
+   the flagship config on the same tree, DP_ITERS iterations then the
+   test (``dp_phases``): ``dp_nccl_world1``, N = 1 over NCCL beside the
+   same command without the launcher (the backend the process group
+   reports, final.npz equal to the bit, the detections row for row, the
+   all-reduce's time); ``dp_two_ranks_one_card``, N = 2 on this card over
+   gloo (``SHF_DIST_BACKEND=gloo``, ``SHF_TRAIN_PROFILE=1``) with a
+   snapshot at every iteration: both ranks' weights digests equal, rank 0
+   the only writer, two sampler states in the snapshot, the first step's
+   update against an in-process oracle of both ranks' batches
+   (``dp_oracle``, within DP_ORACLE_TOL of each leaf's update peak), the
+   detections row for row against one process's ``test_net`` of the same
+   final.npz, K1's and K3's launches per rank (each rank's "train
+   summary" log line counts them from 0 in its own process), the
+   all-reduce's bytes and time per iteration, each rank's iteration walls
+   and the card's idle share. Then the smoke's total.
 
 Each main path runs with the launch counts set to 0 just before it and read
 just after. The second-to-last line is a JSON summary of the kernels; the
@@ -609,6 +627,7 @@ def main():
                                              nms_device, stem)
     from smallhardface_tpu_torch.ops.bbox import iou_matrix
 
+    t_smoke = time.perf_counter()
     dev = torch.device("cuda", 0)
     pristine = copy.deepcopy(cfg)
     smi = subprocess.run(
@@ -957,6 +976,7 @@ def main():
         root = wider_tree(work)
         eval_counts = eval_cli(cfg, stem, iou, nms_device, root)
         auto_resume_phase(work, root)
+        dp_counts = dp_phases(cfg, tdm, dev, pristine, root, work, smi)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -981,12 +1001,15 @@ def main():
         kernels[k]["launches_bf16_detect_many"] = bf16_many_counts[k]
     for k in ("fused_stem", "fused_stem_grad", "max_iou"):
         kernels[k]["launches_eval_cli"] = eval_counts[k]
+    for k in ("fused_stem", "max_iou"):
+        kernels[k]["launches_dp_two_ranks"] = [c[k] for c in dp_counts]
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib",
                                             "smallhardface_tpu"))
     if foreign:
         raise AssertionError(f"the port imported {foreign}")
 
+    say("total", seconds=time.perf_counter() - t_smoke, nvidia_smi=smi)
     print(json.dumps({"kernels": [kernels[k] for k in (
         "fused_stem", "fused_stem_grad", "max_iou", "bbox_vote",
         "conv3x3_int8")]}),
@@ -1837,20 +1860,6 @@ def full_tree_grad(cfg, tdm, stem, iou, dev, work):
     return counts
 
 
-def device_busy_s(prof):
-    """The union of the intervals of the device's own events (kernels,
-    copies) of a torch.profiler run, in seconds."""
-    cuda = torch.autograd.DeviceType.CUDA
-    spans = sorted((ev.time_range.start, ev.time_range.end)
-                   for ev in prof.events()
-                   if getattr(ev, "device_type", None) == cuda)
-    busy, end = 0.0, -math.inf
-    for a, b in spans:
-        busy += max(0.0, b - max(a, end))
-        end = max(end, b)
-    return busy / 1e6
-
-
 class _InlineExecutor:
     """A ThreadPoolExecutor stand-in that runs each job at submit: the
     training loop's serial order (``train_prefetch``)."""
@@ -2043,6 +2052,7 @@ def train_path(cfg, tdm, stem, iou, dev, work):
     from torch.profiler import ProfilerActivity, profile
     from smallhardface_tpu_torch.io import checkpoint
     from smallhardface_tpu_torch.train import train_loop
+    from smallhardface_tpu_torch.utils.timer import device_busy_s
     _flagship(cfg)
     rng = np.random.RandomState(SEED + 4)
     roidb = face_roidb(rng, [(768, 1024), (1024, 768), (768, 1024),
@@ -3200,6 +3210,311 @@ def auto_resume_phase(work, root):
         phase_wall_s=time.perf_counter() - t_phase)
     if not (same_dets and len(fault_dirs) == 2 and "relaunching eval" in logs):
         raise AssertionError("the relaunched evaluation differs")
+
+DP_ITERS = 3                # iterations of each data-parallel command
+DP_TIMEOUT = 300            # seconds for any one data-parallel command
+# the first step of the two ranks against the in-process oracle: the
+# largest difference of a leaf's update over the update's peak
+DP_ORACLE_TOL = 1e-4
+
+
+def _dp_amend(root, run_root, snapshot):
+    """The --amend pairs of the data-parallel commands."""
+    return ["DATA_DIR", root, "ROOT_DIR", run_root, "EXP_DIR", "dp", "NAME",
+            "dp", "TRAIN.ITERS", str(DP_ITERS), "TRAIN.SNAPSHOT",
+            str(snapshot), "TRAIN.PRETRAINED", "", "TRAIN.RESUME", "",
+            "TEST.DB", "wider_val", "TEST.NO_CACHE", "False"]
+
+
+def _dp_command(ranks, amend, train=True):
+    """The user's command at the flagship config: ``python -m
+    torch.distributed.run --standalone --nproc_per_node <ranks> -m
+    smallhardface_tpu_torch --device cuda ... --amend <amend>``, or without
+    the launcher when ``ranks`` is 0."""
+    from smallhardface_tpu_torch.config import CONFIG_DIR
+    launcher = [sys.executable]
+    if ranks:
+        launcher += ["-m", "torch.distributed.run", "--standalone",
+                     "--nproc_per_node", str(ranks)]
+    return launcher + [
+        "-m", "smallhardface_tpu_torch", "--device", "cuda", "--train",
+        "true" if train else "false", "--test", "true", "--conf",
+        os.path.join(CONFIG_DIR, "smallhardface.toml"), "--amend"] + amend
+
+
+def _dp_start(work, tag, cmd, env):
+    """Start ``cmd`` with its output in files under ``work/<tag>``; its
+    runs write under ``work/<tag>/root``."""
+    base = os.path.join(work, tag)
+    os.makedirs(base)
+    out = open(os.path.join(base, "stdout.txt"), "w")
+    err = open(os.path.join(base, "stderr.txt"), "w")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=REPO, env=env, stdout=out, stderr=err,
+                            text=True)
+    out.close()
+    err.close()
+    return proc, base, t0
+
+
+def _dp_wait(started):
+    """Wait for a started command: its wall and its train and test run
+    directories. Raises unless it exits 0."""
+    proc, base, t0 = started
+    try:
+        proc.wait(timeout=DP_TIMEOUT)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        err = open(os.path.join(base, "stderr.txt")).read()
+        raise AssertionError(f"{base}: exit {proc.returncode}:\n"
+                             f"{err[-4000:]}")
+    dirs = {}
+    for phase, db in (("train", "wider_train"), ("test", "wider_val")):
+        found = glob.glob(os.path.join(base, "root", "output", "dp", db,
+                                       "dp_*"))
+        if len(found) > 1:
+            raise AssertionError(f"{base}: ranks wrote to {found}")
+        dirs[phase] = found[0] if found else None
+    return wall, dirs
+
+
+def _train_summary(path):
+    """The "train summary" JSON a rank of ``train_net`` logs at its end."""
+    with open(path) as f:
+        for line in f:
+            if "train summary " in line:
+                return json.loads(line.split("train summary ", 1)[1])
+    raise AssertionError(f"no train summary in {path}")
+
+
+def _dets_equal(a_path, b_path):
+    with open(a_path, "rb") as f:
+        a = pickle.load(f)
+    with open(b_path, "rb") as f:
+        b = pickle.load(f)
+    return len(a) == len(b) and all(
+        len(x) == len(y) and all(np.array_equal(u, v) for u, v in zip(x, y))
+        for x, y in zip(a, b))
+
+
+def dp_oracle(cfg, tdm, dev, amend, snapshot_1):
+    """The first step of the two-rank run in this one process: both ranks'
+    first batches (rank r's loader, the bucket of the two), each rank's
+    micro-batch sums, their sum divided by 2 × ITERSIZE, one solver step.
+    Returns, per trainable leaf, max |update − the run's update| over
+    max |update|, with the run's iteration-1 snapshot."""
+    from smallhardface_tpu_torch.config import (CONFIG_DIR, cfg_from_file,
+                                                cfg_from_list)
+    from smallhardface_tpu_torch.datasets.factory import get_imdb
+    from smallhardface_tpu_torch.io import checkpoint, weights
+    from smallhardface_tpu_torch.train import solver, targets, train_loop
+    from smallhardface_tpu_torch.train.loader import (
+        RoIDataLoader, render_minibatch)
+    cfg_from_file(os.path.join(CONFIG_DIR, "smallhardface.toml"))
+    cfg_from_list(amend)
+    roidb = train_loop.get_training_roidb(get_imdb(cfg.TRAIN.DB))
+    spec = tdm.build_spec(cfg)
+    model = tdm.Detector(train_loop._init_params(spec, ""), spec, dev,
+                         trainable=True)
+    params = model.tree()
+    before = {n: {k: v.detach().clone() for k, v in leaf.items()}
+              for n, leaf in params.items()}
+    solver_type = str(cfg.TRAIN.SOLVER_TYPE)
+    opt_state = solver.init_state(before, solver_type)
+    size = int(cfg.TRAIN.ITERSIZE)
+    scale = int(np.random.RandomState(int(cfg.RNG_SEED)).randint(
+        0, len(cfg.TRAIN.SCALES.SHORT_SIDE), size=DP_ITERS)[0])
+    samples = []
+    for r in range(2):
+        loader = RoIDataLoader(roidb, rank=r)
+        plans = [loader.plan_minibatch(scale) for _ in range(size)]
+        samples.append([render_minibatch(p) for p in plans])
+    dims = np.maximum(*[train_loop._batch_dims(s) for s in samples])
+    loss_fn = train_loop.LossFn(targets.from_cfg(cfg), dev)
+    sums = []
+
+    def keep(grads):
+        sums.append([g.clone() for g in grads])
+        return 1
+    for r in range(2):
+        arrays, _, bucket = train_loop.assemble_batch(
+            samples[r], size, list(cfg.TPU.MAX_GT_BUCKETS), raw_dims=dims)
+        batch = dict(arrays)
+        for k in ("data", "gt", "gt_mask"):
+            batch[k] = torch.from_numpy(arrays[k]).to(dev)
+        train_loop.grad_step(model, loss_fn, batch, bucket[2:4], size, keep)
+    trainable = [p for p in model.parameters() if p.grad is not None]
+    for p, a, b in zip(trainable, *sums):
+        p.grad = (a + b) / (2 * size)
+    lr_mults, decay_mults = tdm.param_multipliers(spec)
+    solver.apply_update(
+        params, {n: {k: v.grad for k, v in leaf.items()}
+                 for n, leaf in params.items()},
+        opt_state, solver_type=solver_type,
+        rate=solver.learning_rate(0, cfg), lr_mults=lr_mults,
+        decay_mults=decay_mults, weight_decay=float(cfg.TRAIN.WEIGHT_DECAY),
+        momentum=float(cfg.TRAIN.MOMENTUM), iteration=0)
+    run = weights.params_from_numpy(checkpoint.load(snapshot_1)[0])
+    errs = {}
+    for n, leaf in params.items():
+        for k, v in leaf.items():
+            if lr_mults[n][k] == 0:
+                continue
+            want = (v.detach() - before[n][k]).double()
+            got = (run[n][k].to(dev) - before[n][k]).double()
+            errs[f"{n}/{k}"] = ((got - want).abs().max()
+                                / want.abs().max().clamp_min(1e-30)).item()
+    frozen_equal = all(torch.equal(run[n][k].to(dev), before[n][k])
+                       for n, leaf in params.items() for k in leaf
+                       if lr_mults[n][k] == 0)
+    return errs, frozen_equal, scale, [int(d) for d in dims]
+
+
+def dp_phases(cfg, tdm, dev, pristine, root, work, smi):
+    """Data-parallel training and evaluation through the user's command
+    (``python -m torch.distributed.run ... -m smallhardface_tpu_torch``)
+    at the flagship config on the synthetic WIDER tree ``root``.
+    ``dp_nccl_world1``: one rank over NCCL beside the same command without
+    the launcher, final.npz equal to the bit and the detections row for
+    row. ``dp_two_ranks_one_card``: two ranks on this card over gloo
+    (``SHF_DIST_BACKEND=gloo``) with ``SHF_TRAIN_PROFILE=1``: the ranks'
+    weights digests, rank 0 the only writer, the snapshot's two sampler
+    states, the first step against ``dp_oracle``, detections.pkl against
+    one process's ``test_net`` of the same final.npz, K1's and K3's
+    launches per rank, the all-reduce's bytes and time per iteration, each
+    rank's iteration walls and the card's idle share. Returns the two
+    ranks' launch counts."""
+    from smallhardface_tpu_torch import __main__ as cli
+    from smallhardface_tpu_torch.config import (CONFIG_DIR, cfg_from_file,
+                                                cfg_from_list)
+    from smallhardface_tpu_torch.io import checkpoint
+    t_phase = time.perf_counter()
+    env = {k: v for k, v in _ar_env().items()
+           if k not in ("SHF_DIST_BACKEND", "SHF_TRAIN_PROFILE")}
+
+    def amend(tag, snapshot):
+        return _dp_amend(root, os.path.join(work, tag, "root"), snapshot)
+    cfg.clear()
+    cfg.update(copy.deepcopy(pristine))
+    cfg_from_file(os.path.join(CONFIG_DIR, "smallhardface.toml"))
+    cfg_from_list(amend("dp_nccl1", 2))
+    size = int(cfg.TRAIN.ITERSIZE)
+    want_launches = {"fused_stem": DP_ITERS * size,
+                     "max_iou": DP_ITERS * size}
+    cfg.clear()
+    cfg.update(copy.deepcopy(pristine))
+
+    # ---- dp_nccl_world1, side by side with the command alone ----
+    torch.cuda.empty_cache()
+    nccl = _dp_start(work, "dp_nccl1",
+                     _dp_command(1, amend("dp_nccl1", 2)), env)
+    alone = _dp_start(work, "dp_alone",
+                      _dp_command(0, amend("dp_alone", 2)), env)
+    nccl_wall, nccl_dirs = _dp_wait(nccl)
+    alone_wall, alone_dirs = _dp_wait(alone)
+    summary = _train_summary(os.path.join(nccl_dirs["train"], "stderr.log"))
+    same = _same_npz(os.path.join(nccl_dirs["train"], "final.npz"),
+                     os.path.join(alone_dirs["train"], "final.npz"))
+    same_dets = _dets_equal(
+        os.path.join(nccl_dirs["test"], "detections.pkl"),
+        os.path.join(alone_dirs["test"], "detections.pkl"))
+    console = open(os.path.join(work, "dp_nccl1", "stderr.txt")).read()
+    reported = re.findall(r"rank 0 of 1 on (\S+), backend (\w+)", console)
+    say("dp_nccl_world1", nvidia_smi=smi, backend=summary["backend"],
+        world=summary["world"], process_group_reported=reported,
+        final_npz_bit_identical=same, detections_row_for_row=same_dets,
+        launches=summary["launches"], launches_expected=want_launches,
+        allreduce_bytes=summary["allreduce_bytes"],
+        allreduce_ms=summary["allreduce_ms"],
+        iteration_wall_s=summary["iteration_wall_s"],
+        command_wall_s=nccl_wall, alone_command_wall_s=alone_wall,
+        timing="both commands at once on the card")
+    if not (summary["backend"] == "nccl" and summary["world"] == 1
+            and same and same_dets
+            and summary["launches"] == want_launches):
+        raise AssertionError("dp_nccl_world1 failed its checks")
+
+    # ---- dp_two_ranks_one_card, alone on the card ----
+    env2 = dict(env, SHF_DIST_BACKEND="gloo", SHF_TRAIN_PROFILE="1")
+    two = _dp_start(work, "dp_gloo2",
+                    _dp_command(2, amend("dp_gloo2", 1)), env2)
+    two_wall, dirs = _dp_wait(two)
+    logs = [os.path.join(dirs[ph], name) for ph in ("train",)
+            for name in ("stderr.log", "stderr.rank1.log")]
+    sums = [_train_summary(p) for p in logs]
+    digests = [s["weights_sha256"] for s in sums]
+    wrote = [re.findall(r"Wrote snapshot to: \S+/(\S+\.npz)", open(p).read())
+             for p in logs]
+    files = sorted(os.listdir(dirs["train"]))
+    states = pickle.loads(np.asarray(checkpoint.load(os.path.join(
+        dirs["train"], "dp_iter_2.npz"))[3]["loader_state"]).tobytes())
+    launches = [s["launches"] for s in sums]
+    # the ranks time-slice the card (two processes, no MPS): the card's
+    # busy time is the sum of theirs
+    busy = [s["device_busy_s"] for s in sums]
+    loop = [s["loop_wall_s"] for s in sums]
+    reduce_ms = [s["allreduce_ms"] for s in sums]
+    errs, frozen_equal, scale, dims = dp_oracle(
+        cfg, tdm, dev, amend("dp_gloo2", 1),
+        os.path.join(dirs["train"], "dp_iter_1.npz"))
+    cfg.clear()
+    cfg.update(copy.deepcopy(pristine))
+    worst = max(errs, key=errs.get)
+    # one process's test_net of the same final.npz
+    cli.main(_dp_command(0, amend("dp_one", 2) + [
+        "TEST.MODEL", os.path.join(dirs["train"], "final.npz")],
+        train=False)[3:])
+    one_test, = glob.glob(os.path.join(work, "dp_one", "root", "output",
+                                       "dp", "wider_val", "dp_*"))
+    cfg.clear()
+    cfg.update(copy.deepcopy(pristine))
+    same_dets = _dets_equal(os.path.join(dirs["test"], "detections.pkl"),
+                            os.path.join(one_test, "detections.pkl"))
+    say("dp_two_ranks_one_card", nvidia_smi=smi,
+        backend=[s["backend"] for s in sums],
+        world=[s["world"] for s in sums],
+        weights_sha256=digests, weights_equal=len(set(digests)) == 1,
+        snapshots_written_by_rank=wrote, train_files=files,
+        sampler_states_in_snapshot=len(states),
+        first_step_vs_oracle={"max_err_over_update_peak": errs[worst],
+                              "leaf": worst, "tol": DP_ORACLE_TOL,
+                              "leaves_bit_equal": sum(
+                                  e == 0.0 for e in errs.values()),
+                              "leaves": len(errs),
+                              "frozen_leaves_unchanged": frozen_equal,
+                              "scale_index": scale, "raw_dims": dims},
+        detections_vs_one_process_row_for_row=same_dets,
+        launches=launches, launches_expected_per_rank=want_launches,
+        allreduce_bytes=[s["allreduce_bytes"] for s in sums],
+        allreduce_ms=reduce_ms,
+        allreduce_ms_per_iteration=[sum(m) / len(m) for m in reduce_ms],
+        iteration_wall_s=[s["iteration_wall_s"] for s in sums],
+        loop_wall_s=loop, device_busy_s=busy,
+        rank_idle_share=[None if b is None else 1.0 - b / w
+                         for b, w in zip(busy, loop)],
+        card_idle_share=(None if None in busy
+                         else 1.0 - sum(busy) / max(loop)),
+        command_wall_s=two_wall,
+        timing="alone on the card; busy from torch.profiler in each rank "
+               "(SHF_TRAIN_PROFILE=1); every iteration writes a snapshot")
+    ok = (len(set(digests)) == 1
+          and [s["backend"] for s in sums] == ["gloo", "gloo"]
+          and wrote[1] == []
+          and sorted(wrote[0]) == sorted(
+              [f"dp_iter_{k}.npz" for k in range(1, DP_ITERS + 1)]
+              + ["final.npz"])
+          and "stderr.rank1.log" in files and len(states) == 2
+          and errs[worst] <= DP_ORACLE_TOL and frozen_equal and same_dets
+          and launches == [want_launches] * 2)
+    if not ok:
+        raise AssertionError("dp_two_ranks_one_card failed its checks")
+    say("dp_phases", seconds=time.perf_counter() - t_phase, nvidia_smi=smi)
+    return launches
+
 
 def _match_fraction(a, b):
     """Fraction of rows of `a` with an IoU > 0.9, |Δscore| < 0.01 partner in

@@ -14,6 +14,17 @@ Each phase writes into output/<EXP_DIR>/<imdb>/<NAME>_<time>/ its
 console). ``--device cuda`` (the default) runs on the CUDA card and fails
 without one; ``--device cpu`` runs on the CPU.
 
+Under ``torchrun`` (``python -m torch.distributed.run --nproc_per_node N
+-m smallhardface_tpu_torch ...``) each of the N processes is a rank of a
+process group (``parallel.dist.init_distributed``, joined before anything
+touches the card): NCCL between cards, gloo on the CPU or with
+``SHF_DIST_BACKEND=gloo`` for ranks that share a card. Training is data
+parallel and evaluation splits the images; every rank writes under the one
+run directory rank 0 names (its ``LOG.TIME`` is broadcast), rank 0 alone
+writes the snapshots, ``final.npz``, ``cfgs.txt``, ``detections.pkl`` and
+the evaluation, and ``stderr.log`` is rank 0's log while rank r > 0 keeps
+``stderr.rank{r}.log``.
+
 ``TRAIN.AUTO_RESUME = N > 0`` survives up to N sticky CUDA faults
 (``utils.faults.device_fault``: an illegal address, a device-side assert,
 an ECC error; not running out of memory): the dead CUDA context cannot be
@@ -46,7 +57,7 @@ import torch
 from smallhardface_tpu_torch.config import (
     cfg, cfg_dump, cfg_from_file, cfg_from_list, cfg_print, cfg_table,
     get_output_dir)
-from smallhardface_tpu_torch.utils.device import resolve_device
+from smallhardface_tpu_torch.parallel import dist as pdist
 from smallhardface_tpu_torch.utils.faults import device_fault as _device_fault
 from smallhardface_tpu_torch.utils.tensorboard import Tensorboard, tb
 
@@ -75,8 +86,11 @@ def parser(argv=None):
 
 
 def _log_to(output_dir, handlers):
-    """Send the run's log into ``<output_dir>/stderr.log`` as well."""
-    handler = logging.FileHandler(osp.join(output_dir, "stderr.log"))
+    """Send the run's log into ``<output_dir>/stderr.log`` as well (rank
+    r > 0 of a process group: ``stderr.rank{r}.log``)."""
+    rank = pdist.rank()
+    name = "stderr.log" if rank == 0 else f"stderr.rank{rank}.log"
+    handler = logging.FileHandler(osp.join(output_dir, name))
     handler.setFormatter(logging.Formatter(LOG_FORMAT, LOG_DATEFMT))
     logging.getLogger().addHandler(handler)
     handlers.append(handler)
@@ -217,16 +231,22 @@ def main(argv=None):
     if args.set_cfgs:
         cfg_from_list(args.set_cfgs)
     cfg.LOG.CMD = " ".join(sys.argv)
-    cfg.LOG.TIME = datetime.datetime.now().strftime("%Y_%m_%d_%H_%M_%S")
     np.random.seed(int(cfg.RNG_SEED))
-    device = resolve_device(args.device)
-    if cfg.TENSORBOARD.ENABLE:
-        tb.client = Tensorboard(hostname=cfg.TENSORBOARD.HOSTNAME,
-                                port=cfg.TENSORBOARD.PORT)
-        tb.sess = tb.client.create_experiment(cfg.NAME + "_" + cfg.LOG.TIME)
+    # the process group (under a launcher) before anything touches the
+    # card; left on the way out, whether the run ends or raises
+    owns_group = not pdist.active()
+    device = pdist.init_distributed(args.device)
     handlers = []
     own_command_line = argv is None
     try:
+        # rank 0's clock names the run directory of every rank
+        cfg.LOG.TIME = pdist.broadcast_object(
+            datetime.datetime.now().strftime("%Y_%m_%d_%H_%M_%S"))
+        if cfg.TENSORBOARD.ENABLE:
+            tb.client = Tensorboard(hostname=cfg.TENSORBOARD.HOSTNAME,
+                                    port=cfg.TENSORBOARD.PORT)
+            tb.sess = tb.client.create_experiment(
+                cfg.NAME + "_" + cfg.LOG.TIME)
         if args.train in ("true", "True"):
             _train(device, handlers, own_command_line)
         if args.test in ("true", "True"):
@@ -236,6 +256,8 @@ def main(argv=None):
         for handler in handlers:
             logging.getLogger().removeHandler(handler)
             handler.close()
+        if owns_group:
+            pdist.shutdown()
 
 
 def _train(device, handlers, own_command_line):
@@ -248,8 +270,9 @@ def _train(device, handlers, own_command_line):
     output_dir = get_output_dir(imdb.name, cfg.NAME + "_" + cfg.LOG.TIME)
     _log_to(output_dir, handlers)
     cfg_print(cfg)
-    with open(osp.join(output_dir, "cfgs.txt"), "w") as f:
-        cfg_dump({i: cfg[i] for i in cfg if i != "TEST"}, f)
+    if pdist.rank() == 0:
+        with open(osp.join(output_dir, "cfgs.txt"), "w") as f:
+            cfg_dump({i: cfg[i] for i in cfg if i != "TEST"}, f)
     tb.sess.add_text(
         "train_cfg", cfg_table({i: cfg[i] for i in cfg if i != "TEST"}))
     try:
@@ -258,7 +281,8 @@ def _train(device, handlers, own_command_line):
                   max_iter=cfg.TRAIN.ITERS, device=device)
     except Exception as e:       # filtered inside: execs away or re-raises
         _maybe_auto_resume_train(e, output_dir, own_command_line)
-    # the trained weights go into the following test
+    # the trained weights go into the following test (train_net's last
+    # barrier: every rank sees the file rank 0 wrote)
     cfg.TEST.MODEL = osp.join(output_dir, "final.npz")
 
 
@@ -273,8 +297,9 @@ def _test(device, handlers, own_command_line):
         imdb = get_imdb(cfg.TEST.DB)
         output_dir = get_output_dir(imdb.name, cfg.NAME + "_" + cfg.LOG.TIME)
     _log_to(output_dir, handlers)
-    with open(osp.join(output_dir, "cfgs.txt"), "w") as f:
-        cfg_dump({i: cfg[i] for i in cfg if i != "TRAIN"}, f)
+    if pdist.rank() == 0:
+        with open(osp.join(output_dir, "cfgs.txt"), "w") as f:
+            cfg_dump({i: cfg[i] for i in cfg if i != "TRAIN"}, f)
     tb.sess.add_text(
         "test_cfg", cfg_table({i: cfg[i] for i in cfg if i != "TRAIN"}))
     try:

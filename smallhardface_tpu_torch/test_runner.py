@@ -2,25 +2,29 @@
 demo.
 
 Counterpart of ``smallhardface_tpu/test_runner.py``: ``_load_params``
-(:31-43), ``inference_worker`` (:46-145), ``run_inference`` (:178-222),
-``demo`` (:225-241), ``get_testing_roidb`` (:244-252) and ``test_net``
-(:255-324), on one device:
+(:31-43), ``inference_worker`` (:46-145), ``_process_range`` (:148-157),
+``run_inference`` (:178-222), ``demo`` (:225-241), ``get_testing_roidb``
+(:244-252) and ``test_net`` (:255-324), with one device per process:
 
-- one worker runs every image of the imdb through ``TorchDetector``, three
-  images in flight (``detect_async`` enqueues an image's pyramid and vote
-  on the device, ``finalize_async`` reads one back), or one at a time
-  under ``TPU.HOST_PREPROC``;
+- each process (a rank of ``parallel.dist``, or the only one) runs a
+  contiguous block of the imdb's images through ``TorchDetector`` on its
+  card, three images in flight (``detect_async`` enqueues an image's
+  pyramid and vote on the device, ``finalize_async`` reads one back), or
+  one at a time under ``TPU.HOST_PREPROC``; over W ranks an all-gather
+  brings every block back in imdb order on every rank;
 - under ``TPU.EVAL_BATCH > 1`` every full group of exactly EVAL_BATCH
-  images of one ``_prep`` key runs as one ``detect_many`` batch, and the
-  images left over run one at a time (JAX test_runner.py:89-122);
+  images of one ``_prep`` key within the block runs as one ``detect_many``
+  batch, and the images left over run one at a time (JAX
+  test_runner.py:89-122);
 - ``test_net`` caches the detections in ``detections.pkl`` and hands them
-  to the imdb's evaluator; ``SHF_FAULT_TEST=1`` makes the first process
-  of a ``TRAIN.AUTO_RESUME`` run meet an injected sticky CUDA fault
-  before it detects.
+  to the imdb's evaluator; rank 0 alone reads and writes the cache and
+  evaluates, and its cache hit is broadcast, so that no rank waits in a
+  gather the others skip; ``SHF_FAULT_TEST=1`` makes the first process of
+  a ``TRAIN.AUTO_RESUME`` run meet an injected sticky CUDA fault before
+  it detects.
 
-Spatial meshes (``TPU.SPATIAL_DEVICES > 1``) and more than one process
-raise: they wait for spatial sharding and multi-GPU evaluation (ROADMAP
-queue 1).
+Spatial meshes (``TPU.SPATIAL_DEVICES > 1``) raise: they wait for spatial
+sharding (ROADMAP queue 1 item 14).
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ from smallhardface_tpu_torch.config import cfg
 from smallhardface_tpu_torch.detect import TorchDetector, _imread
 from smallhardface_tpu_torch.io import caffemodel, weights
 from smallhardface_tpu_torch.models import detector as detector_mod
+from smallhardface_tpu_torch.parallel import dist as pdist
 from smallhardface_tpu_torch.utils.faults import injected_fault
 from smallhardface_tpu_torch.utils.tensorboard import tb
 from smallhardface_tpu_torch.utils.timer import Timer
@@ -64,20 +69,22 @@ def _load_params(spec):
     return weights.load_params(path)
 
 
-def _check_single_device():
-    """The evaluation settings that need more than one device raise."""
+def _check_no_spatial():
+    """Spatial meshes raise: they are not ported yet."""
     if int(cfg.TPU.SPATIAL_DEVICES) > 1:
         raise NotImplementedError(
             f"TPU.SPATIAL_DEVICES={cfg.TPU.SPATIAL_DEVICES}: spatial "
             "sharding is not ported yet (ROADMAP queue 1, 'Spatial "
             "H-sharding')")
-    if int(os.environ.get("WORLD_SIZE", "1")) > 1 or (
-            torch.distributed.is_available()
-            and torch.distributed.is_initialized()
-            and torch.distributed.get_world_size() > 1):
-        raise NotImplementedError(
-            "evaluation in more than one process is not ported yet (ROADMAP "
-            "queue 1, 'Multi-GPU')")
+
+
+def _process_range(n_total):
+    """The contiguous block of images this rank owns (JAX
+    test_runner.py:148-157; the reference's worker sharding,
+    lib/test.py:319-344)."""
+    per = int(np.ceil(n_total / pdist.world()))
+    first = per * pdist.rank()
+    return min(first, n_total), min(first + per, n_total)
 
 
 def inference_worker(rank, device, imdb, params, spec, start, end, thresh):
@@ -164,11 +171,19 @@ def inference_worker(rank, device, imdb, params, spec, start, end, thresh):
 
 
 def run_inference(imdb, params, spec, thresh, device=None):
-    """Every image of the imdb on one device: ``dets[class][image]``."""
-    _check_single_device()
-    _, dets = inference_worker(0, device, imdb, params, spec, 0, len(imdb),
+    """Every image of the imdb: ``dets[class][image]``. Each rank detects
+    its block on ``device``; over W ranks the blocks are all-gathered
+    (pickled, as JAX's _allgather_detections, test_runner.py:159-176), so
+    every rank returns the whole list in imdb order."""
+    _check_no_spatial()
+    start, end = _process_range(len(imdb))
+    _, dets = inference_worker(0, device, imdb, params, spec, start, end,
                                thresh)
-    return dets
+    if pdist.world() == 1:
+        return dets
+    parts = pdist.allgather_object(dets)
+    return [[im_dets for part in parts for im_dets in part[c]]
+            for c in range(imdb.num_classes)]
 
 
 def demo(params, spec, thresh, output_dir, device=None):
@@ -209,7 +224,11 @@ def test_net(imdb, output_dir, thresh=0.05, no_cache=False, step=0,
     """Evaluate on the imdb (the demo when it is None): detections of every
     image, cached in ``<output_dir>/detections.pkl`` unless ``no_cache``,
     then the imdb's ``evaluate_detections``. Returns its result string.
-    Runs on ``device``, the CUDA card when None."""
+    Runs on ``device``, the CUDA card when None. Under a launcher
+    (torchrun) the process joins the process group first and detects its
+    block of the images on its card; rank 0 alone reads and writes the
+    cache and evaluates, and the other ranks return None."""
+    device = pdist.init_distributed(device)
     if cfg.TEST.LEVEL:
         logger.warning("TEST.LEVEL=%s ignored: the different-dilation "
                        "model has a single proposal module", cfg.TEST.LEVEL)
@@ -220,9 +239,10 @@ def test_net(imdb, output_dir, thresh=0.05, no_cache=False, step=0,
         assert cfg.TEST.DEMO.ENABLE, "check your config and stderr!"
         return demo(params, spec, thresh, output_dir, device)
     logger.info("Evaluating %s on %s", cfg.NAME, imdb.name)
+    rank = pdist.rank()
     dets = None
     det_file = osp.join(output_dir, "detections.pkl")
-    if not no_cache and osp.exists(det_file):
+    if rank == 0 and not no_cache and osp.exists(det_file):
         try:
             with open(det_file, "rb") as f:
                 dets = pickle.load(f)
@@ -231,7 +251,9 @@ def test_net(imdb, output_dir, thresh=0.05, no_cache=False, step=0,
             logger.warning("Could not load the cached detections file, "
                            "detecting from scratch!")
             dets = None
-    if dets is None:
+    # every rank detects, or none does: a rank that skipped the gather
+    # would leave the others waiting in it
+    if not pdist.broadcast_object(dets is not None):
         if (os.environ.get("SHF_FAULT_TEST") == "1"
                 and "SHF_AUTO_RESUME_LEFT" not in os.environ):
             # test-only fault injection (JAX test_runner.py:299-307): the
@@ -241,9 +263,13 @@ def test_net(imdb, output_dir, thresh=0.05, no_cache=False, step=0,
             raise injected_fault("SHF_FAULT_TEST")
         dets = run_inference(imdb, params, spec, thresh, device)
         assert len(dets[0]) == len(imdb), "Detection result compromised"
-        if not no_cache:
+        if rank == 0 and not no_cache:
             with open(det_file, "wb") as f:
                 pickle.dump(dets, f, pickle.HIGHEST_PROTOCOL)
+    if rank != 0:
+        logger.info("Rank %d: detections gathered to rank 0, which writes "
+                    "and evaluates them", rank)
+        return None
     logger.info("Evaluating detections")
     result = imdb.evaluate_detections(
         all_boxes=dets, output_dir=output_dir, method_name=cfg.NAME,

@@ -1,60 +1,71 @@
-"""Training on one device.
+"""Training on one device, or data-parallel over W processes.
 
-Counterpart of the single-device parts of
-``smallhardface_tpu/train/train_loop.py``: ``BUCKET``, ``_snap``,
-``_snap_gt``, ``_batch_dims`` and ``assemble_batch`` (:417-493),
-``preprocess_image`` (:97-114), the loss of ``_make_loss_fn`` (:138-181)
+Counterpart of ``smallhardface_tpu/train/train_loop.py``: ``BUCKET``,
+``_snap``, ``_snap_gt``, ``_batch_dims`` and ``assemble_batch``
+(:417-493), ``preprocess_image`` (:97-114), the loss of ``_make_loss_fn``
+(:138-181), the step of ``make_train_step`` (:186-242),
 ``get_training_roidb`` (:75-95) and ``train_net`` (:514), with the mesh
-replaced by one ``device``:
+replaced by one process per card (``parallel.dist``):
 
-- each iteration takes ``TRAIN.ITERSIZE`` images from the loader at one
-  scale of a sequence drawn from ``RandomState(RNG_SEED)``, pads them to a
-  shared bucket, and uploads the uint8 originals;
+- each iteration takes ``TRAIN.ITERSIZE`` images on each rank from that
+  rank's loader at one scale of a sequence drawn from
+  ``RandomState(RNG_SEED)``, pads them to a bucket shared by every rank,
+  and uploads the uint8 originals;
 - per image: the fused resize + crop + mean subtraction on the device, the
   forward in the ``"where"`` mask mode, anchor targets with OHEM on the
   detached background probability (the JAX ``stop_gradient``), and the
   softmax and smooth-L1 losses; ``backward`` accumulates the gradients;
-- the gradients are divided by iter_size (one device) and the solver steps
-  in place; the easy-image flags go back to the loader and the losses are
+- the summed gradients are summed over the ranks (one all-reduce, the JAX
+  ``psum``), divided by W × iter_size once, and the solver steps in place;
+  the easy-image flags go back to the rank's loader and the losses are
   logged one iteration later, after the next batch is fetched, as in the
   JAX loop (at once on a snapshot iteration);
-- snapshots ``{prefix}_iter_{k}.npz`` and ``final.npz`` carry the weights
-  (HWIO, the JAX package's layout, so either package loads them), the
-  optimizer slots, the iteration and the pickled loader state;
-  ``TRAIN.RESUME`` restores all of them, so a resumed run replays the same
-  data stream and reaches the same weights to the bit; ``final.caffemodel``
-  is written beside ``final.npz``, and a ``.caffemodel`` pretrained model
-  is loaded by layer name;
+- snapshots ``{prefix}_iter_{k}.npz`` and ``final.npz``, written by rank 0
+  alone, carry the weights (HWIO, the JAX package's layout, so either
+  package loads them), the optimizer slots, the iteration and the pickled
+  sampler states of every rank in rank order; ``TRAIN.RESUME`` restores
+  all of them, so a resumed run at the same world size replays the same
+  data stream and reaches the same weights to the bit;
+  ``final.caffemodel`` is written beside ``final.npz``, and a
+  ``.caffemodel`` pretrained model is loaded by layer name;
 - SIGINT writes a snapshot and stops, SIGHUP writes a snapshot at the next
-  iteration (the Caffe solver's signal actions, JAX train_loop.py:779-805,
-  one process); ``SHF_FAULT_ITER=K`` makes a run from scratch raise an
-  injected sticky CUDA fault at iteration K, which the command line's
+  iteration (the Caffe solver's signal actions, JAX train_loop.py:779-805);
+  over W ranks the flags ride the all-gather of the bucket extents, so a
+  signal delivered to one rank acts on every rank at the same iteration;
+  ``SHF_FAULT_ITER=K`` makes a run from scratch raise an injected sticky
+  CUDA fault at iteration K, which the command line's
   ``TRAIN.AUTO_RESUME`` relaunch recovers from.
 
 A prefetch thread builds the next iteration's batch while the device runs
 the current one, as the JAX loop's does (its train_loop.py:808-922): it
 draws the iteration's samples in order (``RoIDataLoader.plan_minibatch``),
 renders their pixels on a pool of ``TRAIN.ITERSIZE`` threads
-(``loader.render_minibatch``) and returns the padded batch in host memory
-(pinned on a CUDA device), which the main thread copies to the device
-without blocking at the start of the step. The easy-image marks reach the
-loader in one fixed order whatever the threads' timing (see ``train_net``),
-so the data stream, the weights and a resume stay equal to the bit to the
-serial order. Training runs in float32: int8 has no gradient, and the JAX
-package's bf16 gradient fails (see ``train_net``).
-Multi-device, spatial and grouped steps are not ported yet (ROADMAP
-queue 1).
+(``loader.render_minibatch``) and, in one process, returns the padded
+batch in host memory (pinned on a CUDA device), which the main thread
+copies to the device without blocking at the start of the step. Over W
+ranks it returns the rendered samples, and the main thread agrees on the
+bucket with the other ranks before it pads and pins them: no collective is
+issued from a worker thread. The easy-image marks reach the loader in one
+fixed order whatever the threads' timing (see ``train_net``), so the data
+stream, the weights and a resume stay equal to the bit to the serial
+order. Training runs in float32: int8 has no gradient, and the JAX
+package's bf16 gradient fails (see ``train_net``). Spatial and grouped
+steps are not ported yet (ROADMAP queue 1 item 14).
 """
 
 from __future__ import annotations
 
+import contextlib
 import datetime
+import hashlib
+import json
 import logging
 import math
 import os
 import os.path as osp
 import pickle
 import signal
+import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 
@@ -66,16 +77,18 @@ from smallhardface_tpu_torch.detect import linear_resize_weights
 from smallhardface_tpu_torch.io import caffemodel, checkpoint, weights
 from smallhardface_tpu_torch.models import detector as detector_mod
 from smallhardface_tpu_torch.ops import anchors as anchors_mod
+from smallhardface_tpu_torch.ops import iou as iou_mod
+from smallhardface_tpu_torch.ops import stem as stem_mod
+from smallhardface_tpu_torch.parallel import dist as pdist
 from smallhardface_tpu_torch.train import solver as solver_mod
 from smallhardface_tpu_torch.train import targets as targets_mod
 from smallhardface_tpu_torch.train.loader import (
     RoIDataLoader, render_minibatch)
 from smallhardface_tpu_torch.train.losses import (
     smooth_l1, softmax_ce_with_ignore)
-from smallhardface_tpu_torch.utils.device import resolve_device
 from smallhardface_tpu_torch.utils.faults import injected_fault
 from smallhardface_tpu_torch.utils.tensorboard import tb
-from smallhardface_tpu_torch.utils.timer import Timer
+from smallhardface_tpu_torch.utils.timer import Timer, device_busy_s
 
 logger = logging.getLogger(__name__)
 
@@ -106,13 +119,17 @@ def _batch_dims(samples):
     ], np.int64)
 
 
-def assemble_batch(samples, iter_size, gt_buckets):
+def assemble_batch(samples, iter_size, gt_buckets, raw_dims=None):
     """Pad the loader samples of one iteration to shared bucket shapes.
     ``data`` carries the distorted uint8 ORIGINALS, edge-padded so that the
     device resize clamps at image borders like cv2; resize and crop happen
-    on the device via (scale, crop). Returns (arrays dict with a leading
-    iter_size axis, im_idx list, bucket key (h0b, w0b, hb, wb, gb))."""
-    hmax, wmax, h0max, w0max, gmax = (int(v) for v in _batch_dims(samples))
+    on the device via (scale, crop). ``raw_dims`` overrides the samples'
+    own ``_batch_dims`` (over W ranks: their maximum over every rank).
+    Returns (arrays dict with a leading iter_size axis, im_idx list,
+    bucket key (h0b, w0b, hb, wb, gb))."""
+    if raw_dims is None:
+        raw_dims = _batch_dims(samples)
+    hmax, wmax, h0max, w0max, gmax = (int(v) for v in raw_dims)
     hb = _snap(_snap(hmax, cfg.MAX_RESOLUTION), BUCKET)
     wb = _snap(_snap(wmax, cfg.MAX_RESOLUTION), BUCKET)
     h0b, w0b = _snap(h0max, BUCKET), _snap(w0max, BUCKET)
@@ -211,9 +228,15 @@ class LossFn:
         return cls_loss + reg_loss, aux
 
 
-def grad_step(model, loss_fn, batch, out_shape, iter_size):
+def grad_step(model, loss_fn, batch, out_shape, iter_size, reduce=None):
     """Forward and backward of every micro-batch of one iteration; the
-    parameters' ``.grad`` ends as the mean over micro-batches. Returns the
+    parameters' ``.grad`` ends as the mean over micro-batches and ranks:
+    the sum over micro-batches (``backward`` accumulates), then
+    ``reduce(grads)``, which sums the gradients over the W ranks in place
+    and returns W (None: one process), then one division by
+    W × iter_size, as the JAX step's ``psum`` and division
+    (train_loop.py:219-224). Only the leaves that take a gradient, those
+    with a learning-rate multiplier above 0, are reduced. Returns the
     metrics as a (len(METRIC_KEYS), iter_size) float32 device tensor."""
     for p in model.parameters():
         p.grad = None
@@ -226,9 +249,10 @@ def grad_step(model, loss_fn, batch, out_shape, iter_size):
         loss.backward()
         rows.append(torch.stack([aux[k].detach().float()
                                  for k in METRIC_KEYS]))
-    for p in model.parameters():
-        if p.grad is not None:
-            p.grad.div_(iter_size)
+    grads = [p.grad for p in model.parameters() if p.grad is not None]
+    n_ranks = 1 if reduce is None else reduce(grads)
+    for g in grads:
+        g.div_(n_ranks * iter_size)
     return torch.stack(rows, dim=1)
 
 
@@ -322,18 +346,49 @@ def _resume(model, opt_state, solver_type):
     return start_iter, extra
 
 
+PROFILE_ENV = "SHF_TRAIN_PROFILE"
+
+
+def _weights_digest(model):
+    """sha256 of the weights, leaf by leaf in name order."""
+    digest = hashlib.sha256()
+    for name, leaf in sorted(model.tree().items()):
+        for k in sorted(leaf):
+            digest.update(leaf[k].detach().cpu().numpy().tobytes())
+    return digest.hexdigest()
+
+
+def _check_world(world):
+    """TPU.NUM_DEVICES: -1 takes the world size; any other value must equal
+    it (one process per card: the port cannot clamp as make_mesh does)."""
+    n_devices = int(cfg.TPU.NUM_DEVICES)
+    if n_devices > 0 and n_devices != world:
+        raise ValueError(
+            f"TPU.NUM_DEVICES={n_devices} but this run has {world} rank(s): "
+            "the port trains with one process per card, so launch that many "
+            "ranks (torchrun --nproc_per_node) or set TPU.NUM_DEVICES = -1")
+
+
 def train_net(roidb, output_dir, pretrained_model, max_iter, device=None,
               progress_hook=None):
-    """Train the detector on one device (the CUDA card when ``device`` is
-    None; raises when there is none). Snapshots and final weights land in
+    """Train the detector on one device, the CUDA card when ``device`` is
+    None (raises when there is none). Under a launcher (torchrun) the
+    process first joins the process group (``parallel.dist
+    .init_distributed``) and trains as one of W ranks on its own card;
+    rank 0 alone writes. Snapshots and final weights land in
     ``output_dir``. ``progress_hook(it, metrics)`` is called after every
-    iteration with (1, iter_size) float32 arrays under METRIC_KEYS
-    ("easy" as bool) and the iteration's bucket under "bucket". Returns
-    the trained ``Detector``. On the main thread SIGINT and SIGHUP act
-    as in the module docstring; the previous handlers are back, and the
-    prefetch and render threads have ended, when it returns or raises.
-    An error in the prefetch thread is raised here as the same object."""
-    device = resolve_device(device)
+    iteration with this rank's (1, iter_size) float32 arrays under
+    METRIC_KEYS ("easy" as bool) and the iteration's bucket under
+    "bucket". Returns the trained ``Detector``. On the main thread SIGINT
+    and SIGHUP act as in the module docstring; the previous handlers are
+    back, and the prefetch and render threads have ended, when it returns
+    or raises. An error in the prefetch thread is raised here as the same
+    object. With ``SHF_TRAIN_PROFILE=1`` on a card the iterations run
+    under torch.profiler (device activity only), and the summary logged at
+    the end (always logged over W ranks) carries the device's busy time."""
+    device = pdist.init_distributed(device)
+    world, rank = pdist.world(), pdist.rank()
+    dp = pdist.active()
     precision = str(cfg.TPU.PRECISION)
     if precision == "int8":
         raise ValueError(
@@ -350,7 +405,8 @@ def train_net(roidb, output_dir, pretrained_model, max_iter, device=None,
     if int(cfg.TPU.SPATIAL_DEVICES) > 1:
         raise NotImplementedError(
             "spatial and grouped training are not ported yet (ROADMAP "
-            "queue 1, 'Spatial H-sharding with K4')")
+            "queue 1 item 14, 'Spatial H-sharding with K4')")
+    _check_world(world)
     spec = detector_mod.build_spec(cfg)
     tc = targets_mod.from_cfg(cfg)
     iter_size = int(cfg.TRAIN.ITERSIZE)
@@ -371,47 +427,93 @@ def train_net(roidb, output_dir, pretrained_model, max_iter, device=None,
     if start_iter >= max_iter:
         logger.warning("Resume iteration %d >= max_iter %d: writing final "
                        "weights without training", start_iter, max_iter)
-        _save_final(output_dir, model, opt_state, start_iter, resume_extra)
+        if rank == 0:
+            _save_final(output_dir, model, opt_state, start_iter,
+                        resume_extra)
+        pdist.barrier()
         return model
 
     # test-only fault injection: SHF_FAULT_ITER=K makes a run from scratch
     # raise a sticky device fault at iteration K (a resumed run is immune,
     # so the relaunch completes): tests/test_torch_port_auto_resume.py
     fault_iter = int(os.environ.get("SHF_FAULT_ITER", "0") or 0)
-    loader = RoIDataLoader(roidb, rank=0)
+    # one loader per rank, seeded by the rank: rank r draws what device r
+    # of a JAX mesh of W devices draws
+    loader = RoIDataLoader(roidb, rank=rank)
     if resume_extra.get("loader_state") is not None:
         states = pickle.loads(
             np.asarray(resume_extra["loader_state"]).tobytes())
-        if len(states) == 1:
-            loader.load_state_dict(states[0])
-            logger.info("Restored sampler state")
+        if len(states) == world:
+            loader.load_state_dict(states[rank])
+            logger.info("Restored sampler state for %d ranks", world)
         else:
+            # as JAX (train_loop.py:706-716): weights, slots and iteration
+            # are restored, the samplers are not
             logger.warning("Checkpoint sampler state has %d ranks but this "
-                           "run has 1; the sampler restarts fresh",
-                           len(states))
+                           "run has %d; samplers restart fresh",
+                           len(states), world)
     host_rng = np.random.RandomState(int(cfg.RNG_SEED))
     num_scales = len(cfg.TRAIN.SCALES.SHORT_SIDE)
     scale_seq = host_rng.randint(0, num_scales, size=max_iter)
 
     pin = device.type == "cuda"
 
-    def build_batch(it, marks):
-        """Batch ``it``, on the prefetch thread: the easy-image marks it was
-        handed, then every draw of the iteration in order, then the pixels
-        of its images in parallel and the padding. Returns host tensors,
-        pinned for a CUDA device."""
-        for idx in marks:
-            loader.mark_easy(idx)
-        plans = [loader.plan_minibatch(int(scale_seq[it]))
-                 for _ in range(iter_size)]
-        renders = [renderers.submit(render_minibatch, p) for p in plans]
-        arrays, im_idx, bucket = assemble_batch(
-            [r.result() for r in renders], iter_size, gt_buckets)
+    def to_host_tensors(assembled):
+        """The padded batch's device-bound arrays as host tensors, pinned
+        for a CUDA device."""
+        arrays, im_idx, bucket = assembled
         for k in ("data", "gt", "gt_mask"):
             arrays[k] = torch.from_numpy(arrays[k])
             if pin:
                 arrays[k] = arrays[k].pin_memory()
         return arrays, im_idx, bucket
+
+    def build_batch(it, marks):
+        """Batch ``it``, on the prefetch thread: the easy-image marks it was
+        handed, then every draw of the iteration in order, then the pixels
+        of its images in parallel. In one process it also pads them and
+        returns host tensors; over W ranks it returns the rendered samples,
+        which ``finish_batch`` pads on the main thread."""
+        for idx in marks:
+            loader.mark_easy(idx)
+        plans = [loader.plan_minibatch(int(scale_seq[it]))
+                 for _ in range(iter_size)]
+        renders = [renderers.submit(render_minibatch, p) for p in plans]
+        samples = [r.result() for r in renders]
+        if dp:
+            return samples
+        return to_host_tensors(assemble_batch(samples, iter_size,
+                                              gt_buckets))
+
+    # Signal actions, polled once per iteration like the Caffe solver loop
+    # (JAX train_loop.py:779-805): SIGINT → snapshot and stop, SIGHUP →
+    # snapshot. The handler only sets a flag in ``actions``; a signal that
+    # lands during a blocking CUDA call is handled when the call returns.
+    # Over W ranks the loop acts on ``agreed``, the maximum of every rank's
+    # flags: a rank acting alone would leave the others waiting in their
+    # next collective.
+    actions = {"stop": False, "snapshot": False}
+    agreed = {"stop": False, "snapshot": False}
+
+    def finish_batch(got):
+        """On the main thread, over W ranks: one all-gather agrees on the
+        bucket (the maximum of every rank's ``_batch_dims``) and carries
+        the signal flags (JAX finish_batch, train_loop.py:751-775), then
+        the samples are padded and pinned. In one process ``got`` is done
+        already."""
+        if not dp:
+            return got
+        # pop reads and clears the local snapshot flag in one step against
+        # the handler; once gathered it reaches every rank
+        snap = bool(actions.pop("snapshot", False))
+        gathered = pdist.allgather_max(np.concatenate([
+            _batch_dims(got),
+            np.array([int(actions["stop"]), int(snap)], np.int64)]))
+        if gathered[-2]:
+            agreed["stop"] = True
+        agreed["snapshot"] = bool(gathered[-1])
+        return to_host_tensors(assemble_batch(got, iter_size, gt_buckets,
+                                              raw_dims=gathered[:-2]))
 
     pending_marks = []      # easy-image marks not yet handed to the loader
 
@@ -461,12 +563,23 @@ def train_net(roidb, output_dir, pretrained_model, max_iter, device=None,
             metrics["bucket"] = m_bucket
             progress_hook(it1, metrics)
 
-    # Signal actions, polled once per iteration like the Caffe solver loop
-    # (JAX train_loop.py:779-805): SIGINT → snapshot and stop, SIGHUP →
-    # snapshot. The handler only sets a flag; a signal that lands during a
-    # blocking CUDA call is handled when the call returns.
-    actions = {"stop": False, "snapshot": False}
-    prev_handlers = {}
+    # the all-reduce of the gradients, timed: CUDA events on a card (read
+    # after the loop), the host clock on the CPU
+    reduced = {"bytes": 0, "events": [], "walls": []}
+
+    def reduce(grads):
+        if device.type == "cuda":
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            reduced["bytes"] = pdist.allreduce_sum_(grads)
+            end.record()
+            reduced["events"].append((start, end))
+        else:
+            t0 = time.perf_counter()
+            reduced["bytes"] = pdist.allreduce_sum_(grads)
+            reduced["walls"].append(time.perf_counter() - t0)
+        return world
 
     def on_signal(signum, frame):
         if signum == signal.SIGINT:
@@ -477,11 +590,19 @@ def train_net(roidb, output_dir, pretrained_model, max_iter, device=None,
             actions["snapshot"] = True
             logger.warning("SIGHUP received: snapshot at next iteration")
 
+    prev_handlers = {}
     try:
         for sig in (signal.SIGINT, signal.SIGHUP):
             prev_handlers[sig] = signal.signal(sig, on_signal)
     except ValueError:
         prev_handlers = {}      # not on the main thread
+    profile = (device.type == "cuda"
+               and os.environ.get(PROFILE_ENV) == "1")
+    profiler = (torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CUDA]) if profile
+        else contextlib.nullcontext())
+    launches0 = (stem_mod.fused_stem.launches, iou_mod.max_iou.launches)
+    walls = []
     # the module's ThreadPoolExecutor, which tests replace with an inline
     # stand-in: one prefetch worker, and the iteration's renders at once
     prefetch = ThreadPoolExecutor(max_workers=1,
@@ -500,64 +621,75 @@ def train_net(roidb, output_dir, pretrained_model, max_iter, device=None,
         # fetch before its step, so none is in flight when it applies every
         # pending mark, captures the sampler, writes the snapshot, and only
         # then starts the next fetch: a resume replays the same stream.
+        # Every collective (the bucket's all-gather, the gradients'
+        # all-reduce, the samplers' gather, the barrier after a write) is
+        # issued from this thread, in the same order on every rank.
         pending = fetch(start_iter)
         deferred = None
-        for it in range(start_iter, max_iter):
-            t.tic()
-            fut, pending = pending, None
-            host, im_idx, bucket = fut.result()
-            it1 = it + 1
-            if fault_iter and it1 == fault_iter and start_iter == 0:
-                raise injected_fault("SHF_FAULT_ITER")
-            # the snapshot and stop decision up front (JAX :873-880): a
-            # signal that lands later in this iteration acts at the next
-            # one; pop reads and clears the flag in one step against the
-            # handler
-            will_stop = bool(actions["stop"])
-            snap_req = bool(actions.pop("snapshot", False))
-            will_snap = (it1 % int(cfg.TRAIN.SNAPSHOT) == 0
-                         or it1 == max_iter or snap_req or will_stop)
-            if not will_snap:
-                pending = fetch(it1)
-            batch = dict(host)
-            for k in ("data", "gt", "gt_mask"):
-                batch[k] = host[k].to(device, non_blocking=True)
-            rate = solver_mod.learning_rate(it, cfg)
-            metrics_dev = grad_step(model, loss_fn, batch, bucket[2:4],
-                                    iter_size)
-            solver_mod.apply_update(
-                params, {n: {k: v.grad for k, v in leaf.items()}
-                         for n, leaf in params.items()},
-                opt_state, solver_type=solver_type, rate=rate,
-                lr_mults=lr_mults, decay_mults=decay_mults,
-                weight_decay=float(cfg.TRAIN.WEIGHT_DECAY),
-                momentum=float(cfg.TRAIN.MOMENTUM), iteration=it)
-            if deferred is not None:
-                process_metrics(deferred)
-                deferred = None
-            record = (it1, metrics_dev, im_idx, rate, bucket)
-            if not will_snap:
-                deferred = record
-                t.toc()
-                continue
-            process_metrics(record)
-            for idx in pending_marks:
-                loader.mark_easy(idx)
-            pending_marks.clear()
-            extra = {"loader_state": np.frombuffer(
-                pickle.dumps([loader.state_dict()]), dtype=np.uint8)}
-            _save(osp.join(output_dir,
-                           f"{snapshot_prefix}_iter_{it1}.npz"),
-                  model, opt_state, it1, extra)
-            if it1 == max_iter:
-                _save_final(output_dir, model, opt_state, it1, extra)
-            elif not will_stop:
-                # a stop iteration fetches no next batch
-                pending = fetch(it1)
-            t.toc()
-            if will_stop:
-                logger.warning("Stopping at iteration %d on signal", it1)
-                break
+        with profiler:
+            for it in range(start_iter, max_iter):
+                t.tic()
+                fut, pending = pending, None
+                host, im_idx, bucket = finish_batch(fut.result())
+                it1 = it + 1
+                if fault_iter and it1 == fault_iter and start_iter == 0:
+                    raise injected_fault("SHF_FAULT_ITER")
+                # the snapshot and stop decision up front (JAX :873-880): a
+                # signal that lands later in this iteration acts at the
+                # next one; pop reads and clears the flag in one step
+                # against the handler
+                flags = agreed if dp else actions
+                will_stop = bool(flags["stop"])
+                snap_req = bool(flags.pop("snapshot", False))
+                will_snap = (it1 % int(cfg.TRAIN.SNAPSHOT) == 0
+                             or it1 == max_iter or snap_req or will_stop)
+                if not will_snap:
+                    pending = fetch(it1)
+                batch = dict(host)
+                for k in ("data", "gt", "gt_mask"):
+                    batch[k] = host[k].to(device, non_blocking=True)
+                rate = solver_mod.learning_rate(it, cfg)
+                metrics_dev = grad_step(model, loss_fn, batch, bucket[2:4],
+                                        iter_size, reduce if dp else None)
+                solver_mod.apply_update(
+                    params, {n: {k: v.grad for k, v in leaf.items()}
+                             for n, leaf in params.items()},
+                    opt_state, solver_type=solver_type, rate=rate,
+                    lr_mults=lr_mults, decay_mults=decay_mults,
+                    weight_decay=float(cfg.TRAIN.WEIGHT_DECAY),
+                    momentum=float(cfg.TRAIN.MOMENTUM), iteration=it)
+                if deferred is not None:
+                    process_metrics(deferred)
+                    deferred = None
+                record = (it1, metrics_dev, im_idx, rate, bucket)
+                if not will_snap:
+                    deferred = record
+                    walls.append(t.toc(average=False))
+                    continue
+                process_metrics(record)
+                for idx in pending_marks:
+                    loader.mark_easy(idx)
+                pending_marks.clear()
+                # every rank's sampler, in rank order: the layout of a JAX
+                # run over W devices (train_loop.py:929-941)
+                states = pdist.allgather_object(loader.state_dict())
+                if rank == 0:
+                    extra = {"loader_state": np.frombuffer(
+                        pickle.dumps(states), dtype=np.uint8)}
+                    _save(osp.join(output_dir,
+                                   f"{snapshot_prefix}_iter_{it1}.npz"),
+                          model, opt_state, it1, extra)
+                    if it1 == max_iter:
+                        _save_final(output_dir, model, opt_state, it1, extra)
+                # no rank goes on before rank 0's files are written
+                pdist.barrier()
+                if it1 != max_iter and not will_stop:
+                    # a stop iteration fetches no next batch
+                    pending = fetch(it1)
+                walls.append(t.toc(average=False))
+                if will_stop:
+                    logger.warning("Stopping at iteration %d on signal", it1)
+                    break
     finally:
         # no worker outlives the call: a queued fetch is cancelled and the
         # one in flight finishes before this returns or raises (and before
@@ -571,5 +703,37 @@ def train_net(roidb, output_dir, pretrained_model, max_iter, device=None,
                          exc_info=pending.exception())
         for sig, handler in prev_handlers.items():
             signal.signal(sig, handler)
+    if dp or profile:
+        _log_summary(model, device, world, rank, walls, reduced,
+                     (stem_mod.fused_stem.launches - launches0[0],
+                      iou_mod.max_iou.launches - launches0[1]),
+                     device_busy_s(profiler) if profile else None)
     logger.info("done solving!")
     return model
+
+
+def _log_summary(model, device, world, rank, walls, reduced, launches,
+                 busy_s):
+    """One "train summary" log line (JSON) for this rank: its iteration
+    walls, the gradients' all-reduce (bytes and ms per iteration), K1's
+    and K3's launches, the device's busy seconds under SHF_TRAIN_PROFILE
+    and the weights' digest. Over W ranks the digests must agree: every
+    rank applies the same all-reduced update."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+        reduce_ms = [a.elapsed_time(b) for a, b in reduced["events"]]
+    else:
+        reduce_ms = [1e3 * w for w in reduced["walls"]]
+    digest = _weights_digest(model)
+    summary = {
+        "rank": rank, "world": world, "backend": pdist.backend(),
+        "device": str(device), "iterations": len(walls),
+        "iteration_wall_s": walls, "loop_wall_s": sum(walls),
+        "allreduce_bytes": reduced["bytes"], "allreduce_ms": reduce_ms,
+        "launches": {"fused_stem": launches[0], "max_iou": launches[1]},
+        "device_busy_s": busy_s, "weights_sha256": digest}
+    logger.info("train summary %s", json.dumps(summary))
+    digests = pdist.allgather_object(digest)
+    if len(set(digests)) != 1:
+        raise RuntimeError(f"the ranks' weights differ after training: "
+                           f"{digests}")

@@ -50,7 +50,8 @@ def test_port_imports_no_jax():
     for mod in ("datasets.factory", "datasets.wider", "datasets.fddb",
                 "datasets.afw", "datasets.pascalface", "datasets.general",
                 "evals.wider_eval", "evals.face_eval", "ops.nms_device",
-                "utils.tensorboard", "test_runner", "__main__", "serve"):
+                "utils.tensorboard", "test_runner", "__main__", "serve",
+                "parallel", "parallel.dist"):
         assert f"smallhardface_tpu_torch.{mod}" in names.split(), mod
 
 
@@ -108,6 +109,19 @@ def test_train_net_defaults_to_the_card(tmp_path):
     from smallhardface_tpu_torch.train.train_loop import train_net
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train_net([], str(tmp_path), None, 1)
+
+
+def test_init_distributed_defaults_to_the_card(monkeypatch):
+    """The rank's device is a card unless asked for the CPU: without one,
+    init_distributed raises before it joins any process group."""
+    _no_card()
+    from smallhardface_tpu_torch.parallel import dist
+    for k, v in dict(RANK="0", WORLD_SIZE="2", MASTER_ADDR="127.0.0.1",
+                     MASTER_PORT="29500").items():
+        monkeypatch.setenv(k, v)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        dist.init_distributed()
+    assert not dist.active()
 
 
 def test_cli_without_device_cpu_fails_here():
