@@ -38,6 +38,17 @@ Then, each phase printing one line:
    single launches (equal to the bit, device times side by side); K1 on
    an 8-image batch with eight valid extents in one launch against its
    plain version and eight single-image launches;
+4b. spatial H-sharding of detection (``spatial_phase``), its units
+   ``cuda:0`` repeated k = 2 and 4 times: K4 (``fused_stem_spatial``, K1
+   once per shard) equal to the bit to one K1 over the whole image at
+   the 1408×1872 level (also with a valid height inside a shard), its
+   wall, device time and plain time beside one K1's; the cuDNN-routed
+   3×3 convolutions at the shard shapes of image 0's levels against the
+   cliff limits; ``detect`` of image 0 over each unit against the
+   one-device rows (rtol 1e-4, atol 1e-3, each row matched), with its
+   wall, device time, idle share, peak, K1's launches (5·k) and halo
+   bytes; calibrated int8 and bf16 at k = 2 by ``detect_many``'s rules;
+   the command line's and the service's refusal of k = 2 on one card;
 5. the slice's path: ``detect_many`` on eight WIDER-sized images in three
    bucket groups at max_batch 1, 2 and 4 against per-image ``detect``
    (counts within max(2, 2 %), each side matched at DM_MATCH_MIN), with
@@ -814,6 +825,12 @@ def main():
         det, images, nms_device, float(cfg.TEST.NMS_THRESH))
     k1_batched_extents(stem, dev)
 
+    # ---- spatial H-sharding of detection over units of one card ----
+    kernels["fused_stem_spatial"] = spatial_phase(
+        cfg, tdm, params, images, det, card_dets[0], dev, stem, nms_device,
+        conv_int8)
+    torch.cuda.empty_cache()
+
     # ---- the slice's path: detect_many and the service ----
     many_counts, dm_images = detect_many_phase(det, stem, nms_device)
     del det
@@ -1011,8 +1028,8 @@ def main():
 
     say("total", seconds=time.perf_counter() - t_smoke, nvidia_smi=smi)
     print(json.dumps({"kernels": [kernels[k] for k in (
-        "fused_stem", "fused_stem_grad", "max_iou", "bbox_vote",
-        "conv3x3_int8")]}),
+        "fused_stem", "fused_stem_spatial", "fused_stem_grad", "max_iou",
+        "bbox_vote", "conv3x3_int8")]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2788,6 +2805,314 @@ def cliff_map(dev, dtype=torch.float32):
     if over or not cliff:
         raise AssertionError(f"{len(over)} convolutions of the map are over "
                              "its limits")
+
+
+SPATIAL_KS = (2, 4)         # units of the spatial phase, on one card
+# K4 against one K1: the largest level at batch 2, whole and with a valid
+# height inside shard 2 of 4 (rows 704..1055) and shard 1 of 2
+SPATIAL_STEM = (((2, 1408, 1872, 3), None), ((2, 1408, 1872, 3), (1000, 1800)))
+SPATIAL_RTOL, SPATIAL_ATOL = 1e-4, 1e-3     # tests/test_spatial_shard.py:52
+
+
+def _rows_close(a, b, rtol, atol):
+    """(holds, largest |Δ|): a and b hold as many rows, and each row of a,
+    in descending score order, has a distinct partner in b within
+    atol + rtol·|b| in every column, the nearest one not yet taken (the
+    matching of tests/test_spatial_shard.py:104-111; a sort by columns
+    would split rows whose scores tie to the last bits)."""
+    if a.shape != b.shape:
+        return False, None
+    taken = np.zeros(len(b), bool)
+    worst = 0.0
+    for row in a[np.argsort(-a[:, 4], kind="stable")]:
+        d = np.abs(b - row)
+        over = (d - rtol * np.abs(b) - atol).max(axis=1)
+        over[taken] = np.inf
+        j = int(np.argmin(over))
+        if over[j] > 0:
+            return False, float(d[j].max())
+        taken[j] = True
+        worst = max(worst, float(d[j].max()))
+    return True, worst
+
+
+def spatial_phase(cfg, tdm, params, images, det, fp32_dets, dev, stem,
+                  nms_device, conv_int8):
+    """Spatial H-sharding of detection on one card, its shards run one
+    after another on ``dev`` repeated k = 2 and 4 times (exactness, halo
+    routing and overhead; no scaling follows from one card):
+
+    - K4 (``ops/stem.fused_stem_spatial``) against one K1 over the whole
+      image at SPATIAL_STEM, pooled rows equal to the bit, and against the
+      plain stem within RTOL; at the whole shape its wall, device time
+      (CUDA graph) and the plain K4's time beside one K1's, with the
+      redundant halo rows and the strips' bound;
+    - the 3×3 convolutions at the shard shapes of image 0's five levels
+      (``tools/conv_map.shard_convs``): those below TAPS_MIN_FLOP (cuDNN's)
+      timed for the FFT cliff, against CLIFF_MAX_ADDED and
+      CLIFF_MAX_OF_BOUND;
+    - fp32 ``detect`` of image 0 over each unit against the one-device
+      ``detect`` (``fp32_dets``), sorted rows at SPATIAL_RTOL / ATOL: warm
+      wall, device time and idle share (torch.profiler), peak memory, K1's
+      launches (5·k), V1's and the halo bytes per ``detect``; the counts
+      set to 0 just before and read just after;
+    - calibrated int8 and bf16 at k = 2 against their one-device runs, by
+      the rules ``detect_many`` is held to in those precisions;
+    - the command line's and the service's refusal of a unit of 2 on a
+      one-card machine.
+
+    Returns K4's entry of the kernels line. Fails after printing when a
+    check does."""
+    from smallhardface_tpu_torch import serve as serve_mod
+    from smallhardface_tpu_torch import test_runner
+    from smallhardface_tpu_torch.config import CONFIG_DIR, cfg_from_file
+    from smallhardface_tpu_torch.detect import TorchDetector
+    from smallhardface_tpu_torch.models import layers
+    from smallhardface_tpu_torch.parallel import spatial
+    from smallhardface_tpu_torch.tools import conv_map
+    t_phase = time.perf_counter()
+    failed = []
+    snapshot = copy.deepcopy(cfg)
+
+    # ---- K4 against one K1 ----
+    rng = np.random.RandomState(SEED + 16)
+    entry = None
+    for shape, valid in SPATIAL_STEM:
+        x, w1, b1, w2, b2 = stem_inputs(rng, shape, valid, dev)
+        ws = (w1, b1, w2, b2)
+        B, H, W, _ = shape
+        with torch.no_grad():
+            whole = stem.fused_stem(x, *ws, valid_hw=valid)
+            plain = stem.fused_stem_reference(x, *ws, valid)
+            vh, vw = valid or (H, W)
+            for k in SPATIAL_KS:
+                shards = spatial.split(x, [dev] * k)
+                k4 = lambda: stem.fused_stem_spatial(  # noqa: E731
+                    shards, *ws, valid_hw=valid)
+                got = torch.cat(k4(), 1)
+                torch.cuda.synchronize()
+                equal = torch.equal(got, whole)
+                err = (got - plain)[:, :vh // 2, :vw // 2].abs()
+                peak = plain[:, :vh // 2, :vw // 2].abs().max().item()
+                fields = {}
+                if valid is None:
+                    run_plain = stem.fused_stem
+
+                    def plain_k4():
+                        stem.fused_stem = (  # noqa: E731
+                            lambda x_, *a, valid_hw=None:
+                            stem.fused_stem_reference(x_, *a, valid_hw))
+                        try:
+                            return k4()
+                        finally:
+                            stem.fused_stem = run_plain
+                    extra = 2 * stem.TH * (k - 1)
+                    p = B * (H + extra) * W
+                    strips_bound, _ = split_bound_ms(
+                        4 * (3 * p + 64 * B * H * W // 4), 2 * 27 * 64 * p,
+                        2 * 576 * 64 * p)
+                    fields = dict(
+                        ms=median_ms(k4), device_ms=graph_ms(k4, reps=5),
+                        k1_device_ms=graph_ms(
+                            lambda: stem.fused_stem(x, *ws), reps=5),
+                        plain_ms=median_ms(plain_k4, n=5, warmup=1),
+                        redundant_rows=extra,
+                        redundant_share=extra / H,
+                        strips_bound_ms=strips_bound)
+                say("spatial_k4", shape=list(shape), valid_hw=valid, k=k,
+                    bit_equal_to_one_k1=equal, max_abs_err_vs_plain=err.max(
+                    ).item(), max_abs_ref=peak, rtol=RTOL,
+                    atol=f"{RTOL}*max|ref|", **fields)
+                if not equal or (err > RTOL * plain[
+                        :, :vh // 2, :vw // 2].abs() + RTOL * peak).any():
+                    failed.append(f"K4 k={k} at {shape} valid {valid}")
+                if valid is None and k == SPATIAL_KS[-1]:
+                    n_bytes = 4 * (3 * B * H * W + 64 * B * H * W // 4)
+                    bnd, by = split_bound_ms(n_bytes, 2 * 27 * 64 * B * H * W,
+                                             2 * 576 * 64 * B * H * W)
+                    entry = {
+                        "name": "fused_stem_spatial", "route": "cuda",
+                        "source": "smallhardface_tpu_torch/csrc/stem.cu",
+                        "wrapper": "smallhardface_tpu_torch/ops/stem.py:"
+                                   "fused_stem_spatial",
+                        "replaces": "smallhardface_tpu/ops/pallas_stem.py:250",
+                        "k": k, "max_abs_err": err.max().item(),
+                        "max_abs_err_vs_one_k1": (got - whole).abs().max(
+                        ).item(),
+                        "ms": fields["ms"], "device_ms": fields["device_ms"],
+                        "plain_ms": fields["plain_ms"], "bound_ms": bnd,
+                        "bound_by": by, "library_ms": None}
+        del x, whole, plain, got, shards
+        torch.cuda.empty_cache()
+
+    # ---- the cuDNN cliff at the shard shapes ----
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    shapes = {}
+    for li, (hb, wb) in enumerate(conv_map.level_shapes(IMAGE_SIZES[0])):
+        for k in SPATIAL_KS:
+            for name, c, o, h, w, d, halo in conv_map.shard_convs(hb, wb, k):
+                shapes.setdefault((2, c, o, h, w, d, halo), []).append(
+                    f"L{li}/k{k}/{name}")
+    rows, n_taps = [], 0
+    with torch.inference_mode():
+        for (B, c, o, h, w, d, halo), where in shapes.items():
+            h_out = h - sum(halo)
+            if 18.0 * B * h_out * w * c * o >= layers.TAPS_MIN_FLOP:
+                n_taps += 1
+                continue
+            x, wt, bias = conv_map.inputs((B, c, o, h, w, d), dev, gen)
+            first, wall, device, added = conv_map.time_call(
+                lambda: layers.conv3x3(x, wt, bias, dilation=d, halo=halo))
+            bnd = conv_map.bound_ms(B, c, o, h_out, w)[0]
+            rows.append({"shape": [B, c, o, h, w, d], "halo": list(halo),
+                         "where": where, "ms": device, "bound_ms": bnd,
+                         "of_bound": device / bnd, "added_bytes": added,
+                         "first_ms": first})
+            del x, wt, bias
+    torch.cuda.empty_cache()
+    over = [r for r in rows if r["added_bytes"] > CLIFF_MAX_ADDED or (
+        r["bound_ms"] >= CLIFF_FLOOR_MS
+        and r["of_bound"] > CLIFF_MAX_OF_BOUND)]
+    say("spatial_cliff", image=0, ks=list(SPATIAL_KS),
+        cudnn_shapes=len(rows), taps_shapes=n_taps,
+        max_added_bytes=max(r["added_bytes"] for r in rows),
+        max_of_bound=max(r["of_bound"] for r in rows),
+        max_first_call_ms=max(r["first_ms"] for r in rows),
+        worst=sorted(rows, key=lambda r: -r["of_bound"])[:4],
+        over_limits=over, limit_added_bytes=CLIFF_MAX_ADDED,
+        limit_of_bound=CLIFF_MAX_OF_BOUND, floor_bound_ms=CLIFF_FLOOR_MS,
+        timing="conv_map.time_call: device from a CUDA graph")
+    if over:
+        failed.append(f"{len(over)} shard convolutions over the cliff limits")
+
+    # ---- fp32 detection over each unit against one device ----
+    fns = (stem.fused_stem, stem.fused_stem_spatial,
+           nms_device.bbox_vote_device)
+    one_split = detect_device_split(det, images[0], 1.0)
+    k4_counts = {}
+    for k in SPATIAL_KS:
+        det_k = TorchDetector(params, tdm.build_spec(cfg),
+                              spatial_devices=[dev] * k)
+        det_k.detect(images[0], THRESH)                     # cold
+        set_counts_zero(*fns)
+        spatial.halo.bytes = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        dets = det_k.detect(images[0], THRESH)[0][0]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        peak = torch.cuda.max_memory_allocated()
+        counts = {"fused_stem": stem.fused_stem.launches,
+                  "fused_stem_spatial": stem.fused_stem_spatial.launches,
+                  "bbox_vote": nms_device.bbox_vote_device.launches,
+                  "halo_bytes": spatial.halo.bytes}
+        k4_counts[k] = counts["fused_stem_spatial"]
+        split = detect_device_split(det_k, images[0], wall * 1e3)
+        close, diff = _rows_close(dets, fp32_dets, SPATIAL_RTOL,
+                                  SPATIAL_ATOL)
+        say("spatial_detect", image=0, k=k, devices=[str(dev)] * k,
+            dets=int(dets.shape[0]), one_device_dets=int(fp32_dets.shape[0]),
+            rows_close=bool(close), max_abs_diff_matched=diff,
+            rtol=SPATIAL_RTOL, atol=SPATIAL_ATOL, wall_s=wall,
+            device_ms=split["device_ms_sum"], device_split_ms=split[
+                "device_ms"], idle_share=split["idle_share"],
+            one_device_ms=one_split["device_ms_sum"],
+            one_device_split_ms=one_split["device_ms"],
+            max_memory_allocated_bytes=peak, launches=counts,
+            timing="wall: one warm detect on the host clock; device: the "
+                   "union-free sum of its kernels under torch.profiler, "
+                   "per detect of 2")
+        if not close or counts["fused_stem"] != 5 * k or counts[
+                "fused_stem_spatial"] != 5 * k or counts["bbox_vote"] != 1:
+            failed.append(f"spatial detect k={k}")
+        del det_k
+        torch.cuda.empty_cache()
+
+    # ---- calibrated int8 and bf16 at k = 2 against one device ----
+    cfg_from_file(os.path.join(CONFIG_DIR, "smallhardface-int8.toml"))
+    cfg.TEST.SCALES = list(INT8_SCALES)
+    cfg.TEST.FLIP = True
+    cfg.TEST.NMS_METHOD = "BBOX_VOTE"
+    spec = tdm.build_spec(cfg)
+    one = TorchDetector(params, spec, dev)
+    one.calibrate_int8(images[:1])
+    sharded = TorchDetector(params, spec, spatial_devices=[dev] * 2)
+    sharded.calibrate_int8(images[:1])
+    scales_rel = max(abs(sharded.qstate["scales"][n]
+                         / one.qstate["scales"][n] - 1.0)
+                     for n in one.qstate["scales"])
+    own = sharded.detect(images[0], THRESH)[0][0]
+    # held on one qstate, as detect_many is held against detect: a grid
+    # step that moves in its last bit moves every int8 value near a
+    # rounding edge, and the chain triples such flips at every link
+    sharded.qstate = one.qstate
+    pair = []
+    for d in (one, sharded):
+        set_counts_zero(conv_int8.conv3x3_int8, *fns)
+        pair.append((d.detect(images[0], THRESH)[0][0],
+                     conv_int8.conv3x3_int8.launches,
+                     stem.fused_stem_spatial.launches))
+    del one, sharded
+    good, fwd, bwd = _rule(pair[1][0], pair[0][0], INT8_MANY_MATCH_MIN)
+    _, own_fwd, own_bwd = _rule(own, pair[0][0], 0.0)
+    say("spatial_int8", image=0, k=2, dets=[len(p[0]) for p in pair],
+        matched=[fwd, bwd], min_match=INT8_MANY_MATCH_MIN, holds=bool(good),
+        q1_launches=[p[1] for p in pair], k4_launches=pair[1][2],
+        calibration_max_rel_diff=scales_rel,
+        own_calibration_dets=len(own),
+        own_calibration_matched=[own_fwd, own_bwd],
+        rule="detect_many's int8 rule: counts within max(2, 2 %), each "
+             "side matched; on the one-device qstate (the spatial "
+             "calibration's own detections printed, not bounded)")
+    if not good or pair[1][1] != 2 * pair[0][1] or pair[1][2] != 10:
+        failed.append("spatial int8")
+    cfg.clear()
+    cfg.update(copy.deepcopy(snapshot))
+    cfg.TPU.PRECISION = "bfloat16"
+    spec = tdm.build_spec(cfg)
+    bf = [TorchDetector(params, spec, dev if unit is None else None,
+                        spatial_devices=unit).detect(images[0], THRESH)[0][0]
+          for unit in (None, [dev] * 2)]
+    ok, lf, lb, sf, sb = _bf16_rule(bf[1], bf[0])
+    say("spatial_bf16", image=0, k=2, dets=[len(b) for b in bf],
+        loose_matched=[lf, lb], strict_matched=[sf, sb],
+        min_match=BF16_MATCH_MIN, holds=bool(ok),
+        rule="detect_many's bf16 rule (_bf16_rule)")
+    if not ok:
+        failed.append("spatial bf16")
+    cfg.clear()
+    cfg.update(copy.deepcopy(snapshot))
+
+    # ---- the refusals of a unit of 2 on a one-card machine ----
+    refusals = {}
+    cfg.TPU.SPATIAL_DEVICES = 2
+    for where, call in (
+            ("test_net", lambda: test_runner.run_inference(
+                None, params, None, THRESH, device=dev)),
+            ("serve", lambda: serve_mod.DetectorService(
+                params, tdm.build_spec(cfg), device=dev))):
+        try:
+            call()
+            refusals[where] = None
+        except ValueError as e:
+            refusals[where] = str(e)
+    cfg.clear()
+    cfg.update(copy.deepcopy(snapshot))
+    cards = torch.cuda.device_count()
+    say("spatial_refusals", cards=cards, **refusals)
+    if cards == 1 and not all(refusals.values()):
+        failed.append("a unit of 2 on one card was not refused")
+    say("spatial", seconds=time.perf_counter() - t_phase,
+        k4_launches_per_detect={str(k): v for k, v in k4_counts.items()},
+        note="one card: the shards run one after another; exactness and "
+             "overhead, no scaling")
+    if failed:
+        raise AssertionError(f"spatial phase: {failed}")
+    entry["launches"] = k4_counts[SPATIAL_KS[-1]]
+    entry["launches_path"] = f"spatial_detect k={SPATIAL_KS[-1]}"
+    entry["launches_k2"] = k4_counts[SPATIAL_KS[0]]
+    return entry
 
 
 def wider_tree(work):

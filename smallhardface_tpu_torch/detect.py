@@ -39,8 +39,18 @@ dynamic activation step, shared by exactly the items one JAX forward call
 would see (``_scale_groups``). ``TPU.PRECISION = "bfloat16"`` is the JAX
 bf16 mode (JAX detect.py:121-123): preprocessing stays fp32, the forward
 runs in bf16 (``Detector.forward``) and gives fp32 logits, and softmax,
-decode, the merge and the vote run in fp32 as in the other modes. Spatial
-meshes wait (ROADMAP).
+decode, the merge and the vote run in fp32 as in the other modes.
+
+Spatial sharding (``TPU.SPATIAL_DEVICES`` = k > 1, JAX detect.py:92-137,
+:366-379, :560-568): the detector runs each level's rows over a unit of k
+devices (``spatial_devices``; ``parallel/spatial``). Every device gets the
+raw uint8 image and builds its own rows of the level directly (its rows
+of the resize's ``wy``); the level's height is padded to
+``spatial.padded_height`` and the forward, masked to the level's extent,
+runs its shards (the stem as K4), gathers the head outputs to the first
+device and crops them to the level, where decode, the merge and the vote
+run as on one device. ``TPU.HOST_PREPROC`` with spatial sharding raises
+at construction, and ``detect_many`` refuses it, as in JAX.
 """
 
 from __future__ import annotations
@@ -57,6 +67,7 @@ from smallhardface_tpu_torch.ops import anchors as anchors_mod
 from smallhardface_tpu_torch.ops import decode as decode_mod
 from smallhardface_tpu_torch.ops import native as nms_host
 from smallhardface_tpu_torch.ops import nms_device
+from smallhardface_tpu_torch.parallel import spatial
 from smallhardface_tpu_torch.utils.device import resolve_device
 from smallhardface_tpu_torch.utils.timer import Timer
 
@@ -85,7 +96,6 @@ IGNORED_TPU_KNOBS = {
                      "(TorchDetector._scale_groups)",
     "DECODE_FAST_K": "a faster TPU top-k with identical output; the port "
                      "sorts once per level",
-    "SPATIAL_DEVICES": "spatial sharding is not ported yet",
 }
 
 
@@ -172,7 +182,7 @@ def _imread(path):
 
 
 class TorchDetector:
-    """Full-pyramid detector on one device.
+    """Full-pyramid detector on one device, or on a spatial unit.
 
     params: {name: {'w': OIHW, 'b'}} tensors (``models.detector
     .init_params`` or ``io.weights``); spec: ``ModelSpec`` (from the config
@@ -182,9 +192,19 @@ class TorchDetector:
     chain once ``calibrate_int8`` (or the caller) has set ``qstate``
     (``models.detector.make_qstate``), the dynamic mode while it is None.
     Under "bfloat16" it runs the bf16 mode.
+
+    spatial_devices: the unit that shards every level's rows (JAX
+    ``spatial_mesh``), a list of k devices; the first holds the weights
+    and gathers the outputs, and ``device`` must name it or be None. When
+    None and TPU.SPATIAL_DEVICES = k > 1, the unit is the first k local
+    devices of ``device``'s type (k CUDA cards by default; ValueError when
+    there are fewer). A list that repeats one device, such as
+    ``["cuda:0"] * 2`` or ``["cpu"] * 4``, is allowed: the shards then run
+    one after another there, which is how one card runs the path. One
+    device is no sharding.
     """
 
-    def __init__(self, params, spec=None, device=None):
+    def __init__(self, params, spec=None, device=None, spatial_devices=None):
         precision = str(cfg.TPU.PRECISION)
         if precision not in ("float32", "int8", "bfloat16"):
             raise ValueError(
@@ -206,6 +226,17 @@ class TorchDetector:
         self.qstate = None
         for knob, why in IGNORED_TPU_KNOBS.items():
             logger.debug("TPU.%s=%r ignored: %s", knob, cfg.TPU[knob], why)
+        k = int(cfg.TPU.SPATIAL_DEVICES)
+        if spatial_devices is None and k > 1:
+            spatial_devices = spatial.first_devices(resolve_device(device), k)
+        self.spatial = None
+        if spatial_devices is not None and len(spatial_devices) > 1:
+            self.spatial = [_indexed(d) for d in spatial_devices]
+            if device is not None and _indexed(device) != self.spatial[0]:
+                raise ValueError(
+                    f"device {device} is not the spatial unit's first "
+                    f"device {self.spatial[0]}")
+            device = self.spatial[0]
         self.device = resolve_device(device)
         self.spec = spec or detector_mod.build_spec(cfg)
         self.model = detector_mod.Detector(params, self.spec, self.device)
@@ -219,6 +250,12 @@ class TorchDetector:
         self.mean = torch.tensor(np.asarray(cfg.PIXEL_MEANS, np.float32)
                                  .reshape(3), device=self.device)
         self.host_preproc = bool(cfg.TPU.HOST_PREPROC)
+        if self.spatial and self.host_preproc:
+            # JAX detect.py:133-137: the host path has no sharded program
+            raise ValueError(
+                "spatial sharding is incompatible with TPU.HOST_PREPROC "
+                "(the reference-exact host path has no sharded program); "
+                "unset one of them")
         # the final vote on the device: only voted rows cross to the host
         self.device_vote = bool(cfg.TPU.DEVICE_VOTE) and not self.host_preproc
         self.vote_cap = int(cfg.TPU.VOTE_CAP)
@@ -256,27 +293,31 @@ class TorchDetector:
         return {"image": im, "padded": np.ascontiguousarray(padded),
                 "levels": levels, "key": key}
 
-    def _level_batch(self, imgs, lvs, hb, wb):
+    def _level_batch(self, imgs, lvs, hb, wb, rows=None):
         """(N·F, hb, wb, 3) network input of one level for N float images
         (N, H0, W0, 3) of one raw shape, each with its own level metadata
         ``lvs[i]``: its own linear resize, the mean subtracted, zeros beyond
         its own extent (h_s, w_s), and under TEST.FLIP (F = 2) its mirror
-        about its own w_s right after it."""
+        about its own w_s right after it. ``rows=(r0, r1)``: only the
+        level's rows [r0, r1) (a shard's, on the device of ``imgs``), as
+        the product with those rows of the resize's ``wy``; rows past hb
+        are zeros like any row beyond h_s."""
         n, H0, W0, _ = imgs.shape
-        dev = self.device
-        wy = torch.stack([linear_resize_weights(H0, hb, lv["scale"], dev)
-                          for lv in lvs])
+        dev = imgs.device
+        r0, r1 = rows or (0, hb)
+        wy = torch.stack([linear_resize_weights(H0, r1, lv["scale"], dev)
+                          for lv in lvs])[:, :, r0:]
         wx = torch.stack([linear_resize_weights(W0, wb, lv["scale"], dev)
                           for lv in lvs])
         t = (wy.transpose(1, 2) @ imgs.reshape(n, H0, W0 * 3)).reshape(
-            n, hb, W0, 3)
+            n, r1 - r0, W0, 3)
         # rows and colours of an image fold into one product with its wx
-        t = t.permute(0, 1, 3, 2).reshape(n, hb * 3, W0)
-        resized = ((t @ wx).reshape(n, hb, 3, wb).permute(0, 1, 3, 2)
-                   - self.mean)
+        t = t.permute(0, 1, 3, 2).reshape(n, (r1 - r0) * 3, W0)
+        resized = ((t @ wx).reshape(n, r1 - r0, 3, wb).permute(0, 1, 3, 2)
+                   - self.mean.to(dev))
         h_s = torch.tensor([lv["h_s"] for lv in lvs], device=dev)
         w_s = torch.tensor([lv["w_s"] for lv in lvs], device=dev)
-        rows = torch.arange(hb, device=dev) < h_s[:, None]
+        rows = torch.arange(r0, r1, device=dev) < h_s[:, None]
         cols = torch.arange(wb, device=dev) < w_s[:, None]
         valid = (rows[:, :, None] & cols[:, None, :])[..., None]
         resized = torch.where(valid, resized, 0.0)
@@ -286,10 +327,39 @@ class TorchDetector:
         idx = (w_s[:, None] - 1 - torch.arange(wb, device=dev)).clamp(
             0, wb - 1)
         mirrored = torch.gather(
-            resized, 2, idx[:, None, :, None].expand(n, hb, wb, 3))
+            resized, 2, idx[:, None, :, None].expand(n, r1 - r0, wb, 3))
         mirrored = torch.where(valid, mirrored, 0.0)
         return torch.stack([resized, mirrored], dim=1).reshape(
-            n * 2, hb, wb, 3)
+            n * 2, r1 - r0, wb, 3)
+
+    def _sharded_level(self, imgs, lvs, hb, wb):
+        """One level over the spatial unit: the shards of its batch, each
+        built on its device from that device's copy of the raw images
+        (``imgs``, {device: tensor}), over ``spatial.padded_height(hb, k)``
+        rows; and the valid extent the forward masks to, None when no rows
+        were added."""
+        k = len(self.spatial)
+        hp = spatial.padded_height(hb, k)
+        hs = hp // k
+        shards = [self._level_batch(imgs[dev], lvs, hb, wb,
+                                    rows=(i * hs, (i + 1) * hs))
+                  for i, dev in enumerate(self.spatial)]
+        return shards, ((hb, wb) if hp != hb else None)
+
+    def _forward_level(self, imgs, lvs, hb, wb, valid_hw):
+        """The forward of one level's batch: on one device from
+        ``_level_batch``, or over the spatial unit, its outputs cropped to
+        the level's hb / 8 rows."""
+        groups = self._scale_groups(lvs)
+        if self.spatial is None:
+            x = self._level_batch(imgs[self.device], lvs, hb, wb)
+            return self.model(x, valid_hw, self.precision, self.qstate,
+                              scale_groups=groups)
+        shards, valid = self._sharded_level(imgs, lvs, hb, wb)
+        out = self.model(shards, valid, self.precision, self.qstate,
+                         scale_groups=groups)
+        rows = hb // detector_mod.FEAT_STRIDE
+        return {k: v[:, :rows] for k, v in out.items()}
 
     def _pyramid(self, preps, bucketed, score_thresh):
         """Enqueue the whole pyramid of N images on the device: every level
@@ -307,19 +377,19 @@ class TorchDetector:
         raw = np.stack([p["padded"] for p in preps]) if not bucketed else \
             np.stack([_pad_to(p["image"], *p["key"][:2]) for p in preps])
         all_boxes, all_scores = [], []
-        imgs = torch.from_numpy(raw).to(dev).float()
+        # the raw images once on every device of the unit
+        raw = torch.from_numpy(raw)
+        imgs = {d: raw.to(d).float() for d in (self.spatial or [dev])}
         for li in range(len(preps[0]["levels"])):
             lvs = [p["levels"][li] for p in preps]
             hb, wb = ((lvs[0]["bh"], lvs[0]["bw"]) if bucketed
                       else (lvs[0]["hb"], lvs[0]["wb"]))
             per_item = lambda k: torch.tensor(  # noqa: E731
                 [lv[k] for lv in lvs], device=dev).repeat_interleave(reps)
-            x = self._level_batch(imgs, lvs, hb, wb)
             # the forward masks each item to its own ×16 extent in a bucket
-            out = self.model(x, (per_item("hb"), per_item("wb"))
-                             if bucketed else None, self.precision,
-                             self.qstate, scale_groups=self._scale_groups(
-                                 lvs))
+            out = self._forward_level(
+                imgs, lvs, hb, wb,
+                (per_item("hb"), per_item("wb")) if bucketed else None)
             probs = torch.softmax(out["cls_logits"], dim=-1)[..., 1]
             boxes, scores, counts = decode_mod.decode_proposals_batch(
                 probs, out["bbox_deltas"], self.base_anchors,
@@ -378,7 +448,8 @@ class TorchDetector:
         INTER_LINEAR at every TEST scale (in uint8, as JAX resizes it),
         mean-subtracted and zero-padded to ×16; an fp32 forward over each
         with no valid extent (the padding takes part, as in JAX) folds
-        every int8 conv's max|input| (``collect_int8_amax``); the maxima
+        every int8 conv's max|input| (``collect_int8_amax``, over the
+        shards of the spatial unit when there is one); the maxima
         and the int8 weights, quantized once, become ``self.qstate``.
         Returns the amax dict. Values outside the calibrated ranges
         saturate: use representative images."""
@@ -399,7 +470,7 @@ class TorchDetector:
                              np.float32)
                 x[0, :h, :w] = r8.astype(np.float32) - mean
                 xs.append(x)
-        amax = detector_mod.collect_int8_amax(self.model, xs)
+        amax = detector_mod.collect_int8_amax(self.model, xs, self.spatial)
         self.qstate = detector_mod.make_qstate(self.model.tree(), self.spec,
                                                amax)
         logger.info("int8 calibration over %d pyramid inputs: %s", len(xs),
@@ -499,6 +570,10 @@ class TorchDetector:
                     "path on the host-preproc parity path)")
                 self._warned_host_preproc = True
             return [self.detect(im, thresh)[0] for im in ims]
+        if self.spatial:
+            # JAX detect.py:642-644
+            raise ValueError("detect_many batches per chip; use one detector "
+                             "per chip for spatial sharding")
         preps = [self._prep(im) for im in ims]
         groups = {}
         for i, p in enumerate(preps):
@@ -611,6 +686,15 @@ def top_rows(boxes, scores, keep, cap):
     dets = torch.cat([picked, top[..., None]], dim=-1).contiguous()
     n = keep.sum(-1).clamp(max=k).to(torch.int32)
     return dets, n
+
+
+def _indexed(device):
+    """``device`` resolved, a CUDA device with its index (the current
+    card's when it names none)."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev
 
 
 def _pad_to(im, H, W):

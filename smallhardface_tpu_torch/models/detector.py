@@ -32,9 +32,10 @@ import torch.nn.functional as F
 
 from smallhardface_tpu_torch.models.layers import (
     bilinear_kernel, conv2d, conv2d_int8, conv2d_int8_chain, conv3x3,
-    kernel_weights, max_pool_2x2, quantize_int8, quantize_weights_int8,
-    upsample2x_bilinear, zero_outside)
-from smallhardface_tpu_torch.ops.stem import fused_stem
+    dynamic_amax, dynamic_step, kernel_weights, max_pool_2x2, quantize_int8,
+    quantize_weights_int8, upsample2x_bilinear, zero_outside)
+from smallhardface_tpu_torch.ops.stem import fused_stem, fused_stem_spatial
+from smallhardface_tpu_torch.parallel import spatial
 
 # (name, out_channels, n_convs) per VGG stage
 VGG_STAGES = (
@@ -297,12 +298,49 @@ class Detector(nn.Module):
             self._bf16_key = key
         return self._bf16
 
+    def _on(self, tree, device):
+        """tree ({name: {key: tensor}} or {name: tensor}) with its tensors
+        on ``device``: the tree itself when they are there, else copies,
+        kept until a tensor of the tree is replaced or changed in place (a
+        shard on another card reads its own copy of the weights)."""
+        leaves = [t for v in tree.values()
+                  for t in (v.values() if isinstance(
+                      v, (dict, nn.ParameterDict)) else [v])]
+        if leaves[0].device == device:
+            return tree
+        stamp = tuple((t.data_ptr(), t._version) for t in leaves)
+        cache = self.__dict__.setdefault("_replicas", {})
+        key = (id(tree), device)
+        if key not in cache or cache[key][1] != stamp:
+            with torch.no_grad():
+                copy = {n: ({k: t.detach().to(device) for k, t in v.items()}
+                            if not isinstance(v, torch.Tensor)
+                            else v.detach().to(device))
+                        for n, v in tree.items()}
+            # the tree is held so that its id stays its own
+            cache[key] = (tree, stamp, copy)
+        return cache[key][2]
+
     def forward(self, x, valid_hw=None, precision="float32", qstate=None,
                 int8_amax=None, scale_groups=None):
         """x: NHWC (B, H, W, 3) float32, BGR mean-subtracted, H and W
         multiples of 16, contiguous. Returns {'cls_logits': (B, h, w, A, 2),
         'bbox_deltas': (B, h, w, A, 4)} at stride 8, anchors ordered as
         ANCHOR_SCALES.
+
+        x may also be an H-sharded image (``parallel/spatial``, JAX
+        ``forward(spatial_mesh=…)``, detector.py:316, :526-562): a list of
+        k NHWC shards of equal rows, the i-th holding global rows
+        [i·Hs, (i + 1)·Hs) on its device, Hs a multiple of
+        ``spatial.ALIGN`` (``spatial.shard_input`` pads and splits). The
+        same body runs per shard: the stem as K4 (``fused_stem_spatial``),
+        every other 3×3 convolution and the upsample on a halo of its
+        dilation's rows from the neighbours (``spatial.halo``), the masks
+        at each shard's global row offset, int8's dynamic steps and the
+        calibration's maxima over every shard (``spatial.amax``); the
+        outputs are gathered to the first shard's device. Weights are read
+        on each shard's device (``_on``). One shard is the one-device
+        forward.
 
         valid_hw=None is the JAX ``"exact"`` mode: no masking. With
         ``valid_hw=(vh, vw)`` (the ×16 image extent inside a larger
@@ -340,17 +378,33 @@ class Detector(nn.Module):
                              f"'bfloat16', got {precision!r}")
         int8 = precision == "int8"
         bf16 = precision == "bfloat16"
-        weights = self.bf16_tree() if bf16 else self.params
+        hs = list(x) if isinstance(x, (list, tuple)) else [x]
+        k = len(hs)
+        if k > 1 and (any(h.shape[1] != hs[0].shape[1] for h in hs)
+                      or hs[0].shape[1] % spatial.ALIGN):
+            raise ValueError(
+                "Detector.forward: the shards need one row count, a "
+                f"multiple of {spatial.ALIGN}, got {[h.shape[1] for h in hs]}")
+        devs = [h.device for h in hs]
+        tree = self.bf16_tree() if bf16 else self.params
+        weights = [self._on(tree, d) for d in devs]
+        if int8 and qstate is not None:
+            qs = [dict(qstate, qw=self._on(qstate["qw"], d),
+                       s_w=self._on(qstate["s_w"], d)) for d in devs]
         if bf16:
-            x = x.to(torch.bfloat16)
+            hs = [h.to(torch.bfloat16) for h in hs]
         succ = _qsucc(spec) if int8 and qstate is not None else {}
         stride = 1
 
-        def mask(h):
+        def w_b(i, name):
+            return weights[i][name]["w"], weights[i][name]["b"]
+
+        def mask(hs):
             if valid_hw is None:
-                return h
-            return zero_outside(h, valid_hw[0] // stride,
-                                valid_hw[1] // stride)
+                return hs
+            return [zero_outside(h, valid_hw[0] // stride,
+                                 valid_hw[1] // stride, row0=i * h.shape[2])
+                    for i, h in enumerate(hs)]
 
         def q_in(h, name):
             """h as an int8 carrier on `name`'s calibrated input grid (an
@@ -359,102 +413,128 @@ class Detector(nn.Module):
                 return h
             return quantize_int8(h, input_step(qstate, name))
 
-        def q_conv(h, name, dilation=1):
-            """One int8 conv: fp32 post-ReLU out, or int8 on the
+        def q_conv(hs, name, dilation=1):
+            """One int8 conv per shard: fp32 post-ReLU out, or int8 on the
             successor's grid inside the calibrated chain."""
-            w, b = self._w(name)
             if qstate is None:
-                return F.relu(conv2d_int8(h, w, b, dilation=dilation,
-                                          groups=scale_groups))
-            nxt = succ.get(name)
-            return conv2d_int8_chain(
-                q_in(h, name), qstate["qw"][name], input_step(qstate, name),
-                qstate["s_w"][name], b, dilation=dilation,
-                s_out=None if nxt is None else input_step(qstate, nxt))
+                # the dynamic step over every shard of each item's group
+                step = dynamic_step(spatial.amax(
+                    [dynamic_amax(h, scale_groups) for h in hs]))
+            out = []
+            for i, (h, rows) in enumerate(spatial.halo(hs, dilation)):
+                w, b = w_b(i, name)
+                if qstate is None:
+                    out.append(F.relu(conv2d_int8(
+                        h, w, b, dilation=dilation, groups=scale_groups,
+                        s_x=step.to(h.device), halo=rows)))
+                    continue
+                nxt = succ.get(name)
+                out.append(conv2d_int8_chain(
+                    q_in(h, name), qs[i]["qw"][name],
+                    input_step(qstate, name), qs[i]["s_w"][name], b,
+                    dilation=dilation, halo=rows,
+                    s_out=None if nxt is None else input_step(qstate, nxt)))
+            return out
 
-        def record(name, h):
-            a = h.detach().abs().amax()
+        def conv_relu(hs, name, dilation=1):
+            return [F.relu(conv3x3(h, *w_b(i, name), dilation=dilation,
+                                   halo=rows))
+                    for i, (h, rows) in enumerate(spatial.halo(hs, dilation))]
+
+        def record(name, hs):
+            a = spatial.amax([h.detach().abs().amax() for h in hs])
             int8_amax[name] = (torch.maximum(int8_amax[name], a)
                                if name in int8_amax else a)
 
-        def cbr(h, name):
+        def cbr(hs, name):
             if not name.startswith("conv1"):
                 if int8:
-                    return mask(q_conv(h, name))
+                    return mask(q_conv(hs, name))
                 if int8_amax is not None:
-                    record(name, h)
-            w, b = weights[name]["w"], weights[name]["b"]
-            return mask(F.relu(conv3x3(h, w, b)))
+                    record(name, hs)
+            return mask(conv_relu(hs, name))
 
         # VGG-16's stem runs fused (the kernel on the card), in fp32 in the
         # int8 mode too; it masks its input and conv1_1 itself, and its
         # NHWC output is an NCHW-shaped channels_last tensor through a free
-        # permute. Other first stages (the skeletal nets of the tests) run
-        # as plain convs like the JAX forward (detector.py:528-530).
+        # permute. Over shards it runs as K4. Other first stages (the
+        # skeletal nets of the tests) run as plain convs like the JAX
+        # forward (detector.py:528-530).
         fused = VGG_STAGES[0] == ("conv1", 64, 2)
         if fused:
-            w1, b1 = self._w("conv1_1")
-            w2, b2 = self._w("conv1_2")
-            h = fused_stem(x.float() if bf16 else x, w1, b1, w2, b2,
-                           valid_hw=valid_hw)
-            h = h.permute(0, 3, 1, 2).to(x.dtype)
+            stem_w = (*self._w("conv1_1"), *self._w("conv1_2"))
+            stem_in = [h.float() if bf16 else h for h in hs]
+            if k == 1:
+                out = [fused_stem(stem_in[0], *stem_w, valid_hw=valid_hw)]
+            else:
+                out = fused_stem_spatial(stem_in, *stem_w, valid_hw=valid_hw)
+            hs = [h.permute(0, 3, 1, 2).to(hs[0].dtype) for h in out]
             stride *= 2
-            h = mask(h)
+            hs = mask(hs)
         else:
-            h = mask(x.permute(0, 3, 1, 2))
+            hs = mask([h.permute(0, 3, 1, 2) for h in hs])
         feats = {}
         for si, (stage, _, n) in enumerate(VGG_STAGES):
             if fused and stage == "conv1":
                 continue
             for i in range(1, n + 1):
-                h = cbr(h, f"{stage}_{i}")
-            feats[stage] = h
+                hs = cbr(hs, f"{stage}_{i}")
+            feats[stage] = hs
             if si < len(VGG_STAGES) - 1:
-                h = max_pool_2x2(h)
+                hs = [max_pool_2x2(h) for h in hs]
                 stride *= 2
 
-        def w_b(name):
-            return weights[name]["w"], weights[name]["b"]
-
-        f5 = mask(F.relu(conv2d(feats["conv5"], *w_b("conv5_256"))))
-        up = upsample2x_bilinear(f5, weights["conv5_256_up"]["w"])
+        f5 = mask([F.relu(conv2d(h, *w_b(i, "conv5_256")))
+                   for i, h in enumerate(feats["conv5"])])
+        up = [upsample2x_bilinear(h, weights[i]["conv5_256_up"]["w"],
+                                  halo=rows)
+              for i, (h, rows) in enumerate(spatial.halo(f5, 1))]
         stride //= 2                       # back to the stride-8 grid
         f4 = feats["conv4"]
-        if f4.dtype == torch.int8:
+        if f4[0].dtype == torch.int8:
             # the chain left conv4_3's output on conv5_1's grid; the fp32
             # 1×1 lateral reads it dequantized
-            f4 = f4.float() * input_step(qstate, "conv5_1")
-        lat4 = F.relu(conv2d(f4, *w_b("conv4_256")))
-        ff = cbr(mask(torch.cat([mask(up), lat4], dim=1)), "conv4_fuse_final")
+            f4 = [h.float() * input_step(qstate, "conv5_1") for h in f4]
+        lat4 = [F.relu(conv2d(h, *w_b(i, "conv4_256")))
+                for i, h in enumerate(f4)]
+        ff = cbr(mask([torch.cat([u, l], dim=1)
+                       for u, l in zip(mask(up), lat4)]), "conv4_fuse_final")
 
-        bsz, _, hh, ww = ff.shape
         A = spec.num_anchors
         if spec.different_dilation:
             ff = cbr(ff, "conv4_fuse_final_dim_red")
             if int8_amax is not None:
                 record("head", ff)
-            hw, hb = w_b("head")
             cls_list, box_list = [], []
-            for k, d in zip(ANCHOR_SCALES, HEAD_DILATIONS):
+            for ks, d in zip(ANCHOR_SCALES, HEAD_DILATIONS):
                 if int8:
                     hd = q_conv(ff, "head", d)
                 else:
-                    hd = F.relu(conv3x3(ff, hw, hb, dilation=d))
-                cls_list.append(conv2d(hd, *w_b(f"cls_score_{k}")))
-                box_list.append(conv2d(hd, *w_b(f"bbox_pred_{k}")))
-            # (B, C, h, w) per anchor → (B, h, w, A, C)
-            cls_logits = torch.stack(cls_list, dim=-1).permute(0, 2, 3, 4, 1)
-            bbox_deltas = torch.stack(box_list, dim=-1).permute(0, 2, 3, 4, 1)
+                    hd = conv_relu(ff, "head", d)
+                cls_list.append([conv2d(h, *w_b(i, f"cls_score_{ks}"))
+                                 for i, h in enumerate(hd)])
+                box_list.append([conv2d(h, *w_b(i, f"bbox_pred_{ks}"))
+                                 for i, h in enumerate(hd)])
+            # (B, C, h, w) per anchor → (B, h, w, A, C), per shard
+            cls_logits = [torch.stack(c, dim=-1).permute(0, 2, 3, 4, 1)
+                          for c in zip(*cls_list)]
+            bbox_deltas = [torch.stack(c, dim=-1).permute(0, 2, 3, 4, 1)
+                           for c in zip(*box_list)]
         else:
             hd = cbr(ff, "head")
-            raw_cls = conv2d(hd, *w_b("cls_score")).permute(0, 2, 3, 1)
-            raw_box = conv2d(hd, *w_b("bbox_pred")).permute(0, 2, 3, 1)
-            # cls channels are [bg_a0.. bg_aA, fg_a0.. fg_aA]; bbox channels
-            # are anchor-major groups of 4
-            cls_logits = raw_cls.reshape(bsz, hh, ww, 2, A).transpose(3, 4)
-            bbox_deltas = raw_box.reshape(bsz, hh, ww, A, 4)
-        return {"cls_logits": cls_logits.float().contiguous(),
-                "bbox_deltas": bbox_deltas.float().contiguous()}
+            cls_logits, bbox_deltas = [], []
+            for i, h in enumerate(hd):
+                raw_cls = conv2d(h, *w_b(i, "cls_score")).permute(0, 2, 3, 1)
+                raw_box = conv2d(h, *w_b(i, "bbox_pred")).permute(0, 2, 3, 1)
+                bsz, hh, ww = raw_cls.shape[:3]
+                # cls channels are [bg_a0.. bg_aA, fg_a0.. fg_aA]; bbox
+                # channels are anchor-major groups of 4
+                cls_logits.append(
+                    raw_cls.reshape(bsz, hh, ww, 2, A).transpose(3, 4))
+                bbox_deltas.append(raw_box.reshape(bsz, hh, ww, A, 4))
+        return {"cls_logits": spatial.gather(cls_logits).float().contiguous(),
+                "bbox_deltas": spatial.gather(bbox_deltas).float()
+                .contiguous()}
 
 
 def int8_layer_names(spec: ModelSpec):
@@ -505,19 +585,26 @@ def make_qstate(params, spec: ModelSpec, amax, device=None):
     return {"scales": scales, "qw": qw, "s_w": s_w}
 
 
-def collect_int8_amax(model, xs):
+def collect_int8_amax(model, xs, devices=None):
     """Calibrate the activation ranges: fp32 forwards of ``model`` (a
     Detector) over xs, each (1, H, W, 3) mean-subtracted, H and W multiples
     of 16, with no valid extent (the zero padding takes part, as in JAX),
     and the per-layer max|input| over all of them, as Python floats. One
-    readback per input."""
+    readback per input. ``devices``: a spatial unit to run each input over
+    (``spatial.shard_input``; rows it adds are masked, so they read as the
+    zero padding)."""
     keys = sorted(int8_layer_names(model.spec))
     device = next(model.parameters()).device
     total = {}
     with torch.inference_mode():
         for x in xs:
             amax = {}
-            model(torch.as_tensor(x).to(device), int8_amax=amax)
+            x = torch.as_tensor(x)
+            if devices:
+                shards, valid = spatial.shard_input(x, devices)
+                model(shards, valid, int8_amax=amax)
+            else:
+                model(x.to(device), int8_amax=amax)
             vals = torch.stack([amax[k] for k in keys]).cpu().tolist()
             for k, v in zip(keys, vals):
                 total[k] = max(total.get(k, 0.0), v)

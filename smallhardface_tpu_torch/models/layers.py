@@ -12,6 +12,15 @@ or for the large 3×3 ones of detection nine cuBLAS products
 kernel. The int8 3×3 products run through ``ops/conv_int8.conv3x3_int8``
 (the kernel Q1 on the card).
 
+The spatial ops also take a shard of an H-sharded image
+(``parallel/spatial``): ``halo=(top, bottom)`` gives the rows the input
+carries from the shards above and below (``spatial.halo``), and the
+output holds the shard's own rows. The 3×3 convolutions pad the columns by
+the dilation and the rows only where no halo stands (the image's edges);
+the upsample and the int8 convolutions crop; ``zero_outside`` takes the
+shard's global row offset. 1×1 convolutions and the 2×2 pool need no halo
+once the shards are aligned.
+
 On a bfloat16 input, ``conv2d``, ``conv3x3`` and ``upsample2x_bilinear``
 compute what the JAX functions compute with ``compute_dtype=bfloat16``
 (:29-46, :208-213): x and w rounded to bf16, exact products summed in
@@ -68,47 +77,59 @@ TAPS_MIN_FLOP = 1.34e10
 TAPS_SCRATCH_BYTES = 2 ** 31
 
 
-def conv3x3(x, w, b, *, dilation=1):
+def conv3x3(x, w, b, *, dilation=1, halo=(0, 0)):
     """The forward's 3×3 convolutions, zero padding ``dilation``: under
     no_grad / inference_mode, those of at least TAPS_MIN_FLOP run as
     ``conv3x3_taps``, the rest (and all of training, where autograd runs
     cuDNN's backward) as cuDNN's ``conv2d``. Both are deterministic. A
-    bf16 x always runs as ``conv2d``'s bf16 product."""
+    bf16 x always runs as ``conv2d``'s bf16 product. ``halo``: the rows x
+    carries above and below its own (each 0 or ``dilation``); those sides
+    take no zero padding, and the output has x's own rows."""
     B, C, H, W = x.shape
+    d = dilation
+    top, bottom = halo
     if (x.dtype != torch.bfloat16 and not torch.is_grad_enabled()
-            and 18.0 * B * H * W * C * w.shape[0] >= TAPS_MIN_FLOP):
-        return conv3x3_taps(x, w, b, dilation=dilation)
-    return conv2d(x, w, b, dilation=dilation, padding=dilation)
+            and 18.0 * B * (H - top - bottom) * W * C * w.shape[0]
+            >= TAPS_MIN_FLOP):
+        return conv3x3_taps(x, w, b, dilation=d, halo=halo)
+    pt, pb = d - top, d - bottom
+    if pt == pb:
+        return conv2d(x, w, b, dilation=d, padding=(pt, d))
+    return conv2d(F.pad(x, (0, 0, pt, pb)), w, b, dilation=d, padding=(0, d))
 
 
-def conv3x3_taps(x, w, b, *, dilation=1):
+def conv3x3_taps(x, w, b, *, dilation=1, halo=(0, 0)):
     """A 3×3 convolution with zero padding ``dilation``, as nine channel
     products (``torch.addmm``) summed in a fixed order. x: (B, C, H, W) in
     channels_last memory; w: (O, C, 3, 3). Returns (B, O, H, W) in
-    channels_last memory.
+    channels_last memory, or x's own rows under a ``halo`` (as
+    ``conv3x3``).
 
-    The input is zero-padded by d = dilation and flattened to rows, one
-    per pixel of the padded grid; the output is computed on the same grid.
-    On that grid tap (ky, kx) reads the row s = (ky-1)·d·(W+2d) + (kx-1)·d
-    away, so each tap is one product of a contiguous block of input rows,
-    added in place to a contiguous block of output rows (beta = 1). Rows
-    of the padding ring read across an edge and are cut away; every inner
-    output reads only its own image's padded rows. The bias and the centre
-    tap come first, then the other taps in row-major order, so the result
-    is the same from run to run. The images go through in groups whose
-    padded input and output fit TAPS_SCRATCH_BYTES (at least one image)."""
+    The input is zero-padded by d = dilation (the rows by d less the halo)
+    and flattened to rows, one per pixel of the padded grid; the output is
+    computed on the same grid. On that grid tap (ky, kx) reads the row
+    s = (ky-1)·d·(W+2d) + (kx-1)·d away, so each tap is one product of a
+    contiguous block of input rows, added in place to a contiguous block
+    of output rows (beta = 1). Rows of the padding ring read across an
+    edge and are cut away; every inner output reads only its own image's
+    padded rows. The bias and the centre tap come first, then the other
+    taps in row-major order, so the result is the same from run to run.
+    The images go through in groups whose padded input and output fit
+    TAPS_SCRATCH_BYTES (at least one image)."""
     B, C, H, W = x.shape
     O = w.shape[0]
     d = dilation
-    Hp, Wp = H + 2 * d, W + 2 * d
+    pt, pb = d - halo[0], d - halo[1]
+    Ho = H + pt + pb - 2 * d
+    Hp, Wp = H + pt + pb, W + 2 * d
     step = max(1, int(TAPS_SCRATCH_BYTES
                       // (x.element_size() * Hp * Wp * (C + O))))
     taps = w.permute(2, 3, 1, 0)                    # (3, 3, C, O)
-    out = torch.empty((B, O, H, W), dtype=x.dtype, device=x.device,
+    out = torch.empty((B, O, Ho, W), dtype=x.dtype, device=x.device,
                       memory_format=torch.channels_last)
     for b0 in range(0, B, step):
         xb = x[b0:b0 + step].permute(0, 2, 3, 1)
-        rows = F.pad(xb, (0, 0, d, d, d, d)).reshape(-1, C)
+        rows = F.pad(xb, (0, 0, d, d, pt, pb)).reshape(-1, C)
         acc = torch.addmm(b, rows, taps[1, 1])
         n = acc.shape[0]
         for ky in range(3):
@@ -118,8 +139,17 @@ def conv3x3_taps(x, w, b, *, dilation=1):
                     lo, hi = max(0, -s), n - max(0, s)
                     acc[lo:hi].addmm_(rows[lo + s:hi + s], taps[ky, kx])
         out[b0:b0 + step] = acc.view(-1, Hp, Wp, O)[
-            :, d:d + H, d:d + W].permute(0, 3, 1, 2)
+            :, d:d + Ho, d:d + W].permute(0, 3, 1, 2)
     return out
+
+
+def own_rows(y, halo):
+    """y (B, C, H, W) without the ``halo`` rows (top, bottom) of a shard's
+    input: the shard's own rows (y itself without a halo)."""
+    top, bottom = halo
+    if not (top or bottom):
+        return y
+    return y.narrow(2, top, y.shape[2] - top - bottom)
 
 
 def quantize_weights_int8(w):
@@ -145,42 +175,63 @@ def quantize_int8(x, s):
     return torch.round(fdiv(x, s)).clamp(-127, 127).to(torch.int8)
 
 
-def dynamic_scales(x, groups=None):
-    """The dynamic mode's activation step of each item of x (B, C, H, W):
-    max(max|x|, 1e-12) / 127 over everything one JAX forward call of the
-    item's group sees. ``groups`` (B,) int tensor: items with one id share
-    one step; None: the whole batch shares one, as one JAX call over it
-    does. Returns (B,) float32."""
+def dynamic_amax(x, groups=None):
+    """max|x| over everything one JAX forward call of each item's group
+    sees, (B,) for x (B, C, H, W). ``groups`` (B,) int tensor: items with
+    one id share one maximum; None: the whole batch shares one, as one JAX
+    call over it does."""
     amax = x.abs().amax(dim=(1, 2, 3))
     if groups is None:
-        amax = amax.amax().expand(x.shape[0])
-    else:
-        same = groups[:, None] == groups[None, :]
-        amax = torch.where(same, amax[None, :], 0.0).amax(dim=1)
+        return amax.amax().expand(x.shape[0])
+    groups = groups.to(x.device)
+    same = groups[:, None] == groups[None, :]
+    return torch.where(same, amax[None, :], 0.0).amax(dim=1)
+
+
+def dynamic_step(amax):
+    """The dynamic mode's activation step of a maximum: max(amax, 1e-12) /
+    127 in fp32."""
     return fdiv(amax.clamp_min(1e-12), 127.0)
 
 
-def conv2d_int8(x, w, b, *, dilation=1, groups=None):
+def dynamic_scales(x, groups=None):
+    """The dynamic mode's activation step of each item of x (B, C, H, W):
+    ``dynamic_step`` of ``dynamic_amax``. Returns (B,) float32."""
+    return dynamic_step(dynamic_amax(x, groups))
+
+
+def conv2d_int8(x, w, b, *, dilation=1, groups=None, s_x=None,
+                halo=(0, 0)):
     """The dynamic int8 mode's 3×3 convolution, zero padding ``dilation``:
-    fp32 x is quantized with its dynamic step s_x (``dynamic_scales``), w
-    per output channel, the product runs in int8, and the result is
+    fp32 x is quantized with its dynamic step s_x (``dynamic_scales``, or
+    the (B,) steps given, as a sharded image takes them over every shard),
+    w per output channel, the product runs in int8, and the result is
     float(acc)·(s_x·s_w) + b in fp32, without a ReLU (the caller applies
-    it, as the JAX forward does). x: (B, C, H, W) channels_last."""
-    s_x = dynamic_scales(x, groups)
+    it, as the JAX forward does). x: (B, C, H, W) channels_last. Under a
+    ``halo`` (rows of x from the shards above and below, each 0 or
+    ``dilation``) the product runs over every row of x and the output keeps
+    x's own rows."""
+    if s_x is None:
+        s_x = dynamic_scales(x, groups)
     q = quantize_int8(x, s_x[:, None, None, None])
     qw, s_w = quantize_weights_int8(w)
-    return conv3x3_int8(q, kernel_weights(qw), s_x[:, None] * s_w[None, :],
-                        b, dilation=dilation, relu=False)
+    return own_rows(conv3x3_int8(
+        q.contiguous(memory_format=torch.channels_last), kernel_weights(qw),
+        s_x[:, None] * s_w[None, :], b, dilation=dilation, relu=False), halo)
 
 
-def conv2d_int8_chain(q, qw, s_in, s_w, b, *, dilation=1, s_out=None):
+def conv2d_int8_chain(q, qw, s_in, s_w, b, *, dilation=1, s_out=None,
+                      halo=(0, 0)):
     """One link of the calibrated int8 chain: the int8 carrier q on the
     grid of step s_in (a number holding a float32), prebaked (O, 3, 3, C)
     weights qw with steps s_w (O,); the epilogue dequantizes, adds b and
     applies the ReLU, then requantizes onto the step s_out (int8 out), or
-    ends the chain in fp32 when s_out is None."""
-    return conv3x3_int8(q, qw, (s_w * s_in)[None], b, dilation=dilation,
-                        relu=True, s_out=s_out)
+    ends the chain in fp32 when s_out is None. ``halo`` as in
+    ``conv2d_int8``."""
+    return own_rows(conv3x3_int8(
+        q.contiguous(memory_format=torch.channels_last), qw,
+        (s_w * s_in)[None], b, dilation=dilation, relu=True, s_out=s_out),
+        halo)
 
 
 def max_pool_2x2(x):
@@ -202,13 +253,14 @@ def per_item(v):
     return isinstance(v, torch.Tensor) and v.dim() == 1
 
 
-def zero_outside(h, vh, vw):
+def zero_outside(h, vh, vw, row0=0):
     """h (N, C, H, W) with every position outside rows [0, vh) and columns
     [0, vw) set to exactly 0 (NaN and inf included): the reference
     network's implicit zero padding around a valid extent. vh and vw are
     numbers, or (N,) int tensors giving each item its own extent (the JAX
-    ``"where"`` mode under ``vmap``)."""
-    rows = torch.arange(h.shape[2], device=h.device)[:, None]
+    ``"where"`` mode under ``vmap``). ``row0``: the global row of h's first
+    row (a shard of an H-sharded image)."""
+    rows = torch.arange(row0, row0 + h.shape[2], device=h.device)[:, None]
     cols = torch.arange(h.shape[3], device=h.device)[None, :]
     if per_item(vh):
         # in place on a copy, which keeps h's memory format
@@ -232,17 +284,24 @@ def bilinear_kernel(factor: int, channels: int, dtype=np.float32):
     return w
 
 
-def upsample2x_bilinear(x, w):
+def upsample2x_bilinear(x, w, *, halo=(0, 0)):
     """Depthwise transposed conv, kernel 4, stride 2, pad 1: (C, H, W) →
     (C, 2H, 2W), Caffe Deconvolution(group=C). ``w`` is (C, 1, 4, 4).
 
     The JAX version correlates the 2-dilated input with ``w``; a transposed
     conv correlates it with the spatially flipped kernel, so the flip here
     makes the two agree for any kernel (the bilinear one is symmetric).
-    On a bf16 x it is a bf16 product, rounded once (JAX :208-213)."""
+    On a bf16 x it is a bf16 product, rounded once (JAX :208-213).
+
+    ``halo``: the rows x carries above and below its own (one each at
+    most): output row o reads only input rows ⌊(o-1)/2⌋ and ⌊(o+1)/2⌋,
+    so with a one-row halo the output's 2·(own rows) rows of the shard are
+    exact, and only they are kept."""
     def deconv(x, w):
         return F.conv_transpose2d(x, torch.flip(w, (2, 3)), stride=2,
                                   padding=1, groups=x.shape[1])
     if x.dtype == torch.bfloat16:
-        return bf16_product(deconv, x, w)
-    return deconv(x, w)
+        y = bf16_product(deconv, x, w)
+    else:
+        y = deconv(x, w)
+    return own_rows(y, (2 * halo[0], 2 * halo[1]))

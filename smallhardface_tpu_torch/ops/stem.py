@@ -29,6 +29,11 @@ runs its two 64-channel products in 3xTF32 too.
   For detection of a bucketed batch the valid extent may be given per
   image (two (B,) int tensors, K1 reads them from the device in one
   launch); then no weight may need a gradient.
+- ``fused_stem_spatial``: K4, the stem over an H-sharded image
+  (pallas_stem.py:250-370, forward only): per shard, ``fused_stem`` (K1
+  on a CUDA tensor) on the shard's rows and TH = 8 rows of each inner
+  neighbour, then the shard's own pooled rows. It needs no first valid row
+  ``r0``: K1's own zero padding stands at the image's edges.
 - ``fused_stem_grad_reference``: the plain backward, ``torch.autograd.grad``
   through ``fused_stem_reference`` with dy zeroed beyond the pooled valid
   extent. K2's oracle.
@@ -50,6 +55,7 @@ import torch.nn.functional as F
 
 from smallhardface_tpu_torch.models.layers import per_item, zero_outside
 from smallhardface_tpu_torch.ops.cuda_build import CI, VP, CudaLibrary
+from smallhardface_tpu_torch.parallel import spatial
 
 STEM = CudaLibrary("stem", "stem.cu",
                    {"shf_stem_forward": [VP] * 8 + [CI] * 5 + [VP] * 2})
@@ -59,6 +65,7 @@ GRAD_CHUNKS = 256       # pixel chunks of K2's weight gradient (fixed order)
 _KT = 32                # pixels per step of that gradient (stem_grad.cu)
 _W2_SPLIT = 9 * 64 * 64 * 2    # w2 (K1) or w2f (K2) as TF32 hi/lo fragments
 NO_ROUTE = 4            # route code: no element of the window takes dy
+TH = 8                  # K4's halo: input rows taken from each neighbour
 
 
 def conv1_1_reference(x, w1, b1, valid_hw=None):
@@ -270,6 +277,72 @@ def fused_stem(x, w1, b1, w2, b2, valid_hw=None):
 
 fused_stem.launches = 0
 fused_stem.route_writes = 0
+
+
+def _clip_rows(v, lo, hi):
+    """v - lo clipped to [0, hi], v a number or an int tensor."""
+    if isinstance(v, torch.Tensor):
+        return (v - lo).clamp(0, hi)
+    return min(max(int(v) - lo, 0), hi)
+
+
+def fused_stem_spatial(shards, w1, b1, w2, b2, valid_hw=None):
+    """K4: ``fused_stem`` over an H-sharded image (JAX
+    ``fused_stem_spatial``, pallas_stem.py:250-370), forward only.
+
+    shards: NHWC (B, Hs, W, 3) float32 tensors, the i-th holding global
+    rows [i·Hs, (i + 1)·Hs) on its device, Hs even and at least TH (the
+    layout of ``parallel.spatial``). Each shard runs ``fused_stem`` (K1 on
+    a CUDA tensor, one launch a shard; the plain version on the CPU) on
+    its strip: its own rows with TH = 8 rows of the shard above and below
+    (``spatial.halo``), none at the image's top and bottom, and the valid
+    height of the strip's rows; then it keeps its own Hs/2 pooled rows.
+    ``valid_hw``: the GLOBAL extent (numbers, or (B,) int tensors per
+    image), None for the whole image. Returns the shards' pooled rows, NHWC
+    (B, Hs/2, W/2, 64) each on its device.
+
+    Why no first valid row: JAX runs every shard on a strip of Hs + 2·TH
+    rows, the top shard's upper TH rows being ppermute's zeros, and masks
+    them with r0 = TH (pallas_stem.py:352), so that conv1_2 reads conv1_1
+    as 0 there and not relu(b1). Here the top shard's strip has no upper
+    rows, and K1's own zero padding of the input and of conv1_1 is exactly
+    that mask; the bottom edge is the same, with the valid height masking
+    the rest. Each pooled output depends only on its window's rows, all
+    inside the strip (3 rows past the shard's edge at most), so the kept
+    rows are one K1's over the whole image.
+
+    ``fused_stem_spatial.launches`` counts the K1 launches K4 makes (one
+    a shard on a CUDA device; they count in ``fused_stem.launches`` too).
+    Under grad mode with a stem weight that needs a gradient it raises
+    (K4's backward on K2 ports with spatial training, ROADMAP queue 1
+    item 22); one shard is ``fused_stem`` itself, which trains."""
+    if len(shards) == 1:
+        return [fused_stem(shards[0], w1, b1, w2, b2, valid_hw=valid_hw)]
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (w1, b1, w2, b2)):
+        raise NotImplementedError(
+            "fused_stem_spatial is forward only: K4's backward on K2 ports "
+            "with spatial and grouped training (ROADMAP queue 1 item 22)")
+    rows = shards[0].shape[1]
+    if any(s.shape[1] != rows for s in shards) or rows % 2 or rows < TH:
+        raise ValueError("fused_stem_spatial: the shards need one even row "
+                         f"count of at least {TH}, got "
+                         f"{[s.shape[1] for s in shards]}")
+    W = shards[0].shape[2]
+    vh, vw = (rows * len(shards), W) if valid_hw is None else valid_hw
+    out = []
+    for i, (strip, (top, _)) in enumerate(spatial.halo(shards, TH, dim=1)):
+        dev = strip.device
+        ws = [t.detach().to(dev) for t in (w1, b1, w2, b2)]
+        start = i * rows - top              # the strip's first global row
+        local = (_clip_rows(vh, start, strip.shape[1]), vw)
+        pooled = fused_stem(strip.contiguous(), *ws, valid_hw=local)
+        fused_stem_spatial.launches += dev.type == "cuda"
+        out.append(pooled.narrow(1, top // 2, rows // 2))
+    return out
+
+
+fused_stem_spatial.launches = 0
 
 
 def fused_stem_grad_products(x, c1, dpre2, w2, valid_hw=None):

@@ -93,6 +93,14 @@ def rank():
     return dist.get_rank() if active() else 0
 
 
+def local_rank():
+    """This rank's index on its node (the launcher's LOCAL_RANK), 0 without
+    a process group."""
+    if not active():
+        return 0
+    return int(os.environ.get("LOCAL_RANK", rank()))
+
+
 def backend():
     """The process group's backend ("nccl" or "gloo"), None without one."""
     return dist.get_backend() if active() else None

@@ -23,7 +23,9 @@ raises when there is no card):
       [--device cpu] [--port 8400] [--host 127.0.0.1] \
       [--batch-window-ms 20 --max-batch 4] [--amend KEY VALUE ...]
 
-``--model`` takes an ``.npz`` checkpoint of either package or a
+``--amend TPU.SPATIAL_DEVICES k`` shards each request's image over the
+first k cards (no ``--batch-window-ms`` then). ``--model`` takes an
+``.npz`` checkpoint of either package or a
 ``.caffemodel``; ``--amend`` sets config keys as the main command line's
 does (``--amend TPU.PRECISION bfloat16`` serves the bf16 mode). The int8
 serving mode (``--conf smallhardface_tpu/configs/smallhardface-int8.toml``)
@@ -47,13 +49,18 @@ import torch
 
 from smallhardface_tpu_torch.config import cfg
 from smallhardface_tpu_torch.detect import TorchDetector
+from smallhardface_tpu_torch.parallel import spatial
+from smallhardface_tpu_torch.utils.device import resolve_device
 
 logger = logging.getLogger(__name__)
 
 
 class DetectorService:
     """Thread-safe wrapper over ``TorchDetector``'s async pipeline on
-    ``device`` (the CUDA card when None; "cpu" only when asked).
+    ``device`` (the CUDA card when None; "cpu" only when asked). Under
+    TPU.SPATIAL_DEVICES = k > 1 each request's image runs H-sharded over
+    the first k local devices of that type (ValueError when there are
+    fewer, or with a batch window).
 
     batch_window_ms > 0 turns on cross-client micro-batching: requests
     arriving within the window are grouped, by threshold, into
@@ -71,12 +78,19 @@ class DetectorService:
 
     def __init__(self, params, spec, batch_window_ms=0, max_batch=4,
                  calib_images=(), device=None):
-        if int(cfg.TPU.SPATIAL_DEVICES) > 1:
-            raise NotImplementedError(
-                f"TPU.SPATIAL_DEVICES={cfg.TPU.SPATIAL_DEVICES}: spatial "
-                "sharding is not ported yet (ROADMAP queue 1 item 14, "
-                "'Spatial H-sharding')")
-        self.det = TorchDetector(params, spec, device)
+        k = int(cfg.TPU.SPATIAL_DEVICES)
+        if k > 1:
+            # each request's image runs H-sharded over the first k local
+            # devices (JAX serve.py:56-85)
+            if float(batch_window_ms) > 0:
+                raise ValueError(
+                    "TPU.SPATIAL_DEVICES > 1 is incompatible with "
+                    "--batch-window-ms (detect_many batches per chip); use "
+                    "per-request serving for spatially-sharded images")
+            unit = spatial.first_devices(resolve_device(device), k)
+            self.det = TorchDetector(params, spec, spatial_devices=unit)
+        else:
+            self.det = TorchDetector(params, spec, device)
         if self.det.precision == "int8":
             if calib_images:
                 self.det.calibrate_int8(list(calib_images))

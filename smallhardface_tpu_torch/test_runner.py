@@ -4,7 +4,8 @@ demo.
 Counterpart of ``smallhardface_tpu/test_runner.py``: ``_load_params``
 (:31-43), ``inference_worker`` (:46-145), ``_process_range`` (:148-157),
 ``run_inference`` (:178-222), ``demo`` (:225-241), ``get_testing_roidb``
-(:244-252) and ``test_net`` (:255-324), with one device per process:
+(:244-252) and ``test_net`` (:255-324), with one unit per process (a
+device, or under ``TPU.SPATIAL_DEVICES`` = k > 1 a spatial unit of k):
 
 - each process (a rank of ``parallel.dist``, or the only one) runs a
   contiguous block of the imdb's images through ``TorchDetector`` on its
@@ -23,8 +24,13 @@ Counterpart of ``smallhardface_tpu/test_runner.py``: ``_load_params``
   a ``TRAIN.AUTO_RESUME`` run meet an injected sticky CUDA fault before
   it detects.
 
-Spatial meshes (``TPU.SPATIAL_DEVICES > 1``) raise: they wait for spatial
-sharding (ROADMAP queue 1 item 14).
+Spatial units (``TPU.SPATIAL_DEVICES`` = k > 1, JAX test_runner.py:46-57,
+:90-96, :178-193): the process's unit is k local devices of its device's
+type, under ``torchrun`` those from LOCAL_RANK·k to LOCAL_RANK·k + k − 1
+(``parallel.spatial.unit``; ValueError when k does not divide the local
+device count or the unit lies beyond it), and each image runs H-sharded
+over it (``TorchDetector(spatial_devices=…)``). ``TPU.EVAL_BATCH > 1`` is
+ignored there, with JAX's warning: ``detect_many`` batches per device.
 """
 
 from __future__ import annotations
@@ -43,6 +49,7 @@ from smallhardface_tpu_torch.detect import TorchDetector, _imread
 from smallhardface_tpu_torch.io import caffemodel, weights
 from smallhardface_tpu_torch.models import detector as detector_mod
 from smallhardface_tpu_torch.parallel import dist as pdist
+from smallhardface_tpu_torch.parallel import spatial
 from smallhardface_tpu_torch.utils.faults import injected_fault
 from smallhardface_tpu_torch.utils.tensorboard import tb
 from smallhardface_tpu_torch.utils.timer import Timer
@@ -69,15 +76,6 @@ def _load_params(spec):
     return weights.load_params(path)
 
 
-def _check_no_spatial():
-    """Spatial meshes raise: they are not ported yet."""
-    if int(cfg.TPU.SPATIAL_DEVICES) > 1:
-        raise NotImplementedError(
-            f"TPU.SPATIAL_DEVICES={cfg.TPU.SPATIAL_DEVICES}: spatial "
-            "sharding is not ported yet (ROADMAP queue 1, 'Spatial "
-            "H-sharding')")
-
-
 def _process_range(n_total):
     """The contiguous block of images this rank owns (JAX
     test_runner.py:148-157; the reference's worker sharding,
@@ -88,15 +86,18 @@ def _process_range(n_total):
 
 
 def inference_worker(rank, device, imdb, params, spec, start, end, thresh):
-    """Detections of images [start, end) of the imdb on ``device``, as
-    ``dets[class][image - start]``. Up to PIPELINE_DEPTH images wait on the
+    """Detections of images [start, end) of the imdb on ``device`` (a list
+    of devices: a spatial unit), as ``dets[class][image - start]``. Up to PIPELINE_DEPTH images wait on the
     device while the host reads back and stores the oldest; under
     TPU.EVAL_BATCH > 1, full groups of EVAL_BATCH images of one key go
     through ``detect_many`` and the rest one at a time; under
     TPU.HOST_PREPROC the images run one at a time. Under TPU.PRECISION
     "int8" the detector first calibrates on the shard's first
     TPU.INT8_CALIB_IMAGES images; "bfloat16" needs no set-up."""
-    det = TorchDetector(params, spec, device)
+    if isinstance(device, list):
+        det = TorchDetector(params, spec, spatial_devices=device)
+    else:
+        det = TorchDetector(params, spec, device)
     if det.precision == "int8":
         # the calibrated int8 chain: activation ranges from the first
         # INT8_CALIB_IMAGES images of this shard, before the timed loop
@@ -130,6 +131,13 @@ def inference_worker(rank, device, imdb, params, spec, start, end, thresh):
             store(i, dets_)
         return rank, dets
     eval_batch = int(cfg.TPU.EVAL_BATCH)
+    if eval_batch > 1 and det.spatial:
+        if rank == 0:
+            logger.warning(
+                "TPU.EVAL_BATCH=%d ignored under TPU.SPATIAL_DEVICES: "
+                "detect_many batches per chip; spatial groups run the "
+                "per-image pipeline", eval_batch)
+        eval_batch = 1
     if eval_batch > 1:
         # as the JAX runner: full batches of exactly eval_batch images of
         # one key through detect_many, the images left over one at a time
@@ -174,8 +182,12 @@ def run_inference(imdb, params, spec, thresh, device=None):
     """Every image of the imdb: ``dets[class][image]``. Each rank detects
     its block on ``device``; over W ranks the blocks are all-gathered
     (pickled, as JAX's _allgather_detections, test_runner.py:159-176), so
-    every rank returns the whole list in imdb order."""
-    _check_no_spatial()
+    every rank returns the whole list in imdb order. Under
+    TPU.SPATIAL_DEVICES = k > 1 the rank's unit is ``spatial.unit`` k local
+    devices of ``device``'s type, the LOCAL_RANK-th group of k."""
+    k = int(cfg.TPU.SPATIAL_DEVICES)
+    if k > 1:
+        device = spatial.unit(device or "cuda", k, pdist.local_rank())
     start, end = _process_range(len(imdb))
     _, dets = inference_worker(0, device, imdb, params, spec, start, end,
                                thresh)

@@ -82,6 +82,22 @@ def forward_convs(hb, wb):
     return out
 
 
+def shard_convs(hb, wb, k):
+    """The 3×3 convolutions of the forward over k shards of an (hb, wb)
+    level (``parallel/spatial``: the level padded to ``padded_height``),
+    conv1 aside, as each shard runs them (``layers.conv3x3`` with a halo):
+    (name, C, O, rows in, W, dilation, (top, bottom) halo), for a shard at
+    the image's top (its bottom twin has the same shape) and, for k > 2,
+    an inner one."""
+    from smallhardface_tpu_torch.parallel import spatial
+    out = []
+    for name, c, o, h, w, d in forward_convs(
+            spatial.padded_height(hb, k), wb):
+        for halo in [(0, d)] + ([(d, d)] if k > 2 else []):
+            out.append((name, c, o, h // k + sum(halo), w, d, halo))
+    return out
+
+
 def shape_map(images=IMAGES, batches=BATCHES):
     """{(B, C, O, H, W, d): [where, ...]} over every image, level, kind
     (exact / bucket) and batch."""

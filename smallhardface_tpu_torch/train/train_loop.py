@@ -405,7 +405,8 @@ def train_net(roidb, output_dir, pretrained_model, max_iter, device=None,
     if int(cfg.TPU.SPATIAL_DEVICES) > 1:
         raise NotImplementedError(
             "spatial and grouped training are not ported yet (ROADMAP "
-            "queue 1 item 14, 'Spatial H-sharding with K4')")
+            "queue 1 item 22, 'Spatial and grouped training with K4's "
+            "backward on K2'); spatial detection is ported")
     _check_world(world)
     spec = detector_mod.build_spec(cfg)
     tc = targets_mod.from_cfg(cfg)

@@ -39,6 +39,9 @@ a machine that has only PyTorch:
   float64 on integers, within RTOL on floats, and to eight single-image
   launches), V1 over three images in one launch (equal to the bit to
   three single launches);
+- K4 (``ops/stem.fused_stem_spatial``, spatial detection): the pooled
+  rows of its shards equal to the bit to one K1 over the whole image, one
+  K1 launch a shard, whole and with a valid height inside a shard;
 - conv4_fuse_final_dim_red, as detection runs it, at the shapes where
   cuDNN took an FFT algorithm: at most 4 GB of device memory added;
 - Q1 (the int8 3×3 convolution, csrc/conv_int8.cu): equal to the bit to
@@ -70,6 +73,7 @@ from smallhardface_tpu_torch.ops.iou_cases import (BASE, K3_CASES, band_gt,
 from smallhardface_tpu_torch.ops.vote_cases import (EDGE_CASES, chain_dets,
                                                    crowd_dets, edge_case,
                                                    integer_dets)
+from smallhardface_tpu_torch.parallel import spatial
 
 VALID = (24, 96)
 # K1 on float inputs against the plain forward (fp32 cuDNN): fp32 rounding,
@@ -145,6 +149,27 @@ def test_stem_kernel_and_route_vs_plain_on_integers(cuda, shape, valid):
     assert torch.equal(out.double(), want)
     assert torch.equal(route, want_route)
     assert (torch.bincount(route.flatten().long(), minlength=5) > 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,k,valid", [
+    ((2, 256, 384, 3), 4, None),
+    ((1, 192, 200, 3), 2, (120, 170)),    # the valid height inside shard 1
+])
+def test_k4_equals_one_k1_to_the_bit(cuda, shape, k, valid):
+    """K4 over k shards on the card (one launch of K1 a shard) against one
+    K1 over the whole image: each pooled output is computed from the same
+    rows in the same order, so the rows are equal to the bit."""
+    x, _, *ws = _on(_float_grad_inputs(17, shape, valid or shape[1:3]), cuda)
+    want, _ = stem._stem_kernel(x, *ws, valid)
+    before = stem.fused_stem.launches, stem.fused_stem_spatial.launches
+    with torch.no_grad():
+        got = stem.fused_stem_spatial(spatial.split(x, [cuda] * k), *ws,
+                                      valid_hw=valid)
+    torch.cuda.synchronize()
+    assert (stem.fused_stem.launches, stem.fused_stem_spatial.launches) == (
+        before[0] + k, before[1] + k)
+    assert torch.equal(torch.cat(got, 1), want)
 
 
 @pytest.mark.cuda

@@ -23,7 +23,8 @@ the 64×80 JPEGs of tests/test_train_loop.py:
   detections.pkl array for array, rank 1 writing nothing; with a cache on
   rank 0 only, no rank detects and none hangs;
 - (f) the raises: TPU.NUM_DEVICES other than the world, NCCL with more
-  ranks than cards (a monkeypatched device count), spatial meshes;
+  ranks than cards (a monkeypatched device count), spatial training, and
+  a spatial evaluation unit larger than the one CPU;
 - (g) ``__main__.main`` --train true --test true as two ranks on a
   synthetic WIDER tree: one run directory per phase whatever each rank's
   clock, ``stderr.log`` (rank 0) and ``stderr.rank1.log``, equal weights
@@ -571,14 +572,17 @@ def test_without_a_launcher_init_is_a_no_op(monkeypatch):
 @pytest.mark.parametrize("where", ["train_net", "test_net"])
 def test_spatial_still_raises(tmp_path, port_cfg, monkeypatch,  # noqa: F811
                               where):
-    """(f) Spatial meshes wait for ROADMAP queue 1 item 14."""
+    """(f) Spatial training waits for ROADMAP queue 1 item 22; spatial
+    evaluation is ported (tests/test_torch_port_spatial.py) and refuses a
+    unit of 2 over the one CPU, with JAX's words."""
     monkeypatch.setitem(tcfg.TPU, "SPATIAL_DEVICES", 2)
-    with pytest.raises(NotImplementedError, match="patial"):
-        if where == "train_net":
+    if where == "train_net":
+        with pytest.raises(NotImplementedError, match="item 22"):
             ttl.train_net(_tiny_roidb(tmp_path), str(tmp_path), None, 1,
                           device="cpu")
-        else:
-            from smallhardface_tpu_torch import test_runner
+    else:
+        from smallhardface_tpu_torch import test_runner
+        with pytest.raises(ValueError, match="must divide the local device"):
             test_runner.run_inference(None, None, None, 0.05, device="cpu")
 
 

@@ -51,7 +51,7 @@ def test_port_imports_no_jax():
                 "datasets.afw", "datasets.pascalface", "datasets.general",
                 "evals.wider_eval", "evals.face_eval", "ops.nms_device",
                 "utils.tensorboard", "test_runner", "__main__", "serve",
-                "parallel", "parallel.dist"):
+                "parallel", "parallel.dist", "parallel.spatial"):
         assert f"smallhardface_tpu_torch.{mod}" in names.split(), mod
 
 

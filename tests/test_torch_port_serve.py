@@ -164,12 +164,14 @@ def test_service_matches_jax_service(serve_cfg):
      "MASK_MODE"),
     ({"PRECISION": "int8", "MASK_MODE": "band"},
      {"calib_images": ["calib.jpg"]}, ValueError, "MASK_MODE"),
-    ({"SPATIAL_DEVICES": 2}, {}, NotImplementedError, "item 14"),
+    ({"SPATIAL_DEVICES": 2}, {}, ValueError, "exceeds the 1 local devices"),
 ], ids=["int8", "calib_images", "spatial"])
 def test_unported_settings_raise(serve_cfg, amend, kwargs, error, what):
-    """Spatial sharding is not ported and raises. int8 serving is ported
-    (tests/test_torch_port_int8.py); like the JAX service it refuses int8
-    with a "band" mask mode, before it would calibrate."""
+    """Settings the service refuses, as the JAX service does: int8 with a
+    "band" mask mode, before it would calibrate (int8 serving itself is
+    ported, tests/test_torch_port_int8.py), and spatial sharding over more
+    devices than the process has (the CPU is one; the spatial service is
+    tested in tests/test_torch_port_spatial.py)."""
     saved = copy.deepcopy(tcfg.TPU)
     tcfg.TPU.update(amend)
     try:

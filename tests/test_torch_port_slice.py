@@ -177,18 +177,21 @@ def test_demo_cli():
         shutil.rmtree(root, ignore_errors=True)
 
 
-@pytest.mark.parametrize("args,what", [
+@pytest.mark.parametrize("args,error,what", [
     (["--train", "true", "--test", "false", "--amend",
-      "TPU.SPATIAL_DEVICES", "2"], "spatial"),
+      "TPU.SPATIAL_DEVICES", "2"], NotImplementedError, "item 22"),
     (["--train", "false", "--test", "true", "--amend",
-      "TPU.SPATIAL_DEVICES", "2"], "spatial"),
+      "TPU.SPATIAL_DEVICES", "2"], ValueError,
+     "must divide the local device count"),
 ], ids=["args0-training", "args1-dataset evaluation"])
-def test_cli_unported_branches_raise(args, what, tmp_path):
+def test_cli_unported_branches_raise(args, error, what, tmp_path):
     """Both branches of the command line are ported; what they do not
-    cover yet raises: spatial training and spatial evaluation
-    (TPU.SPATIAL_DEVICES > 1, ROADMAP queue 1 item 14). Batched evaluation
-    (TPU.EVAL_BATCH > 1, tests/test_torch_port_batch.py) and evaluation in
-    bfloat16 (tests/test_torch_port_bf16.py) are ported."""
+    cover raises: spatial training (TPU.SPATIAL_DEVICES > 1, ROADMAP queue
+    1 item 22), and a spatial evaluation unit of 2 over the one CPU, with
+    JAX's words (spatial evaluation itself is ported,
+    tests/test_torch_port_spatial.py). Batched evaluation (TPU.EVAL_BATCH
+    > 1, tests/test_torch_port_batch.py) and evaluation in bfloat16
+    (tests/test_torch_port_bf16.py) are ported."""
     from smallhardface_tpu_torch.__main__ import main
     import copy
     saved = copy.deepcopy(tcfg)
@@ -197,7 +200,7 @@ def test_cli_unported_branches_raise(args, what, tmp_path):
         sys.path.insert(0, os.path.join(REPO, "scripts"))
         import synth_wider
         synth_wider.build(str(tmp_path), n_images=1, im_size=64)
-        with pytest.raises(NotImplementedError, match=what):
+        with pytest.raises(error, match=what):
             main(["--device", "cpu"] + args
                  + ["EXP_DIR", exp_dir, "DATA_DIR", str(tmp_path)])
     finally:
