@@ -128,6 +128,17 @@ Then, each phase printing one line:
    replaced by an inline stand-in) and with the thread again, each
    final.npz equal to the bit to the first; then a resume from the
    iteration-3 snapshot that must reach the same final.npz to the bit;
+10b. spatial training (``spatial_train``), units ``cuda:0`` repeated k
+   times: three flagship iterations over k = 2 beside the same run on one
+   device (losses within the spatial forward's rtol, each leaf's update
+   within UPDATE_TOL of its peak, frozen leaves to the bit; K1
+   twice per micro-batch, K2 never; wall, device busy time, idle share,
+   peak memory and halo bytes of both); the full-tree micro-batch over
+   k = 2 and 4 (K1, its routing and K2 k times, K3 once; conv1 gradients
+   against one device's within GRAD_TOL); K4's backward alone on the
+   small-integer recipe at that micro-batch's shape, equal to the bit to
+   one K2, with its wall, K2's device time per backward and the plain
+   backward's time;
 11. one training iteration of a small skeletal network on the CPU and on
    the card from the same weights;
 12. train-then-test from the command line:
@@ -987,6 +998,7 @@ def main():
     try:
         full_grad_counts = full_tree_grad(cfg, tdm, stem, iou, dev, work)
         train_counts = train_path(cfg, tdm, stem, iou, dev, work)
+        spatial_train_out = spatial_train(cfg, tdm, stem, iou, dev, work)
         cpu_vs_card(cfg, tdm, dev, work)
         cfg.clear()
         cfg.update(copy.deepcopy(pristine))
@@ -1020,6 +1032,21 @@ def main():
         kernels[k]["launches_eval_cli"] = eval_counts[k]
     for k in ("fused_stem", "max_iou"):
         kernels[k]["launches_dp_two_ranks"] = [c[k] for c in dp_counts]
+    sp_tree = spatial_train_out["counts"]
+    kernels["fused_stem_grad"]["launches_train_spatial"] = {
+        str(k): c["fused_stem_grad"] for k, c in sp_tree.items() if k > 1}
+    kernels["fused_stem"]["launches_train_spatial"] = spatial_train_out[
+        "flagship"]["fused_stem"]
+    k4 = kernels["fused_stem_spatial"]
+    k4["launches_train_spatial"] = spatial_train_out["flagship"][
+        "fused_stem_spatial"]
+    k4["backward_launches"] = sp_tree[SPATIAL_GRAD_KS[-1]][
+        "fused_stem_grad"]
+    k4["backward_launches_path"] = (
+        f"spatial_train_full_tree k={SPATIAL_GRAD_KS[-1]}")
+    k4.update({f: v for f, v in spatial_train_out["k4"].items()
+               if f.startswith("backward")})
+    k4["backward_k"] = SPATIAL_GRAD_KS[-1]
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib",
                                             "smallhardface_tpu"))
@@ -2230,6 +2257,277 @@ def train_path(cfg, tdm, stem, iou, dev, work):
         raise AssertionError("the resumed run's final.npz differs")
     torch.cuda.empty_cache()
     return counts
+
+
+SPATIAL_TRAIN_K, SPATIAL_TRAIN_ITERS = 2, 3   # the flagship run over a unit
+SPATIAL_GRAD_KS = (2, 4)    # the full-tree micro-batch and K4's backward
+# the steps over a unit against one device. cuDNN sums the shards' shapes
+# in another order, so not to the bit. Losses: the spatial forward's rtol
+# 1e-4 (tests/test_torch_port_spatial.py). Weights: each leaf's update
+# (final - init) within UPDATE_TOL of the leaf's largest update, frozen
+# leaves equal to the bit. The random-init heads leave OHEM's negatives
+# nearly tied, so the shards' last bits swap a few sampled anchors and the
+# updates part by more than the sums' rounding: 1.06e-3 of the update
+# peak (conv4_3/w), in two whole runs of this phase on an NVIDIA H100 80GB
+# HBM3 at 700 W (an elementwise rtol 1e-3 + atol 1e-6 came to 0.89 of
+# itself at weights near 0). A lost shard at k = 2 drops about half of
+# every update, so it would read near 0.5: the limit sits between.
+TRAIN_RTOL, UPDATE_TOL = 1e-4, 1e-2
+
+
+def _k4_backward(stem, spatial, args, valid, k, dev):
+    """K4's gradient over k shards of ``dev`` on (x, dy, w1, b1, w2, b2):
+    the four weight gradients, with the forward kept for timing."""
+    x, dy, *ws = args
+    leaves = [w.detach().clone().requires_grad_() for w in ws]
+    out = torch.cat(stem.fused_stem_spatial(spatial.split(x, [dev] * k),
+                                            *leaves, valid_hw=valid), 1)
+    grads = torch.autograd.grad(out, leaves, dy, retain_graph=True)
+    return grads, out, leaves
+
+
+def spatial_train(cfg, tdm, stem, iou, dev, work):
+    """Spatial training on one card (``train_net`` over the unit ``[dev] *
+    k``, one shard after another: exactness and overhead, no scaling):
+
+    - SPATIAL_TRAIN_ITERS flagship iterations at k = SPATIAL_TRAIN_K
+      beside the same run on one device, from the same init and data:
+      losses within TRAIN_RTOL, each leaf's update within UPDATE_TOL of
+      its peak, frozen leaves equal to the bit; each run
+      under torch.profiler with its wall, device busy time, idle share,
+      peak memory, halo bytes, and K1's launches per micro-batch (k over
+      the unit, K2's 0: conv1 is frozen), the counts set to 0 just before
+      each run and read just after;
+    - the full-tree micro-batch of ``full_tree_grad`` (800 scale, every
+      parameter taking a gradient) over k = SPATIAL_GRAD_KS: K1, its
+      routing and K2 once per shard, K3 once; the conv1 gradients against
+      one device's K2 within GRAD_TOL;
+    - K4's backward alone at that micro-batch's shape and extent on the
+      small-integer recipe: equal to the bit to one K2 over the whole
+      image; its backward's wall, K2's device time per backward
+      (torch.profiler) and the plain backward's time beside one K2's.
+
+    Returns {"counts": full-tree launches per k, "k4": K4's backward entry
+    fields, "flagship": the unit run's counts}. Fails after printing when a
+    check does."""
+    from torch.profiler import ProfilerActivity, profile
+    from smallhardface_tpu_torch.io.weights import params_to_numpy
+    from smallhardface_tpu_torch.parallel import spatial
+    from smallhardface_tpu_torch.train import targets, train_loop
+    from smallhardface_tpu_torch.train.loader import RoIDataLoader
+    from smallhardface_tpu_torch.utils.timer import device_busy_s
+    t_phase = time.perf_counter()
+    failed = []
+    fns = (stem.fused_stem, stem.fused_stem_grad, stem.fused_stem_spatial,
+           iou.max_iou)
+
+    def counts():
+        return {"fused_stem": stem.fused_stem.launches,
+                "route_writes": stem.fused_stem.route_writes,
+                "fused_stem_grad": stem.fused_stem_grad.launches,
+                "fused_stem_spatial": stem.fused_stem_spatial.launches,
+                "max_iou": iou.max_iou.launches}
+
+    # ---- the flagship run over a unit against one device ----
+    _flagship(cfg)
+    rng = np.random.RandomState(SEED + 4)
+    roidb = face_roidb(rng, [(768, 1024), (1024, 768), (768, 1024),
+                             (1024, 768)])
+    micro = SPATIAL_TRAIN_ITERS * int(cfg.TRAIN.ITERSIZE)
+    runs = {}
+    for k in (1, SPATIAL_TRAIN_K):
+        out = os.path.join(work, f"spatial_train_k{k}")
+        os.makedirs(out)
+        rows = []
+        set_counts_zero(*fns)
+        spatial.halo.bytes = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            model = train_loop.train_net(
+                roidb, out, None, SPATIAL_TRAIN_ITERS,
+                device=dev if k == 1 else [dev] * k,
+                progress_hook=lambda it, m: rows.append(np.concatenate(
+                    [m["cls_loss"].ravel(), m["reg_loss"].ravel()])))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        busy = device_busy_s(prof)
+        runs[k] = {"losses": np.stack(rows),
+                   "params": params_to_numpy(model.tree()),
+                   "wall_s": wall, "device_busy_s": busy,
+                   "idle_share": 1.0 - busy / wall,
+                   "max_memory_allocated_bytes":
+                       torch.cuda.max_memory_allocated(),
+                   "halo_bytes_per_micro_batch": spatial.halo.bytes / micro,
+                   "launches": counts()}
+        del model, prof
+        torch.cuda.empty_cache()
+    one, unit = runs[1], runs[SPATIAL_TRAIN_K]
+    loss_err = float(np.max(np.abs(unit["losses"] - one["losses"])
+                            / np.abs(one["losses"])))
+    worst, leaves, frozen_differ = 0.0, [], []
+    init = params_to_numpy(tdm.init_params(
+        torch.Generator().manual_seed(int(cfg.RNG_SEED)), tdm.build_spec(cfg)))
+    for name, leaf in one["params"].items():
+        for key, v in leaf.items():
+            diff = float(np.abs(unit["params"][name][key] - v).max())
+            update = float(np.abs(v - init[name][key]).max())
+            if update == 0.0:
+                if diff:
+                    frozen_differ.append(f"{name}/{key}")
+                continue
+            worst = max(worst, diff / update)
+            leaves.append((diff / update, f"{name}/{key}", diff, update))
+    leaves.sort(reverse=True)
+    per_micro = {k: {name: c / micro for name, c in r["launches"].items()}
+                 for k, r in runs.items()}
+    say("spatial_train_flagship", k=SPATIAL_TRAIN_K,
+        iterations=SPATIAL_TRAIN_ITERS, micro_batches=micro,
+        devices=[str(dev)] * SPATIAL_TRAIN_K,
+        losses_max_rel_err=loss_err, losses_rtol=TRAIN_RTOL,
+        updates_worst_diff_over_peak=worst, updates_tol=UPDATE_TOL,
+        worst_leaves=[dict(zip(("diff_over_update_peak", "leaf",
+                                "max_abs_diff", "max_abs_update"), r))
+                      for r in leaves[:4]],
+        frozen_leaves_differ=frozen_differ,
+        launches_per_micro_batch={str(k): v for k, v in per_micro.items()},
+        **{f"k{k}": {f: r[f] for f in (
+            "wall_s", "device_busy_s", "idle_share",
+            "max_memory_allocated_bytes", "halo_bytes_per_micro_batch")}
+           for k, r in runs.items()},
+        timing="the whole train_net call (set-up and the snapshot writes "
+               "included) on the host clock; device busy = union of the "
+               "device events under torch.profiler")
+    c = unit["launches"]
+    if (loss_err > TRAIN_RTOL or worst > UPDATE_TOL or frozen_differ
+            or c["fused_stem"] != SPATIAL_TRAIN_K * micro
+            or c["fused_stem_spatial"] != SPATIAL_TRAIN_K * micro
+            or c["fused_stem_grad"] or c["route_writes"]
+            or c["max_iou"] != micro or not unit["halo_bytes_per_micro_batch"]):
+        failed.append("the flagship run over a unit")
+
+    # ---- the full-tree micro-batch over units ----
+    spec = tdm.build_spec(cfg)
+    rng = np.random.RandomState(SEED + 3)
+    sample = RoIDataLoader(face_roidb(rng, [(768, 1024)])).get_minibatch(1)
+    arrays, _, bucket = train_loop.assemble_batch(
+        [sample], 1, list(cfg.TPU.MAX_GT_BUCKETS))
+    for key in ("data", "gt", "gt_mask"):
+        arrays[key] = torch.from_numpy(arrays[key]).to(dev)
+    params = tdm.init_params(torch.Generator().manual_seed(SEED), spec)
+    grads, tree_counts = {}, {}
+    for k in (1,) + SPATIAL_GRAD_KS:
+        model = tdm.Detector(params, spec, dev, trainable=True)
+        for p in model.parameters():
+            p.requires_grad_(True)
+        loss_fn = train_loop.LossFn(targets.from_cfg(cfg), dev, [dev] * k)
+        set_counts_zero(*fns)
+        train_loop.grad_step(model, loss_fn, arrays, bucket[2:4], 1)
+        torch.cuda.synchronize()
+        tree_counts[k] = counts()
+        grads[k] = {f"{name}/{key}": model.params[name][key].grad.clone()
+                    for name in ("conv1_1", "conv1_2") for key in ("w", "b")}
+        del model
+    ratio = {k: max(((grads[k][n] - grads[1][n]).abs().max()
+                     / grads[1][n].abs().max()).item() for n in grads[1])
+             for k in SPATIAL_GRAD_KS}
+    say("spatial_train_full_tree", scale=int(cfg.TRAIN.SCALES.SHORT_SIDE[1]),
+        bucket=list(bucket), launches={str(k): v for k, v in
+                                       tree_counts.items()},
+        conv1_max_err_over_peak={str(k): v for k, v in ratio.items()},
+        tol_over_peak=GRAD_TOL[True],
+        reference="the same micro-batch on one device (one K1, one K2)")
+    for k in SPATIAL_GRAD_KS:
+        want = {"fused_stem": k, "route_writes": k, "fused_stem_grad": k,
+                "fused_stem_spatial": k, "max_iou": 1}
+        if tree_counts[k] != want or not ratio[k] <= GRAD_TOL[True]:
+            failed.append(f"the full-tree micro-batch at k={k}")
+
+    # ---- K4's backward alone: to the bit on integers, its times ----
+    B, (H, W) = 1, bucket[2:4]
+    vh, vw = (int(v) * 8 for v in arrays["valid_hw"][0])
+    valid = (vh, vw)
+    arrs = grad_inputs(np.random.RandomState(SEED + 17), (B, H, W, 3), valid,
+                       integer=True)
+    # dy is 0 beyond the valid pooled extent, where K2 reads none
+    # (pallas_stem.py:520-525) and the plain autograd would
+    arrs[1][:, (vh + 1) // 2:] = 0.0
+    arrs[1][:, :, (vw + 1) // 2:] = 0.0
+    args = [torch.from_numpy(a).to(dev, torch.float32) for a in arrs]
+    x, dy, *ws = args
+    _, route = stem._stem_kernel(x, *ws, valid, with_route=True)
+    one_k2 = stem.fused_stem_grad(x, dy, *ws, valid_hw=valid, route=route)
+    k2_call = lambda: stem.fused_stem_grad(  # noqa: E731
+        x, dy, *ws, valid_hw=valid, route=route)
+    k2_device = sum(kernel_ms(k2_call, GRAD_KERNELS).values())
+    k4_rows, k4_entry = [], None
+    for k in SPATIAL_GRAD_KS:
+        got, out, leaves = _k4_backward(stem, spatial, args, valid, k, dev)
+        torch.cuda.synchronize()
+        equal = all(torch.equal(a, b) for a, b in zip(got, one_k2))
+        backward = lambda: torch.autograd.grad(  # noqa: E731
+            out, leaves, dy, retain_graph=True)
+        row = {"k": k, "bit_equal_to_one_k2": equal,
+               "backward_ms": median_ms(backward, n=10),
+               "backward_device_ms": sum(kernel_ms(
+                   backward, GRAD_KERNELS).values())}
+        run_plain = stem.fused_stem
+        stem.fused_stem = (lambda x_, *a, valid_hw=None:
+                           stem.fused_stem_reference(x_, *a, valid_hw))
+        try:
+            _, plain_out, plain_leaves = _k4_backward(stem, spatial, args,
+                                                      valid, k, dev)
+            # cuDNN's float32 algorithms need not sum exactly; in float64
+            # without cuDNN every sum of these integers is
+            with torch.backends.cudnn.flags(enabled=False):
+                plain, _, _ = _k4_backward(stem, spatial,
+                                           [a.double() for a in args],
+                                           valid, k, dev)
+        finally:
+            stem.fused_stem = run_plain
+        row["plain_bit_equal"] = all(
+            torch.equal(a.double(), b) for a, b in zip(got, plain))
+        row["plain_fp32_max_abs_diff"] = max(
+            (a - b).abs().max().item() for a, b in zip(got, torch.autograd.grad(
+                plain_out, plain_leaves, dy, retain_graph=True)))
+        row["backward_plain_ms"] = median_ms(
+            lambda: torch.autograd.grad(plain_out, plain_leaves, dy,
+                                        retain_graph=True), n=5, warmup=1)
+        # the bound of the function (K2 over the image, stem_grad_time's)
+        # and, apart, that of the strips with their redundant halo rows
+        for name, p in (("backward_bound", B * H * W),
+                        ("backward_strips_bound",
+                         B * (H + 2 * stem.TH * (k - 1)) * W)):
+            row[f"{name}_ms"], row[f"{name}_by"] = split_bound_ms(
+                4 * (3 * p + 64 * p // 4) + 64 * p // 4,
+                2 * (2 * 27) * 64 * p, 2 * (2 * 576) * 64 * p)
+        k4_rows.append(row)
+        if not equal:
+            failed.append(f"K4's backward at k={k} is not one K2's")
+        if not row["plain_bit_equal"]:
+            failed.append(f"K4's backward at k={k} is not the plain one")
+        if k == SPATIAL_GRAD_KS[-1]:
+            k4_entry = dict(row)
+        del got, out, leaves, plain, plain_out, plain_leaves
+    say("spatial_train_k4_backward", shape=[B, H, W, 3], valid_hw=valid,
+        inputs="small integers", rows=k4_rows, one_k2_device_ms=k2_device,
+        reference="one K2 over the whole image on K1's routing, and the "
+                  "plain backward of the same strips in float64 (to the "
+                  "bit on integers); plain_fp32_max_abs_diff: the plain "
+                  "one in float32, whose time is given",
+        timing="wall: median of 10 CUDA-event walls of the backward alone "
+               "(autograd.grad over the kept graph); device: K2's five "
+               "kernels under torch.profiler, per backward")
+    del args, x, dy, ws, route, one_k2
+    torch.cuda.empty_cache()
+    say("spatial_train", seconds=time.perf_counter() - t_phase,
+        note="one card: the shards run one after another; exactness and "
+             "overhead, no scaling")
+    if failed:
+        raise AssertionError(f"spatial_train phase: {failed}")
+    return {"counts": tree_counts, "k4": k4_entry,
+            "flagship": unit["launches"]}
 
 
 def cpu_vs_card(cfg, tdm, dev, work):

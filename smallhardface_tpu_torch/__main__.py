@@ -23,7 +23,9 @@ parallel and evaluation splits the images; every rank writes under the one
 run directory rank 0 names (its ``LOG.TIME`` is broadcast), rank 0 alone
 writes the snapshots, ``final.npz``, ``cfgs.txt``, ``detections.pkl`` and
 the evaluation, and ``stderr.log`` is rank 0's log while rank r > 0 keeps
-``stderr.rank{r}.log``.
+``stderr.rank{r}.log``. With ``--amend TPU.SPATIAL_DEVICES k`` each rank
+trains and evaluates over a unit of k cards, [LOCAL_RANK·k, LOCAL_RANK·k +
+k), its first card current; one process trains over the first k.
 
 ``TRAIN.AUTO_RESUME = N > 0`` survives up to N sticky CUDA faults
 (``utils.faults.device_fault``: an illegal address, a device-side assert,
@@ -235,7 +237,8 @@ def main(argv=None):
     # the process group (under a launcher) before anything touches the
     # card; left on the way out, whether the run ends or raises
     owns_group = not pdist.active()
-    device = pdist.init_distributed(args.device)
+    device = pdist.init_distributed(args.device,
+                                    spatial=int(cfg.TPU.SPATIAL_DEVICES))
     handlers = []
     own_command_line = argv is None
     try:

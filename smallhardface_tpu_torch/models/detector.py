@@ -300,14 +300,23 @@ class Detector(nn.Module):
 
     def _on(self, tree, device):
         """tree ({name: {key: tensor}} or {name: tensor}) with its tensors
-        on ``device``: the tree itself when they are there, else copies,
-        kept until a tensor of the tree is replaced or changed in place (a
-        shard on another card reads its own copy of the weights)."""
+        on ``device``: the tree itself when they are there, else copies (a
+        shard on another card reads its own copy of the weights). Under
+        grad mode with a leaf that needs a gradient the copies keep their
+        autograd link, so each shard's weight gradient is summed onto the
+        tree's leaves (the JAX step's psum of the replicated parameters),
+        and they are made anew at every call; otherwise they are detached
+        and kept until a tensor of the tree is replaced or changed in
+        place."""
         leaves = [t for v in tree.values()
                   for t in (v.values() if isinstance(
                       v, (dict, nn.ParameterDict)) else [v])]
         if leaves[0].device == device:
             return tree
+        if torch.is_grad_enabled() and any(t.requires_grad for t in leaves):
+            return {n: ({k: t.to(device) for k, t in v.items()}
+                        if not isinstance(v, torch.Tensor) else v.to(device))
+                    for n, v in tree.items()}
         stamp = tuple((t.data_ptr(), t._version) for t in leaves)
         cache = self.__dict__.setdefault("_replicas", {})
         key = (id(tree), device)
@@ -339,7 +348,9 @@ class Detector(nn.Module):
         at each shard's global row offset, int8's dynamic steps and the
         calibration's maxima over every shard (``spatial.amax``); the
         outputs are gathered to the first shard's device. Weights are read
-        on each shard's device (``_on``). One shard is the one-device
+        on each shard's device (``_on``); in training their copies carry
+        each shard's gradient back to the parameters, and the halos and
+        the gather carry their transposes. One shard is the one-device
         forward.
 
         valid_hw=None is the JAX ``"exact"`` mode: no masking. With

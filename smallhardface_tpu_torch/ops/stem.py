@@ -30,10 +30,11 @@ runs its two 64-channel products in 3xTF32 too.
   image (two (B,) int tensors, K1 reads them from the device in one
   launch); then no weight may need a gradient.
 - ``fused_stem_spatial``: K4, the stem over an H-sharded image
-  (pallas_stem.py:250-370, forward only): per shard, ``fused_stem`` (K1
-  on a CUDA tensor) on the shard's rows and TH = 8 rows of each inner
-  neighbour, then the shard's own pooled rows. It needs no first valid row
-  ``r0``: K1's own zero padding stands at the image's edges.
+  (pallas_stem.py:250-429): per shard, ``fused_stem`` (K1 on a CUDA
+  tensor, and K2 in its backward) on the shard's rows and TH = 8 rows of
+  each inner neighbour, then the shard's own pooled rows. It needs no
+  first valid row ``r0``: K1's and K2's own zero padding stands at the
+  image's edges.
 - ``fused_stem_grad_reference``: the plain backward, ``torch.autograd.grad``
   through ``fused_stem_reference`` with dy zeroed beyond the pooled valid
   extent. K2's oracle.
@@ -288,7 +289,7 @@ def _clip_rows(v, lo, hi):
 
 def fused_stem_spatial(shards, w1, b1, w2, b2, valid_hw=None):
     """K4: ``fused_stem`` over an H-sharded image (JAX
-    ``fused_stem_spatial``, pallas_stem.py:250-370), forward only.
+    ``fused_stem_spatial`` and its custom VJP, pallas_stem.py:250-429).
 
     shards: NHWC (B, Hs, W, 3) float32 tensors, the i-th holding global
     rows [i·Hs, (i + 1)·Hs) on its device, Hs even and at least TH (the
@@ -311,18 +312,24 @@ def fused_stem_spatial(shards, w1, b1, w2, b2, valid_hw=None):
     inside the strip (3 rows past the shard's edge at most), so the kept
     rows are one K1's over the whole image.
 
+    The backward is autograd's through the same calls: each strip's
+    ``fused_stem`` saves K1's routing and runs K2 on the strip; ``narrow``
+    hands it zero dy on the halo's pooled rows (JAX's ``dy_ext``,
+    pallas_stem.py:405-408), so each dy entry drives one strip's K2; and
+    the ``.to`` of each weight to the strip's device keeps its autograd
+    link, which sums the k partial weight gradients onto the caller's
+    leaves (JAX's psum, :420-421). The strips start at global rows
+    i·Hs − TH, so the valid height of a strip stays even when the global
+    one is (K2's rule). Per-image extents with a stem weight that needs a
+    gradient raise, as in ``fused_stem``.
+
     ``fused_stem_spatial.launches`` counts the K1 launches K4 makes (one
-    a shard on a CUDA device; they count in ``fused_stem.launches`` too).
-    Under grad mode with a stem weight that needs a gradient it raises
-    (K4's backward on K2 ports with spatial training, ROADMAP queue 1
-    item 22); one shard is ``fused_stem`` itself, which trains."""
+    a shard on a CUDA device); they count in ``fused_stem.launches`` too.
+    Its backward's K2 launches (one a shard when a stem weight takes a
+    gradient) count in ``fused_stem_grad.launches``. One shard is
+    ``fused_stem`` itself."""
     if len(shards) == 1:
         return [fused_stem(shards[0], w1, b1, w2, b2, valid_hw=valid_hw)]
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (w1, b1, w2, b2)):
-        raise NotImplementedError(
-            "fused_stem_spatial is forward only: K4's backward on K2 ports "
-            "with spatial and grouped training (ROADMAP queue 1 item 22)")
     rows = shards[0].shape[1]
     if any(s.shape[1] != rows for s in shards) or rows % 2 or rows < TH:
         raise ValueError("fused_stem_spatial: the shards need one even row "
@@ -333,7 +340,8 @@ def fused_stem_spatial(shards, w1, b1, w2, b2, valid_hw=None):
     out = []
     for i, (strip, (top, _)) in enumerate(spatial.halo(shards, TH, dim=1)):
         dev = strip.device
-        ws = [t.detach().to(dev) for t in (w1, b1, w2, b2)]
+        # no detach: a copy on another card carries its gradient home
+        ws = [t.to(dev) for t in (w1, b1, w2, b2)]
         start = i * rows - top              # the strip's first global row
         local = (_clip_rows(vh, start, strip.shape[1]), vw)
         pooled = fused_stem(strip.contiguous(), *ws, valid_hw=local)

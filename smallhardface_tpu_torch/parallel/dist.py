@@ -43,14 +43,18 @@ def _launched():
     return int(size) > 1 or "MASTER_ADDR" in os.environ
 
 
-def init_distributed(device=None):
+def init_distributed(device=None, spatial=1):
     """Join the process group the launcher's environment describes and
     return this rank's device: ``cuda:LOCAL_RANK % device_count`` for a
     CUDA ``device`` (made current), the CPU otherwise. The backend is NCCL
     for a card and gloo for the CPU; ``SHF_DIST_BACKEND=gloo`` picks gloo
     on cards too. With NCCL, more ranks on a node than cards raises before
-    any collective. Without a launcher, or when the group already exists,
-    it only resolves ``device``."""
+    any collective. With ``spatial`` = k > 1 each rank owns a spatial unit
+    of k cards, [LOCAL_RANK·k, LOCAL_RANK·k + k) (``spatial.unit``): the
+    rank's device is the unit's first card, and LOCAL_WORLD_SIZE·k above
+    the cards raises before any collective, whatever the backend. Without
+    a launcher, or when the group already exists, it only resolves
+    ``device``."""
     dev = resolve_device(device)
     if not _launched() or active():
         return dev
@@ -63,12 +67,18 @@ def init_distributed(device=None):
         raise ValueError(f"{BACKEND_ENV}={backend!r}: use 'nccl' or 'gloo'")
     if dev.type == "cuda":
         cards = torch.cuda.device_count()
+        if spatial > 1 and local_world * spatial > cards:
+            raise RuntimeError(
+                f"{local_world} ranks on this node with TPU.SPATIAL_DEVICES="
+                f"{spatial} need {local_world * spatial} CUDA devices, there "
+                f"are {cards}: each rank trains or evaluates over a unit of "
+                f"its own {spatial} cards")
         if backend == "nccl" and local_world > cards:
             raise RuntimeError(
                 f"{local_world} ranks on this node but {cards} CUDA "
                 f"device(s): NCCL takes one card per rank; set "
                 f"{BACKEND_ENV}=gloo to let ranks share a card")
-        dev = torch.device("cuda", local_rank % cards)
+        dev = torch.device("cuda", (local_rank * max(spatial, 1)) % cards)
         torch.cuda.set_device(dev)
     elif backend == "nccl":
         raise ValueError(f"{BACKEND_ENV}=nccl needs a CUDA device; the CPU "

@@ -240,7 +240,8 @@ def test_net(imdb, output_dir, thresh=0.05, no_cache=False, step=0,
     (torchrun) the process joins the process group first and detects its
     block of the images on its card; rank 0 alone reads and writes the
     cache and evaluates, and the other ranks return None."""
-    device = pdist.init_distributed(device)
+    device = pdist.init_distributed(device,
+                                    spatial=int(cfg.TPU.SPATIAL_DEVICES))
     if cfg.TEST.LEVEL:
         logger.warning("TEST.LEVEL=%s ignored: the different-dilation "
                        "model has a single proposal module", cfg.TEST.LEVEL)

@@ -49,8 +49,17 @@ issued from a worker thread. The easy-image marks reach the loader in one
 fixed order whatever the threads' timing (see ``train_net``), so the data
 stream, the weights and a resume stay equal to the bit to the serial
 order. Training runs in float32: int8 has no gradient, and the JAX
-package's bf16 gradient fails (see ``train_net``). Spatial and grouped
-steps are not ported yet (ROADMAP queue 1 item 14).
+package's bf16 gradient fails (see ``train_net``).
+
+Under ``TPU.SPATIAL_DEVICES`` = k > 1 each process trains over a spatial
+unit of k devices (``parallel.spatial``): every micro-batch is
+preprocessed on the unit's first device, its rows are split over the unit
+and the forward and backward run shard by shard (the stem as K4), the
+head outputs are gathered and cropped to the bucket, and the targets and
+OHEM run on the whole image, as the JAX ``make_train_step_spatial``
+(train_loop.py:245-308); W such processes under a launcher are its
+``make_train_step_grouped`` (:311-403) with G = W groups, one process a
+group.
 """
 
 from __future__ import annotations
@@ -80,12 +89,14 @@ from smallhardface_tpu_torch.ops import anchors as anchors_mod
 from smallhardface_tpu_torch.ops import iou as iou_mod
 from smallhardface_tpu_torch.ops import stem as stem_mod
 from smallhardface_tpu_torch.parallel import dist as pdist
+from smallhardface_tpu_torch.parallel import spatial
 from smallhardface_tpu_torch.train import solver as solver_mod
 from smallhardface_tpu_torch.train import targets as targets_mod
 from smallhardface_tpu_torch.train.loader import (
     RoIDataLoader, render_minibatch)
 from smallhardface_tpu_torch.train.losses import (
     smooth_l1, softmax_ce_with_ignore)
+from smallhardface_tpu_torch.utils.device import resolve_device
 from smallhardface_tpu_torch.utils.faults import injected_fault
 from smallhardface_tpu_torch.utils.tensorboard import tb
 from smallhardface_tpu_torch.utils.timer import Timer, device_busy_s
@@ -188,10 +199,16 @@ def preprocess_image(data, scl, crp, im_hw, out_shape, pixel_mean):
 
 
 class LossFn:
-    """One micro-batch's loss (the loss of ``_make_loss_fn``)."""
+    """One micro-batch's loss (the loss of ``_make_loss_fn``), on one device
+    or over a spatial ``unit`` of devices (``_make_loss_fn(spatial_mesh=…)``,
+    train_loop.py:117-183): the input is preprocessed on the unit's first
+    device (``device``), split over the unit by ``spatial.shard_input``,
+    and the gathered head outputs are cropped to the bucket's rows before
+    the targets. ``unit`` None is ``[device]``: one shard, no padding."""
 
-    def __init__(self, tc, device):
+    def __init__(self, tc, device, unit=None):
         self.tc = tc
+        self.unit = list(unit or [device])
         self.base_anchors = anchors_mod.generate_anchors(
             base_size=16, ratios=[1],
             scales=list(detector_mod.ANCHOR_SCALES), shifts=[0],
@@ -208,11 +225,14 @@ class LossFn:
         stride = detector_mod.FEAT_STRIDE
         x = preprocess_image(data, scl, crp, im_hw, out_shape,
                              self.pixel_mean)
-        out = model(x[None].contiguous(),
-                    valid_hw=(int(valid_hw[0]) * stride,
-                              int(valid_hw[1]) * stride))
-        logits = out["cls_logits"][0]
-        deltas = out["bbox_deltas"][0]
+        extent = (int(valid_hw[0]) * stride, int(valid_hw[1]) * stride)
+        # the rows padded to a multiple of 32·k are cropped off the outputs:
+        # the anchor grid and OHEM's tie order are the bucket's
+        shards, _ = spatial.shard_input(x[None], self.unit, extent)
+        out = model(shards, valid_hw=extent)
+        rows = out_shape[0] // stride
+        logits = out["cls_logits"][0, :rows]
+        deltas = out["bbox_deltas"][0, :rows]
         bg_prob = torch.softmax(logits.detach(), dim=-1)[..., 0]
         tgt = targets_mod.anchor_targets(
             bg_prob, self.base_anchors, gt, gt_mask,
@@ -360,7 +380,8 @@ def _weights_digest(model):
 
 def _check_world(world):
     """TPU.NUM_DEVICES: -1 takes the world size; any other value must equal
-    it (one process per card: the port cannot clamp as make_mesh does)."""
+    it (one process per card: the port cannot clamp as make_mesh does).
+    Spatial training does not read it (JAX train_loop.py:527-546)."""
     n_devices = int(cfg.TPU.NUM_DEVICES)
     if n_devices > 0 and n_devices != world:
         raise ValueError(
@@ -369,14 +390,37 @@ def _check_world(world):
             "ranks (torchrun --nproc_per_node) or set TPU.NUM_DEVICES = -1")
 
 
+def _train_unit(device, k):
+    """The devices this process trains over, the first holding the
+    weights: [device] for k = 1; under a launcher the LOCAL_RANK-th unit of
+    k local devices (``spatial.unit``, ValueError when there is none: the
+    JAX group mesh, one process a group); else the first k local devices,
+    clamped with JAX's warning where there are fewer (``make_mesh``,
+    mesh.py:60-70, which ``make_spatial_mesh`` calls)."""
+    if k <= 1:
+        return [device]
+    if pdist.active():
+        return spatial.unit(device, k, pdist.local_rank())
+    local = spatial.local_devices(device)
+    if k > len(local):
+        logger.warning("Requested %d devices but only %d available (%s "
+                       "backend); using %d", k, len(local), device.type,
+                       len(local))
+    return local[:k]
+
+
 def train_net(roidb, output_dir, pretrained_model, max_iter, device=None,
               progress_hook=None):
     """Train the detector on one device, the CUDA card when ``device`` is
     None (raises when there is none). Under a launcher (torchrun) the
     process first joins the process group (``parallel.dist
     .init_distributed``) and trains as one of W ranks on its own card;
-    rank 0 alone writes. Snapshots and final weights land in
-    ``output_dir``. ``progress_hook(it, metrics)`` is called after every
+    rank 0 alone writes. With ``TPU.SPATIAL_DEVICES`` = k > 1 each rank
+    trains over a spatial unit of k devices instead (``_train_unit``), and
+    ``device`` may also be a list of devices, the unit itself (such as
+    ``["cuda:0"] * 2``: one card running the shards one after another).
+    Snapshots and final weights land in ``output_dir``.
+    ``progress_hook(it, metrics)`` is called after every
     iteration with this rank's (1, iter_size) float32 arrays under
     METRIC_KEYS ("easy" as bool) and the iteration's bucket under
     "bucket". Returns the trained ``Detector``. On the main thread SIGINT
@@ -386,9 +430,19 @@ def train_net(roidb, output_dir, pretrained_model, max_iter, device=None,
     object. With ``SHF_TRAIN_PROFILE=1`` on a card the iterations run
     under torch.profiler (device activity only), and the summary logged at
     the end (always logged over W ranks) carries the device's busy time."""
-    device = pdist.init_distributed(device)
+    if isinstance(device, (list, tuple)):
+        unit = [resolve_device(d) for d in device]
+        pdist.init_distributed(unit[0])
+        k = len(unit)
+    else:
+        k = int(cfg.TPU.SPATIAL_DEVICES)
+        unit = _train_unit(pdist.init_distributed(device, spatial=k), k)
+    device = unit[0]
     world, rank = pdist.world(), pdist.rank()
     dp = pdist.active()
+    if len(unit) > 1:
+        logger.info("Training over a spatial unit of %d devices: %s",
+                    len(unit), ", ".join(map(str, unit)))
     precision = str(cfg.TPU.PRECISION)
     if precision == "int8":
         raise ValueError(
@@ -402,12 +456,8 @@ def train_net(roidb, output_dir, pretrained_model, max_iter, device=None,
             "(lax.conv_general_dilated requires arguments to have the same "
             "dtypes, got bfloat16, float32), so a bf16 training step has "
             "nothing to be held against; bf16 runs in inference")
-    if int(cfg.TPU.SPATIAL_DEVICES) > 1:
-        raise NotImplementedError(
-            "spatial and grouped training are not ported yet (ROADMAP "
-            "queue 1 item 22, 'Spatial and grouped training with K4's "
-            "backward on K2'); spatial detection is ported")
-    _check_world(world)
+    if k <= 1:
+        _check_world(world)
     spec = detector_mod.build_spec(cfg)
     tc = targets_mod.from_cfg(cfg)
     iter_size = int(cfg.TRAIN.ITERSIZE)
@@ -527,7 +577,7 @@ def train_net(roidb, output_dir, pretrained_model, max_iter, device=None,
 
     snapshot_prefix = (cfg.NAME if cfg.TRAIN.SNAPSHOT_INFIX == ""
                        else f"{cfg.NAME}_{cfg.TRAIN.SNAPSHOT_INFIX}")
-    loss_fn = LossFn(tc, device)
+    loss_fn = LossFn(tc, device, unit)
     loss_window = deque(maxlen=100)   # the solver's average_loss display
     t = Timer()
 

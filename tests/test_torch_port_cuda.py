@@ -39,9 +39,12 @@ a machine that has only PyTorch:
   float64 on integers, within RTOL on floats, and to eight single-image
   launches), V1 over three images in one launch (equal to the bit to
   three single launches);
-- K4 (``ops/stem.fused_stem_spatial``, spatial detection): the pooled
-  rows of its shards equal to the bit to one K1 over the whole image, one
-  K1 launch a shard, whole and with a valid height inside a shard;
+- K4 (``ops/stem.fused_stem_spatial``, spatial detection and training):
+  the pooled rows of its shards equal to the bit to one K1 over the whole
+  image, one K1 launch a shard, whole and with a valid height inside a
+  shard; its backward (one K2 a shard, the partials summed on the
+  weights) equal to the bit to one K2 over the whole image on small
+  integers;
 - conv4_fuse_final_dim_red, as detection runs it, at the shapes where
   cuDNN took an FFT algorithm: at most 4 GB of device memory added;
 - Q1 (the int8 3×3 convolution, csrc/conv_int8.cu): equal to the bit to
@@ -170,6 +173,36 @@ def test_k4_equals_one_k1_to_the_bit(cuda, shape, k, valid):
     assert (stem.fused_stem.launches, stem.fused_stem_spatial.launches) == (
         before[0] + k, before[1] + k)
     assert torch.equal(torch.cat(got, 1), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,k,valid", [
+    ((2, 128, 128, 3), 4, None),
+    ((1, 96, 160, 3), 2, (72, 150)),      # the valid height inside shard 1
+])
+def test_k4_backward_equals_one_k2_to_the_bit(cuda, shape, k, valid):
+    """K4's backward over k shards on the card (one K1 with its routing and
+    one K2 a shard, the k partial gradients summed on the leaves) against
+    one K2 over the whole image, on the small-integer recipe where every
+    product and sum is exact: equal to the bit, and to the plain backward
+    in float64."""
+    x, dy, *ws = _on(_int_grad_inputs(19, shape, valid or shape[1:3]), cuda)
+    want = stem.fused_stem_grad(x, dy, *ws, valid_hw=valid)
+    plain = stem.fused_stem_grad_reference(
+        x.double(), dy.double(), *[w.double() for w in ws], valid_hw=valid)
+    ws = [w.requires_grad_() for w in ws]
+    counts = (stem.fused_stem.launches, stem.fused_stem.route_writes,
+              stem.fused_stem_grad.launches)
+    out = stem.fused_stem_spatial(spatial.split(x, [cuda] * k), *ws,
+                                  valid_hw=valid)
+    (torch.cat(out, 1) * dy).sum().backward()
+    torch.cuda.synchronize()
+    assert (stem.fused_stem.launches, stem.fused_stem.route_writes,
+            stem.fused_stem_grad.launches) == tuple(c + k for c in counts)
+    assert want[0].abs().max() > 0
+    for w, a, b in zip(ws, want, plain):
+        assert torch.equal(w.grad, a)
+        assert torch.equal(w.grad.double(), b)
 
 
 @pytest.mark.cuda

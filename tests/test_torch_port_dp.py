@@ -23,8 +23,9 @@ the 64×80 JPEGs of tests/test_train_loop.py:
   detections.pkl array for array, rank 1 writing nothing; with a cache on
   rank 0 only, no rank detects and none hangs;
 - (f) the raises: TPU.NUM_DEVICES other than the world, NCCL with more
-  ranks than cards (a monkeypatched device count), spatial training, and
-  a spatial evaluation unit larger than the one CPU;
+  ranks than cards (a monkeypatched device count), and a spatial
+  evaluation unit larger than the one CPU, which spatial training clamps
+  with JAX's warning instead;
 - (g) ``__main__.main`` --train true --test true as two ranks on a
   synthetic WIDER tree: one run directory per phase whatever each rank's
   clock, ``stderr.log`` (rank 0) and ``stderr.rank1.log``, equal weights
@@ -571,15 +572,19 @@ def test_without_a_launcher_init_is_a_no_op(monkeypatch):
 
 @pytest.mark.parametrize("where", ["train_net", "test_net"])
 def test_spatial_still_raises(tmp_path, port_cfg, monkeypatch,  # noqa: F811
-                              where):
-    """(f) Spatial training waits for ROADMAP queue 1 item 22; spatial
-    evaluation is ported (tests/test_torch_port_spatial.py) and refuses a
-    unit of 2 over the one CPU, with JAX's words."""
+                              caplog, where):
+    """(f) A unit of 2 over the one CPU: spatial training (ported,
+    tests/test_torch_port_spatial_train.py) clamps it to the one device
+    with JAX make_mesh's warning and trains; spatial evaluation
+    (tests/test_torch_port_spatial.py) refuses it, with JAX's words."""
     monkeypatch.setitem(tcfg.TPU, "SPATIAL_DEVICES", 2)
     if where == "train_net":
-        with pytest.raises(NotImplementedError, match="item 22"):
+        with caplog.at_level(logging.WARNING, logger=ttl.__name__):
             ttl.train_net(_tiny_roidb(tmp_path), str(tmp_path), None, 1,
                           device="cpu")
+        assert ("Requested 2 devices but only 1 available (cpu backend); "
+                "using 1") in caplog.text
+        assert os.path.exists(os.path.join(str(tmp_path), "final.npz"))
     else:
         from smallhardface_tpu_torch import test_runner
         with pytest.raises(ValueError, match="must divide the local device"):

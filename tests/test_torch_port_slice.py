@@ -179,30 +179,50 @@ def test_demo_cli():
 
 @pytest.mark.parametrize("args,error,what", [
     (["--train", "true", "--test", "false", "--amend",
-      "TPU.SPATIAL_DEVICES", "2"], NotImplementedError, "item 22"),
+      "TPU.SPATIAL_DEVICES", "2", "TRAIN.ITERS", "1", "TRAIN.ITERSIZE", "1",
+      "TRAIN.PRETRAINED", "", "TRAIN.SCALES.SHORT_SIDE", "[64]",
+      "TRAIN.SCALES.MAX_SIZE", "128", "TPU.MAX_GT_BUCKETS", "[8]"], None,
+     "Training over a spatial unit of 2 devices: cpu, cpu"),
     (["--train", "false", "--test", "true", "--amend",
       "TPU.SPATIAL_DEVICES", "2"], ValueError,
      "must divide the local device count"),
 ], ids=["args0-training", "args1-dataset evaluation"])
-def test_cli_unported_branches_raise(args, error, what, tmp_path):
-    """Both branches of the command line are ported; what they do not
-    cover raises: spatial training (TPU.SPATIAL_DEVICES > 1, ROADMAP queue
-    1 item 22), and a spatial evaluation unit of 2 over the one CPU, with
+def test_cli_unported_branches_raise(args, error, what, tmp_path,
+                                     monkeypatch, caplog):
+    """Both branches of the command line are ported, spatial training
+    (``--amend TPU.SPATIAL_DEVICES 2``) included: with two local "devices"
+    (a monkeypatched ``spatial.local_devices``) the full-width net trains
+    one iteration over a unit of both and writes final.npz. What they do
+    not cover raises: a spatial evaluation unit of 2 over the one CPU, with
     JAX's words (spatial evaluation itself is ported,
     tests/test_torch_port_spatial.py). Batched evaluation (TPU.EVAL_BATCH
     > 1, tests/test_torch_port_batch.py) and evaluation in bfloat16
     (tests/test_torch_port_bf16.py) are ported."""
     from smallhardface_tpu_torch.__main__ import main
+    from smallhardface_tpu_torch.parallel import spatial
     import copy
+    import glob
+    import logging
     saved = copy.deepcopy(tcfg)
     exp_dir = f"torch_port_raise_{os.getpid()}"
     try:
         sys.path.insert(0, os.path.join(REPO, "scripts"))
         import synth_wider
         synth_wider.build(str(tmp_path), n_images=1, im_size=64)
-        with pytest.raises(error, match=what):
-            main(["--device", "cpu"] + args
-                 + ["EXP_DIR", exp_dir, "DATA_DIR", str(tmp_path)])
+        argv = (["--device", "cpu"] + args
+                + ["EXP_DIR", exp_dir, "DATA_DIR", str(tmp_path)])
+        if error is None:
+            cpu = torch.device("cpu")
+            monkeypatch.setattr(spatial, "local_devices",
+                                lambda d: [cpu, cpu])
+            with caplog.at_level(logging.INFO):
+                main(argv)
+            assert what in caplog.text
+            assert glob.glob(os.path.join(REPO, "output", exp_dir, "*", "*",
+                                          "final.npz"))
+        else:
+            with pytest.raises(error, match=what):
+                main(argv)
     finally:
         tcfg.clear()
         tcfg.update(saved)

@@ -238,12 +238,23 @@ def test_no_r0_equivalence(stem_weights):
 
 
 def test_k4_refuses_a_gradient(stem_weights):
+    """K4 trains (its backward is tests/test_torch_port_spatial_train.py's):
+    under grad the weights' gradients come back through every shard; it
+    refuses a gradient only with per-image extents, as fused_stem does,
+    and under no_grad those run."""
     ws = [w.requires_grad_(True) for w in _torch_w(stem_weights)]
-    shards = spatial.split(torch.zeros(1, 64, 32, 3), [CPU, CPU])
-    with pytest.raises(NotImplementedError, match="item 22"):
-        stem.fused_stem_spatial(shards, *ws)
+    x = torch.from_numpy(np.random.RandomState(2).randn(1, 64, 32, 3)
+                         .astype(np.float32))
+    shards = spatial.split(x, [CPU, CPU])
+    torch.cat(stem.fused_stem_spatial(shards, *ws), 1).sum().backward()
+    assert all(w.grad is not None and w.grad.abs().max() > 0 for w in ws)
+    per_image = (torch.tensor([40]), torch.tensor([32]))
+    with pytest.raises(NotImplementedError, match="per-image valid extents"):
+        stem.fused_stem_spatial(shards, *ws, valid_hw=per_image)
     with torch.no_grad():
         assert len(stem.fused_stem_spatial(shards, *ws)) == 2
+        assert len(stem.fused_stem_spatial(shards, *ws,
+                                           valid_hw=per_image)) == 2
 
 
 # ---- the forward over shards ----
