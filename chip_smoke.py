@@ -184,7 +184,18 @@ Then, each phase printing one line:
    final.npz, K1's and K3's launches per rank (each rank's "train
    summary" log line counts them from 0 in its own process), the
    all-reduce's bytes and time per iteration, each rank's iteration walls
-   and the card's idle share. Then the smoke's total.
+   and the card's idle share;
+15. the port's timing tools (``tools_phase``): ``tools/benchmark`` (the
+   forward in fp32 and bf16 and forward+backward at 1×608×912),
+   ``tools/layer_time`` at 1×1408×1920 (the per-layer table, whose
+   scopes must hold SCOPE_COVERAGE_MIN of the forward's device time,
+   ``--bisect``, ``--int8-chain`` with Q1's launches),
+   ``tools/pyramid_time`` on image 0 (its rows equal to a plain
+   ``detect``'s; per stage host ms, device ms, launches and host µs per
+   launch, and the idle share), ``tools/train_time`` at 768×1024 (every
+   step's loss equal, K3 launched), ``tools/perf_probe`` at 608×912 and
+   ``tools/ap_parity --dry-run synth synth`` on 4 synthetic images
+   (PARITY OK). Then the smoke's total.
 
 Each main path runs with the launch counts set to 0 just before it and read
 just after. The second-to-last line is a JSON summary of the kernels; the
@@ -208,6 +219,12 @@ import time
 
 import numpy as np
 import torch
+
+# the card's published peaks and the timing helpers, shared with the
+# port's timing tools (smallhardface_tpu_torch/tools/measure.py)
+from smallhardface_tpu_torch.tools.measure import (
+    GRAPH_REPS, PEAK_BYTES, PEAK_INT8, bound_ms, graph_ms, kernel_ms,
+    median_ms, split_bound_ms)
 
 SEED = 0
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -268,7 +285,6 @@ INT8_MATCH_MIN, INT8_CORR_MIN = 0.99, 0.98
 INT8_MANY_MATCH_MIN = 0.85
 INT8_LEVEL = (1408, 1872)   # the largest level of image 0's pyramid
 INT8_SCALES = [100, 300, 600, 1000, 1400]
-PEAK_INT8 = 1979e12         # dense int8 on the tensor cores
 # Q1's tiling edges, beyond the layer shapes: (label, B, H, W, C, O,
 # dilation, epilogue, ties), as tests/test_torch_port_conv_int8_tiles.py
 # models them on the CPU
@@ -316,17 +332,12 @@ BF16_MATCH_MIN, BF16_CPU_MATCH_MIN, BF16_COUNT_SLACK = 0.95, 0.90, 0.05
 # two fp32 sums of the same terms in different orders plus a bf16 ulp
 BF16_CONV_MAX_DIFFER = 0.01
 BF16_WALL_REPS = 5
-PEAK_BF16 = 989e12          # dense bf16 on the tensor cores
 SERVE_WINDOW_MS = 50
 # the cliff map's limits: no 3×3 convolution of the forward may add more
 # than 4 GB or take more than 5× its fp32 bound. Below CLIFF_FLOOR_MS of
 # bound a convolution is a few kernels' latency (the smallest levels),
 # which no library call brings within 5×: those are reported, not held
 CLIFF_MAX_OF_BOUND, CLIFF_MAX_ADDED, CLIFF_FLOOR_MS = 5.0, 4e9, 0.05
-# published H100 SXM rates (NVIDIA H100 datasheet): fp32 on the CUDA
-# cores and device-memory bandwidth
-PEAK_FP32, PEAK_BYTES = 67e12, 3.35e12
-PEAK_TF32 = 495e12          # dense TF32 on the tensor cores
 # K3's cases over the anchors of a 1200×1600 image: (gt, masked, layout)
 IOU_CASES = ((0, 0, "uniform"), (1, 0, "uniform"), (64, 0, "uniform"),
              (64, 64, "uniform"), (512, 100, "uniform"),
@@ -336,7 +347,6 @@ IOU_TIMED = ((64, 0, "uniform"), (2048, 500, "uniform"), (2048, 0, "crowd"),
 # the band: faces packed at the top left, all in the first block's union
 # box, so that its list of gt fills and is walked early (csrc/iou.cu)
 BAND = (0, 0, 600, 40)
-GRAPH_REPS = 200
 # K2's launches (csrc/stem_grad.cu) in order, by the stage each runs
 GRAD_KERNELS = {"c1_route": "c1_route_kernel", "split_w2f": "split_w2f_kernel",
                 "dc1": "dc1_kernel", "wgrad": "wgrad_kernel",
@@ -402,89 +412,6 @@ def grad_inputs(rng, shape, valid_hw, integer):
         arrs[0][:, valid_hw[0]:] = 7.0
         arrs[0][:, :, valid_hw[1]:] = -3.0
     return arrs
-
-
-def median_ms(fn, n=20, warmup=3):
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(n):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return float(np.median(times))
-
-
-def graph_ms(fn, reps=GRAPH_REPS, n=5):
-    """Device time of one call of fn, without the host: `reps` calls
-    captured in one CUDA graph, replayed between two CUDA events; the median
-    of n replays over reps."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):               # warm up off the capture
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(reps):
-            fn()
-    graph.replay()
-    times = []
-    for _ in range(n):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        graph.replay()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b) / reps)
-    del graph
-    return float(np.median(times))
-
-
-def bound_ms(n_bytes, n_ops):
-    """The least time for the work: the larger of bytes over the memory
-    rate and fp32 operations over the CUDA-core rate."""
-    t_bytes, t_ops = n_bytes / PEAK_BYTES * 1e3, n_ops / PEAK_FP32 * 1e3
-    return max(t_bytes, t_ops), "bytes" if t_bytes > t_ops else "operations"
-
-
-def kernel_ms(fn, kernels, n=10, warmup=3):
-    """Device time per call of fn of each of the repo's kernels named in
-    ``kernels`` ({label: __global__ name}): n calls under torch.profiler
-    (CUPTI), each kernel's summed durations over n. Raises where the
-    profiler saw one of them run for no time."""
-    from torch.profiler import ProfilerActivity, profile
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    us = dict.fromkeys(kernels, 0.0)
-    for ev in prof.key_averages():
-        for label, name in kernels.items():
-            # the repo's kernels sit in an anonymous namespace
-            if f"::{name}(" in ev.key:
-                us[label] += ev.self_device_time_total
-    if not all(us.values()):
-        raise AssertionError(f"the profiler saw no device time: {us}")
-    return {label: t / n / 1e3 for label, t in us.items()}
-
-
-def split_bound_ms(n_bytes, cuda_core_ops, tf32_products):
-    """The bound of a design that runs `cuda_core_ops` fp32 operations on
-    the CUDA cores and `tf32_products` FLOP of fp32-grade products on the
-    tensor cores as three TF32 products each (3xTF32)."""
-    t_ops = (cuda_core_ops / PEAK_FP32 + 3 * tf32_products / PEAK_TF32) * 1e3
-    t_bytes = n_bytes / PEAK_BYTES * 1e3
-    return max(t_ops, t_bytes), "bytes" if t_bytes > t_ops else "operations"
 
 
 def stem_time(stem, args, err, err_over_peak):
@@ -1006,6 +933,8 @@ def main():
         eval_counts = eval_cli(cfg, stem, iou, nms_device, root)
         auto_resume_phase(work, root)
         dp_counts = dp_phases(cfg, tdm, dev, pristine, root, work, smi)
+        tools_counts = tools_phase(cfg, pristine, tdm, params, images[0],
+                                   card_dets[0], dev, smi, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1032,6 +961,8 @@ def main():
         kernels[k]["launches_eval_cli"] = eval_counts[k]
     for k in ("fused_stem", "max_iou"):
         kernels[k]["launches_dp_two_ranks"] = [c[k] for c in dp_counts]
+    for k in ("fused_stem", "bbox_vote", "max_iou", "conv3x3_int8"):
+        kernels[k]["launches_tools"] = tools_counts[k]
     sp_tree = spatial_train_out["counts"]
     kernels["fused_stem_grad"]["launches_train_spatial"] = {
         str(k): c["fused_stem_grad"] for k, c in sp_tree.items() if k > 1}
@@ -1299,8 +1230,10 @@ def detect_device_split(det, image, wall_ms, n=2):
     for ev in prof.key_averages():
         us = ev.self_device_time_total
         # the device's own events (kernels, copies), not the CPU ops that
-        # launched them
-        if not us or getattr(ev, "device_type", None) != cuda:
+        # launched them, nor the device spans of the forward's per-layer
+        # record_function ranges (GPU user annotations, gaps included)
+        if (not us or getattr(ev, "device_type", None) != cuda
+                or getattr(ev, "is_user_annotation", False)):
             continue
         if f"::{Q1_KERNEL}<" in ev.key or f"{Q1_KERNEL}<" in ev.key:
             split["q1"] += us
@@ -4136,6 +4069,247 @@ def dp_phases(cfg, tdm, dev, pristine, root, work, smi):
     if not ok:
         raise AssertionError("dp_two_ranks_one_card failed its checks")
     say("dp_phases", seconds=time.perf_counter() - t_phase, nvidia_smi=smi)
+    return launches
+
+
+# the tools phase: benchmark's shape, layer_time's, train_time's and
+# perf_probe's; the per-layer scopes' least share of the forward's device
+# time; ap_parity's dry run on a small synthetic tree (the CPU test's
+# amends: two small scales, no flip, at most 100 rows a level, so the
+# device vote takes every row the host vote takes)
+TOOLS_BENCH = ["--height", "608", "--width", "912", "--iters", "5"]
+TOOLS_LAYER = ["--size", "1408", "1920", "--reps", "3"]
+TOOLS_TRAIN = (768, 1024)
+TOOLS_PROBE = ["--size", "608", "912", "--iters", "3", "--batch", "2"]
+SCOPE_COVERAGE_MIN = 0.95
+AP_DRY_RUN = ["synth", "synth", "--dry-run", "--n-images", "4",
+              "--amend", "TEST.SCALES", "[60,120]", "TEST.FLIP", "False",
+              "TPU.TEST_BUCKET", "32", "TEST.N_DETS_PER_MODULE", "100",
+              "TPU.VOTE_CAP", "1024"]
+
+
+def _quiet(main, argv):
+    """main(argv) with its printed tables kept out of the smoke's output;
+    returns (its result, what it printed)."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        result = main(argv)
+    return result, buf.getvalue()
+
+
+def _stage_fields(split):
+    """A stage split's printed fields: per stage device ms, host ms,
+    launches and host µs per launch; the run's busy ms and idle share."""
+    return {"stages": {k: {f: (round(v, 4) if isinstance(v, float) else v)
+                           for f, v in r.items()}
+                       for k, r in split["stages"].items()},
+            "wall_ms": split["wall_ms"],
+            "device_busy_ms": split["device_busy_ms"],
+            "idle_share": split["idle_share"],
+            "outside": split.get("outside")}
+
+
+def tools_phase(cfg, pristine, tdm, params, image, plain_rows, dev, smi,
+                work):
+    """The port's per-stage timing tools on the card: benchmark's forward
+    in fp32 and bf16 and forward+backward at 1×608×912; layer_time at
+    1×1408×1920 (the per-layer table, whose scopes must hold at least
+    SCOPE_COVERAGE_MIN of the forward's device time, --bisect, and
+    --int8-chain with Q1's launches) and --train at 1×608×912;
+    pyramid_time's split of a warm fp32 ``detect`` of image 0 at the
+    detection phase's configuration (its rows equal to a plain
+    ``detect``'s); train_time's split of the flagship step at 768×1024;
+    perf_probe at 608×912 (``detect_many`` of two images); ``ap_parity
+    --dry-run synth synth`` on 4 synthetic images, PARITY OK required.
+    Every line carries the card's name and power limit. Returns the
+    launches the in-process tools made per kernel (ap_parity's evaluations
+    are processes of their own: their launches are not counted here)."""
+    import tempfile as tf
+
+    from smallhardface_tpu_torch.config import CONFIG_DIR, cfg_from_file
+    from smallhardface_tpu_torch.detect import TorchDetector
+    from smallhardface_tpu_torch.ops import conv_int8, iou, nms_device, stem
+    from smallhardface_tpu_torch.tools import (ap_parity, benchmark,
+                                               layer_time, perf_probe,
+                                               pyramid_time, train_time)
+    t_phase = time.perf_counter()
+    counted = (stem.fused_stem, nms_device.bbox_vote_device, iou.max_iou,
+               conv_int8.conv3x3_int8)
+    names = ("fused_stem", "bbox_vote", "max_iou", "conv3x3_int8")
+    launches = dict.fromkeys(names, 0)
+    # launches the profiler reported no device event for, per tool line
+    # (``measure.Trace.lost``): printed, not held, since a fresh process
+    # on the card already shows 6-7 in a bf16 forward of 98 launches
+    lost = {}
+
+    def count(fn):
+        set_counts_zero(*counted)
+        out = fn()
+        got = dict(zip(names, (f.launches for f in counted)))
+        for k, v in got.items():
+            launches[k] += v
+        return out, got
+
+    def restore(flagship=True):
+        cfg.clear()
+        cfg.update(copy.deepcopy(pristine))
+        if flagship:
+            cfg_from_file(os.path.join(CONFIG_DIR, "smallhardface.toml"))
+
+    # benchmark: forward fp32, forward bf16, forward+backward fp32
+    for extra in ([], ["--bf16"], ["--train"]):
+        t = time.perf_counter()
+        (res, _), got = count(lambda: _quiet(
+            benchmark.main, TOOLS_BENCH + extra + ["--device", dev.type]))
+        say("tools_benchmark", mode=res["mode"], precision=res["precision"],
+            shape=res["shape"], mean_ms=res["mean_ms"], p50_ms=res["p50_ms"],
+            min_ms=res["min_ms"], device_ms=res["device_ms"],
+            launches=res["launches"], host_ms=res["host_ms"],
+            host_us_per_launch=res["host_us_per_launch"],
+            idle_share=res["idle_share"], kernel_launches=got,
+            lost_device_events=res["lost_device_events"],
+            seconds=time.perf_counter() - t, nvidia_smi=smi)
+        lost[f"benchmark {res['mode']} {res['precision']}"] = res[
+            "lost_device_events"]
+        if not got["fused_stem"]:
+            raise AssertionError("benchmark ran no K1")
+    # layer_time: the per-layer table and --bisect, then --int8-chain
+    t = time.perf_counter()
+    (res, _), got = count(lambda: _quiet(
+        layer_time.main, TOOLS_LAYER + ["--bisect", "--device", dev.type]))
+    top = sorted(res["layers"].items(),
+                 key=lambda kv: -(kv[1]["fwd_ms"] or 0))[:6]
+    say("tools_layer_time", size=res["size"], fwd_device_ms=res["fwd_ms"],
+        scoped_share=res["coverage"], coverage_min=SCOPE_COVERAGE_MIN,
+        outside=res["outside"],
+        top_layers={n: {k: r[k] for k in ("fwd_ms", "launches", "gflop",
+                                           "tflops", "bound_ms", "of_bound")}
+                    for n, r in top},
+        bisect=[[r["stage"], r["cum_ms"], r["delta_ms"]]
+                for r in res["bisect"]],
+        full=res["full"], method=res["bisect_method"], kernel_launches=got,
+        lost_device_events=res["lost"], seconds=time.perf_counter() - t,
+        nvidia_smi=smi)
+    lost["layer_time"] = res["lost"]
+    if not (res["coverage"] or 0) >= SCOPE_COVERAGE_MIN:
+        raise AssertionError(f"the per-layer scopes hold {res['coverage']} "
+                             f"of the forward's device time")
+    # --train at benchmark's shape: the backward's share grouped by the
+    # forward scope of its autograd nodes (printed, not held)
+    t = time.perf_counter()
+    (res, _), got = count(lambda: _quiet(
+        layer_time.main, ["--size", "608", "912", "--train", "--device",
+                          dev.type]))
+    top = sorted(res["layers"].items(),
+                 key=lambda kv: -(kv[1]["bwd_ms"] or 0))[:4]
+    say("tools_layer_time_train", size=res["size"],
+        fwd_device_ms=res["fwd_ms"], bwd_device_ms=res["bwd_ms"],
+        scoped_share=res["coverage"], bwd_scoped_share=res["bwd_coverage"],
+        top_backward={n: [r["fwd_ms"], r["bwd_ms"]] for n, r in top},
+        kernel_launches=got, lost_device_events=res["lost"],
+        seconds=time.perf_counter() - t, nvidia_smi=smi)
+    lost["layer_time --train"] = res["lost"]
+    t = time.perf_counter()
+    (res, _), got = count(lambda: _quiet(
+        layer_time.main, TOOLS_LAYER + ["--int8-chain", "--device",
+                                        dev.type]))
+    say("tools_layer_time_int8_chain", size=res["size"],
+        rows=[[r["stage"], r["int8_ms"], r["fp32_ms"], r["floor_ms"]]
+              for r in res["rows"]],
+        int8_device_ms=res["int8_device_ms"],
+        fp32_device_ms=res["fp32_device_ms"],
+        int8_wall_ms=res["int8_wall_ms"], fp32_wall_ms=res["fp32_wall_ms"],
+        floor_ms=res["floor_ms"], q1_launches_per_chain=res["q1_launches"],
+        copy_gb_per_s=res["copy_bytes_per_s"] / 1e9, kernel_launches=got,
+        lost_device_events=res["lost"], seconds=time.perf_counter() - t,
+        nvidia_smi=smi)
+    lost["layer_time --int8-chain"] = res["lost"]
+    if not got["conv3x3_int8"] or not res["q1_launches"]:
+        raise AssertionError("layer_time --int8-chain ran no Q1")
+    # pyramid_time: a warm fp32 detect of image 0, the detection phase's
+    # configuration
+    restore()
+    cfg.TEST.SCALES = [100, 300, 600, 1000, 1400]
+    cfg.TEST.FLIP = True
+    cfg.TEST.NMS_METHOD = "BBOX_VOTE"
+    t = time.perf_counter()
+    det = TorchDetector(params, tdm.build_spec(cfg), dev)
+    split, got = count(lambda: pyramid_time.split_detect(
+        det, image, reps=5))
+    again = det.detect(image, THRESH)[0][0]
+    same_as_detect_phase = bool(np.array_equal(again, plain_rows))
+    say("tools_pyramid_time", image=0, levels=split["levels"],
+        dets=split["dets"], rows_equal_plain_detect=split["rows_equal"],
+        rows_equal_detect_phase=same_as_detect_phase,
+        kernel_launches=got, seconds=time.perf_counter() - t,
+        nvidia_smi=smi, **_stage_fields(split))
+    lost["pyramid_time"] = split["lost_device_events"]
+    if not split["rows_equal"] or not got["bbox_vote"]:
+        raise AssertionError("pyramid_time's detect differs from a plain "
+                             "one, or ran no V1")
+    del det
+    torch.cuda.empty_cache()
+    # train_time: the flagship step at 768×1024
+    restore()
+    t = time.perf_counter()
+    step = train_time.Step(cfg, dev, train_time.make_samples(*TOOLS_TRAIN,
+                                                             1))
+    split, got = count(lambda: train_time.split_step(step, 5))
+    # cls_loss + reg_loss of each step (one micro-batch), every step from
+    # the same weights: the same loss to the bit
+    losses = [m[0][0] + m[1][0] for m in split["metrics"]]
+    say("tools_train_time", size=list(TOOLS_TRAIN), iter_size=1,
+        bucket=list(step.bucket), peak_bytes=split["peak_bytes"],
+        losses=losses, kernel_launches=got,
+        seconds=time.perf_counter() - t, nvidia_smi=smi,
+        **_stage_fields(split))
+    lost["train_time"] = split["lost_device_events"]
+    if (not got["max_iou"] or not np.isfinite(losses).all()
+            or len(set(losses)) != 1):
+        raise AssertionError("train_time ran no K3, or its losses are not "
+                             "finite and equal")
+    del step
+    torch.cuda.empty_cache()
+    # perf_probe at one size
+    restore()
+    t = time.perf_counter()
+    (lines, _), got = count(lambda: _quiet(
+        perf_probe.main, TOOLS_PROBE + ["--device", dev.type]))
+    for line in lines:
+        fields = {k: v for k, v in line.items()
+                  if k not in ("card", "device", "stages", "walls_ms")}
+        if "stages" in line:
+            fields.update(_stage_fields(line))
+        say("tools_perf_probe", **fields)
+        if "lost_device_events" in line:
+            lost[f"perf_probe {line['probe']}"] = line["lost_device_events"]
+    say("tools_perf_probe_done", kernel_launches=got,
+        seconds=time.perf_counter() - t, nvidia_smi=smi)
+    if not (got["conv3x3_int8"] and got["bbox_vote"]):
+        raise AssertionError("perf_probe ran no Q1 or no V1")
+    torch.cuda.empty_cache()
+    # ap_parity's dry run: its tree goes under work, its runs too
+    restore(flagship=False)
+    t = time.perf_counter()
+    saved_tmp = tf.tempdir
+    tf.tempdir = work
+    try:
+        rc, text = _quiet(ap_parity.main, AP_DRY_RUN + [
+            "ROOT_DIR", os.path.join(work, "ap_parity"),
+            "--device", dev.type])
+    finally:
+        tf.tempdir = saved_tmp
+    aps = [ln for ln in text.splitlines() if "path AP" in ln
+           or "PARITY" in ln or "match-rate" in ln or "matched" in ln]
+    say("tools_ap_parity", returncode=rc, lines=aps,
+        seconds=time.perf_counter() - t, nvidia_smi=smi)
+    if rc != 0 or "PARITY OK" not in text:
+        raise AssertionError(f"ap_parity --dry-run: rc {rc}\n{text[-3000:]}")
+    restore(flagship=False)
+    say("tools", seconds=time.perf_counter() - t_phase,
+        kernel_launches=launches, lost_device_events=lost, nvidia_smi=smi)
     return launches
 
 

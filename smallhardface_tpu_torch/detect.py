@@ -69,7 +69,7 @@ from smallhardface_tpu_torch.ops import native as nms_host
 from smallhardface_tpu_torch.ops import nms_device
 from smallhardface_tpu_torch.parallel import spatial
 from smallhardface_tpu_torch.utils.device import resolve_device
-from smallhardface_tpu_torch.utils.timer import Timer
+from smallhardface_tpu_torch.utils.timer import Timer, no_stages
 
 logger = logging.getLogger(__name__)
 
@@ -261,6 +261,10 @@ class TorchDetector:
         self.vote_cap = int(cfg.TPU.VOTE_CAP)
         self.merged_cap = int(cfg.TPU.MERGED_DET_CAP)
         self._warned_host_preproc = False
+        # the stage hook (utils.timer.no_stages; tools/pyramid_time sets a
+        # tools.measure.Stages): prep, upload, preproc, forward, decode,
+        # vote, readback
+        self.stages = no_stages
 
     def _prep(self, im):
         """The raw image edge-padded to ×16 (``padded``, the exact-shape
@@ -346,20 +350,24 @@ class TorchDetector:
                   for i, dev in enumerate(self.spatial)]
         return shards, ((hb, wb) if hp != hb else None)
 
-    def _forward_level(self, imgs, lvs, hb, wb, valid_hw):
+    def _forward_level(self, imgs, lvs, hb, wb, valid_hw, level=None):
         """The forward of one level's batch: on one device from
         ``_level_batch``, or over the spatial unit, its outputs cropped to
         the level's hb / 8 rows."""
         groups = self._scale_groups(lvs)
         if self.spatial is None:
-            x = self._level_batch(imgs[self.device], lvs, hb, wb)
-            return self.model(x, valid_hw, self.precision, self.qstate,
-                              scale_groups=groups)
-        shards, valid = self._sharded_level(imgs, lvs, hb, wb)
-        out = self.model(shards, valid, self.precision, self.qstate,
-                         scale_groups=groups)
-        rows = hb // detector_mod.FEAT_STRIDE
-        return {k: v[:, :rows] for k, v in out.items()}
+            with self.stages("preproc", level):
+                x = self._level_batch(imgs[self.device], lvs, hb, wb)
+            with self.stages("forward", level):
+                return self.model(x, valid_hw, self.precision, self.qstate,
+                                  scale_groups=groups)
+        with self.stages("preproc", level):
+            shards, valid = self._sharded_level(imgs, lvs, hb, wb)
+        with self.stages("forward", level):
+            out = self.model(shards, valid, self.precision, self.qstate,
+                             scale_groups=groups)
+            rows = hb // detector_mod.FEAT_STRIDE
+            return {k: v[:, :rows] for k, v in out.items()}
 
     def _pyramid(self, preps, bucketed, score_thresh):
         """Enqueue the whole pyramid of N images on the device: every level
@@ -374,12 +382,14 @@ class TorchDetector:
         reps = 2 if cfg.TEST.FLIP else 1
         st = float(score_thresh if score_thresh is not None
                    else cfg.TEST.SCORE_THRESH)
-        raw = np.stack([p["padded"] for p in preps]) if not bucketed else \
-            np.stack([_pad_to(p["image"], *p["key"][:2]) for p in preps])
         all_boxes, all_scores = [], []
-        # the raw images once on every device of the unit
-        raw = torch.from_numpy(raw)
-        imgs = {d: raw.to(d).float() for d in (self.spatial or [dev])}
+        with self.stages("upload"):
+            raw = (np.stack([p["padded"] for p in preps]) if not bucketed
+                   else np.stack([_pad_to(p["image"], *p["key"][:2])
+                                  for p in preps]))
+            # the raw images once on every device of the unit
+            raw = torch.from_numpy(raw)
+            imgs = {d: raw.to(d).float() for d in (self.spatial or [dev])}
         for li in range(len(preps[0]["levels"])):
             lvs = [p["levels"][li] for p in preps]
             hb, wb = ((lvs[0]["bh"], lvs[0]["bw"]) if bucketed
@@ -389,34 +399,47 @@ class TorchDetector:
             # the forward masks each item to its own ×16 extent in a bucket
             out = self._forward_level(
                 imgs, lvs, hb, wb,
-                (per_item("hb"), per_item("wb")) if bucketed else None)
-            probs = torch.softmax(out["cls_logits"], dim=-1)[..., 1]
-            boxes, scores, counts = decode_mod.decode_proposals_batch(
-                probs, out["bbox_deltas"], self.base_anchors,
-                feat_stride=detector_mod.FEAT_STRIDE,
-                im_h=per_item("h_s").float(), im_w=per_item("w_s").float(),
-                valid_h=per_item("hb") // detector_mod.FEAT_STRIDE,
-                valid_w=per_item("wb") // detector_mod.FEAT_STRIDE,
-                score_thresh=st, min_size=0.0, capacity=self.capacity)
-            cap = boxes.shape[1]
-            boxes = boxes.view(n, reps, cap, 4)
-            slot = torch.arange(cap, device=dev)
-            row_ok = slot < counts.view(n, reps, 1)
-            if cfg.TEST.FLIP:
-                # un-mirror in network-input space, about each w_s
-                ws_f = torch.tensor([float(lv["w_s"]) for lv in lvs],
-                                    device=dev)[:, None]
-                m = boxes[:, 1]
-                flipped = torch.stack([ws_f - m[..., 2], m[..., 1],
-                                       ws_f - m[..., 0], m[..., 3]], dim=-1)
-                boxes = torch.stack([boxes[:, 0], flipped], dim=1)
-            inv_fx = torch.tensor([lv["inv_fx"] for lv in lvs], device=dev)
-            boxes = boxes * inv_fx[:, None, None, None]
-            scores = torch.where(row_ok, scores.view(n, reps, cap),
-                                 -float("inf"))
-            all_boxes.append(boxes.reshape(n, -1, 4))
-            all_scores.append(scores.reshape(n, -1))
-        return torch.cat(all_boxes, dim=1), torch.cat(all_scores, dim=1)
+                (per_item("hb"), per_item("wb")) if bucketed else None, li)
+            with self.stages("decode", li):
+                boxes, scores = self._decode_level(out, lvs, per_item, n,
+                                                   reps, st)
+            all_boxes.append(boxes)
+            all_scores.append(scores)
+        with self.stages("decode"):
+            return torch.cat(all_boxes, dim=1), torch.cat(all_scores, dim=1)
+
+    def _decode_level(self, out, lvs, per_item, n, reps, st):
+        """One level's rows of N images: the foreground softmax, decode at
+        each item's extent (``per_item``: a level field per item), the
+        mirror's boxes un-mirrored about each w_s, all in original-image
+        coordinates; boxes (N, reps·cap, 4) and scores (N, reps·cap), -inf
+        on empty slots."""
+        dev = self.device
+        probs = torch.softmax(out["cls_logits"], dim=-1)[..., 1]
+        boxes, scores, counts = decode_mod.decode_proposals_batch(
+            probs, out["bbox_deltas"], self.base_anchors,
+            feat_stride=detector_mod.FEAT_STRIDE,
+            im_h=per_item("h_s").float(), im_w=per_item("w_s").float(),
+            valid_h=per_item("hb") // detector_mod.FEAT_STRIDE,
+            valid_w=per_item("wb") // detector_mod.FEAT_STRIDE,
+            score_thresh=st, min_size=0.0, capacity=self.capacity)
+        cap = boxes.shape[1]
+        boxes = boxes.view(n, reps, cap, 4)
+        slot = torch.arange(cap, device=dev)
+        row_ok = slot < counts.view(n, reps, 1)
+        if cfg.TEST.FLIP:
+            # un-mirror in network-input space, about each w_s
+            ws_f = torch.tensor([float(lv["w_s"]) for lv in lvs],
+                                device=dev)[:, None]
+            m = boxes[:, 1]
+            flipped = torch.stack([ws_f - m[..., 2], m[..., 1],
+                                   ws_f - m[..., 0], m[..., 3]], dim=-1)
+            boxes = torch.stack([boxes[:, 0], flipped], dim=1)
+        inv_fx = torch.tensor([lv["inv_fx"] for lv in lvs], device=dev)
+        boxes = boxes * inv_fx[:, None, None, None]
+        scores = torch.where(row_ok, scores.view(n, reps, cap),
+                             -float("inf"))
+        return boxes.reshape(n, -1, 4), scores.reshape(n, -1)
 
     def _scale_groups(self, lvs):
         """The dynamic int8 mode's step groups of one level's batch (image
@@ -495,7 +518,7 @@ class TorchDetector:
         device vote the top VOTE_CAP kept rows of every image are voted in
         one launch; otherwise each image's kept rows (the top
         MERGED_DET_CAP when that is > 0) wait for the host vote."""
-        with torch.inference_mode():
+        with torch.inference_mode(), self.stages("vote"):
             keep = scores > thresh      # the strict > of lib/test.py:163
             if self.device_vote:
                 dets, n = top_rows(boxes, scores, keep, self.vote_cap)
@@ -519,8 +542,9 @@ class TorchDetector:
         detect-level cut (probs > thresh). Returns a handle for
         ``finalize_async``; nothing waits for the device here."""
         with torch.inference_mode():
-            boxes, scores = self._pyramid([self._prep(im)], False,
-                                          score_thresh)
+            with self.stages("prep"):
+                prep = self._prep(im)
+            boxes, scores = self._pyramid([prep], False, score_thresh)
         return self._dispatch(boxes, scores, thresh)[0]
 
     def finalize_async(self, handle, thresh=0.05):
@@ -528,18 +552,20 @@ class TorchDetector:
         device vote (with the reference's dummy row when there are none),
         else the kept rows, voted on the host in float64. Returns cls_dets
         like ``detect``. (``thresh`` was applied in ``detect_async``.)"""
-        if "keep" in handle:
-            dets = handle["packed"][handle["keep"]].cpu().numpy()
-        else:
-            n = int(handle["n"])
-            dets = handle["packed"][:n].cpu().numpy()
+        with self.stages("readback"):
+            if "keep" in handle:
+                dets = handle["packed"][handle["keep"]].cpu().numpy()
+            else:
+                n = int(handle["n"])
+                dets = handle["packed"][:n].cpu().numpy()
         if handle["voted"]:
             if cfg.TEST.NMS_METHOD == "BBOX_VOTE" and len(dets) == 0:
                 # the reference's dummy detection for an empty input
                 # (lib/test.py:183-185)
                 dets = np.array([[10, 10, 20, 20, 0.0001]], np.float32)
             return [dets]
-        return [_host_vote(dets)]
+        with self.stages("host_vote"):
+            return [_host_vote(dets)]
 
     def detect_many(self, ims, thresh=0.05, score_thresh=None,
                     max_batch=None):
@@ -574,7 +600,8 @@ class TorchDetector:
             # JAX detect.py:642-644
             raise ValueError("detect_many batches per chip; use one detector "
                              "per chip for spatial sharding")
-        preps = [self._prep(im) for im in ims]
+        with self.stages("prep"):
+            preps = [self._prep(im) for im in ims]
         groups = {}
         for i, p in enumerate(preps):
             groups.setdefault(p["key"], []).append(i)

@@ -22,6 +22,7 @@ Conv weights are OIHW (``io/weights.py`` converts from HWIO).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 
@@ -217,6 +218,41 @@ def forward_flops(spec: ModelSpec, h, w, batch=1):
         total += cf("cls_score", h8, w8)
         total += cf("bbox_pred", h8, w8)
     return batch * total
+
+
+def scope(name):
+    """The forward's per-layer profiler scope: a
+    ``torch.profiler.record_function`` range named like the JAX forward's
+    ``jax.named_scope`` (detector.py:512-620) while a profiler records on
+    this thread, so ``tools/measure.Trace`` groups the kernels by layer;
+    otherwise nothing. It changes no bit of any output."""
+    if torch._C._autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return contextlib.nullcontext()
+
+
+def scope_names(spec: ModelSpec):
+    """The forward's scopes in the order it opens them: JAX's names
+    ("pallas_stem" for the fused stem: conv1_1, conv1_2 and pool1; each
+    conv, conv5_256, conv5_256_up, conv4_256, head_<k> around a dilated
+    head and its two 1×1 convs), and ones JAX leaves unscoped: "pool<n>"
+    for each pool, and "cls_score" / "bbox_pred" of the single head."""
+    names = []
+    fused = VGG_STAGES[0] == ("conv1", 64, 2)
+    for si, (stage, _, n) in enumerate(VGG_STAGES):
+        if fused and stage == "conv1":
+            names.append("pallas_stem")     # conv1_1, conv1_2 and pool1
+            continue
+        names += [f"{stage}_{i}" for i in range(1, n + 1)]
+        if si < len(VGG_STAGES) - 1:
+            names.append(f"pool{si + 1}")
+    names += ["conv5_256", "conv5_256_up", "conv4_256", "conv4_fuse_final"]
+    if spec.different_dilation:
+        names.append("conv4_fuse_final_dim_red")
+        names += [f"head_{k}" for k in ANCHOR_SCALES]
+    else:
+        names += ["head", "cls_score", "bbox_pred"]
+    return names
 
 
 def pin_fp32_numerics():
@@ -458,12 +494,13 @@ class Detector(nn.Module):
                                if name in int8_amax else a)
 
         def cbr(hs, name):
-            if not name.startswith("conv1"):
-                if int8:
-                    return mask(q_conv(hs, name))
-                if int8_amax is not None:
-                    record(name, hs)
-            return mask(conv_relu(hs, name))
+            with scope(name):
+                if not name.startswith("conv1"):
+                    if int8:
+                        return mask(q_conv(hs, name))
+                    if int8_amax is not None:
+                        record(name, hs)
+                return mask(conv_relu(hs, name))
 
         # VGG-16's stem runs fused (the kernel on the card), in fp32 in the
         # int8 mode too; it masks its input and conv1_1 itself, and its
@@ -475,13 +512,16 @@ class Detector(nn.Module):
         if fused:
             stem_w = (*self._w("conv1_1"), *self._w("conv1_2"))
             stem_in = [h.float() if bf16 else h for h in hs]
-            if k == 1:
-                out = [fused_stem(stem_in[0], *stem_w, valid_hw=valid_hw)]
-            else:
-                out = fused_stem_spatial(stem_in, *stem_w, valid_hw=valid_hw)
-            hs = [h.permute(0, 3, 1, 2).to(hs[0].dtype) for h in out]
-            stride *= 2
-            hs = mask(hs)
+            with scope("pallas_stem"):
+                if k == 1:
+                    out = [fused_stem(stem_in[0], *stem_w,
+                                      valid_hw=valid_hw)]
+                else:
+                    out = fused_stem_spatial(stem_in, *stem_w,
+                                             valid_hw=valid_hw)
+                hs = [h.permute(0, 3, 1, 2).to(hs[0].dtype) for h in out]
+                stride *= 2
+                hs = mask(hs)
         else:
             hs = mask([h.permute(0, 3, 1, 2) for h in hs])
         feats = {}
@@ -492,22 +532,26 @@ class Detector(nn.Module):
                 hs = cbr(hs, f"{stage}_{i}")
             feats[stage] = hs
             if si < len(VGG_STAGES) - 1:
-                hs = [max_pool_2x2(h) for h in hs]
+                with scope(f"pool{si + 1}"):
+                    hs = [max_pool_2x2(h) for h in hs]
                 stride *= 2
 
-        f5 = mask([F.relu(conv2d(h, *w_b(i, "conv5_256")))
-                   for i, h in enumerate(feats["conv5"])])
-        up = [upsample2x_bilinear(h, weights[i]["conv5_256_up"]["w"],
-                                  halo=rows)
-              for i, (h, rows) in enumerate(spatial.halo(f5, 1))]
+        with scope("conv5_256"):
+            f5 = mask([F.relu(conv2d(h, *w_b(i, "conv5_256")))
+                       for i, h in enumerate(feats["conv5"])])
+        with scope("conv5_256_up"):
+            up = [upsample2x_bilinear(h, weights[i]["conv5_256_up"]["w"],
+                                      halo=rows)
+                  for i, (h, rows) in enumerate(spatial.halo(f5, 1))]
         stride //= 2                       # back to the stride-8 grid
         f4 = feats["conv4"]
-        if f4[0].dtype == torch.int8:
-            # the chain left conv4_3's output on conv5_1's grid; the fp32
-            # 1×1 lateral reads it dequantized
-            f4 = [h.float() * input_step(qstate, "conv5_1") for h in f4]
-        lat4 = [F.relu(conv2d(h, *w_b(i, "conv4_256")))
-                for i, h in enumerate(f4)]
+        with scope("conv4_256"):
+            if f4[0].dtype == torch.int8:
+                # the chain left conv4_3's output on conv5_1's grid; the
+                # fp32 1×1 lateral reads it dequantized
+                f4 = [h.float() * input_step(qstate, "conv5_1") for h in f4]
+            lat4 = [F.relu(conv2d(h, *w_b(i, "conv4_256")))
+                    for i, h in enumerate(f4)]
         ff = cbr(mask([torch.cat([u, l], dim=1)
                        for u, l in zip(mask(up), lat4)]), "conv4_fuse_final")
 
@@ -518,14 +562,15 @@ class Detector(nn.Module):
                 record("head", ff)
             cls_list, box_list = [], []
             for ks, d in zip(ANCHOR_SCALES, HEAD_DILATIONS):
-                if int8:
-                    hd = q_conv(ff, "head", d)
-                else:
-                    hd = conv_relu(ff, "head", d)
-                cls_list.append([conv2d(h, *w_b(i, f"cls_score_{ks}"))
-                                 for i, h in enumerate(hd)])
-                box_list.append([conv2d(h, *w_b(i, f"bbox_pred_{ks}"))
-                                 for i, h in enumerate(hd)])
+                with scope(f"head_{ks}"):
+                    if int8:
+                        hd = q_conv(ff, "head", d)
+                    else:
+                        hd = conv_relu(ff, "head", d)
+                    cls_list.append([conv2d(h, *w_b(i, f"cls_score_{ks}"))
+                                     for i, h in enumerate(hd)])
+                    box_list.append([conv2d(h, *w_b(i, f"bbox_pred_{ks}"))
+                                     for i, h in enumerate(hd)])
             # (B, C, h, w) per anchor → (B, h, w, A, C), per shard
             cls_logits = [torch.stack(c, dim=-1).permute(0, 2, 3, 4, 1)
                           for c in zip(*cls_list)]
@@ -535,8 +580,12 @@ class Detector(nn.Module):
             hd = cbr(ff, "head")
             cls_logits, bbox_deltas = [], []
             for i, h in enumerate(hd):
-                raw_cls = conv2d(h, *w_b(i, "cls_score")).permute(0, 2, 3, 1)
-                raw_box = conv2d(h, *w_b(i, "bbox_pred")).permute(0, 2, 3, 1)
+                with scope("cls_score"):
+                    raw_cls = conv2d(h, *w_b(i, "cls_score")).permute(
+                        0, 2, 3, 1)
+                with scope("bbox_pred"):
+                    raw_box = conv2d(h, *w_b(i, "bbox_pred")).permute(
+                        0, 2, 3, 1)
                 bsz, hh, ww = raw_cls.shape[:3]
                 # cls channels are [bg_a0.. bg_aA, fg_a0.. fg_aA]; bbox
                 # channels are anchor-major groups of 4

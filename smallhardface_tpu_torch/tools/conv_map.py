@@ -36,15 +36,14 @@ import torch
 import torch.nn.functional as F
 
 from smallhardface_tpu_torch.models import layers
+from smallhardface_tpu_torch.tools.measure import (PEAK_BF16, PEAK_BYTES,
+                                                   PEAK_FP32)
 
 IMAGES = ((768, 1024), (1024, 768), (683, 1024), (1024, 1024), (1365, 1024))
 SCALES = (100, 300, 600, 1000, 1400)
 BASE = (800, 1200)                  # TEST.PYRAMID_BASE_SIZE
 BATCHES = (2, 4, 8)
 BUCKETS = {"exact": 16, "bucket": 128}
-# published H100 SXM rates: fp32 on the CUDA cores, dense bf16 on the
-# tensor cores, device-memory bandwidth
-PEAK_FP32, PEAK_BF16, PEAK_BYTES = 67e12, 989e12, 3.35e12
 
 
 def _round_up(x, m):

@@ -99,7 +99,7 @@ from smallhardface_tpu_torch.train.losses import (
 from smallhardface_tpu_torch.utils.device import resolve_device
 from smallhardface_tpu_torch.utils.faults import injected_fault
 from smallhardface_tpu_torch.utils.tensorboard import tb
-from smallhardface_tpu_torch.utils.timer import Timer, device_busy_s
+from smallhardface_tpu_torch.utils.timer import Timer, device_busy_s, no_stages
 
 logger = logging.getLogger(__name__)
 
@@ -206,8 +206,10 @@ class LossFn:
     and the gathered head outputs are cropped to the bucket's rows before
     the targets. ``unit`` None is ``[device]``: one shard, no padding."""
 
-    def __init__(self, tc, device, unit=None):
+    def __init__(self, tc, device, unit=None, stages=no_stages):
         self.tc = tc
+        # the stage hook (tools/train_time): preproc, forward, targets
+        self.stages = stages
         self.unit = list(unit or [device])
         self.base_anchors = anchors_mod.generate_anchors(
             base_size=16, ratios=[1],
@@ -223,32 +225,38 @@ class LossFn:
         host numbers. Returns (cls_loss + reg_loss, aux dict of 0-dim
         tensors)."""
         stride = detector_mod.FEAT_STRIDE
-        x = preprocess_image(data, scl, crp, im_hw, out_shape,
-                             self.pixel_mean)
+        with self.stages("preproc"):
+            x = preprocess_image(data, scl, crp, im_hw, out_shape,
+                                 self.pixel_mean)
         extent = (int(valid_hw[0]) * stride, int(valid_hw[1]) * stride)
-        # the rows padded to a multiple of 32·k are cropped off the outputs:
-        # the anchor grid and OHEM's tie order are the bucket's
-        shards, _ = spatial.shard_input(x[None], self.unit, extent)
-        out = model(shards, valid_hw=extent)
-        rows = out_shape[0] // stride
-        logits = out["cls_logits"][0, :rows]
-        deltas = out["bbox_deltas"][0, :rows]
-        bg_prob = torch.softmax(logits.detach(), dim=-1)[..., 0]
-        tgt = targets_mod.anchor_targets(
-            bg_prob, self.base_anchors, gt, gt_mask,
-            im_h=float(im_hw[0]), im_w=float(im_hw[1]),
-            valid_h=int(valid_hw[0]), valid_w=int(valid_hw[1]), tc=self.tc)
-        cls_loss = softmax_ce_with_ignore(logits.reshape(-1, 2),
-                                          tgt["labels"])
-        reg_loss = smooth_l1(deltas.reshape(-1, 4), tgt["bbox_targets"],
-                             tgt["inside_weights"], tgt["outside_weights"])
+        with self.stages("forward"):
+            # the rows padded to a multiple of 32·k are cropped off the
+            # outputs: the anchor grid and OHEM's tie order are the bucket's
+            shards, _ = spatial.shard_input(x[None], self.unit, extent)
+            out = model(shards, valid_hw=extent)
+            rows = out_shape[0] // stride
+            logits = out["cls_logits"][0, :rows]
+            deltas = out["bbox_deltas"][0, :rows]
+        with self.stages("targets"):
+            bg_prob = torch.softmax(logits.detach(), dim=-1)[..., 0]
+            tgt = targets_mod.anchor_targets(
+                bg_prob, self.base_anchors, gt, gt_mask,
+                im_h=float(im_hw[0]), im_w=float(im_hw[1]),
+                valid_h=int(valid_hw[0]), valid_w=int(valid_hw[1]),
+                tc=self.tc)
+            cls_loss = softmax_ce_with_ignore(logits.reshape(-1, 2),
+                                              tgt["labels"])
+            reg_loss = smooth_l1(deltas.reshape(-1, 4), tgt["bbox_targets"],
+                                 tgt["inside_weights"],
+                                 tgt["outside_weights"])
         aux = {"cls_loss": cls_loss, "reg_loss": reg_loss,
                "accuracy": tgt["accuracy"], "easy": tgt["easy"],
                "n_fg": tgt["n_fg"]}
         return cls_loss + reg_loss, aux
 
 
-def grad_step(model, loss_fn, batch, out_shape, iter_size, reduce=None):
+def grad_step(model, loss_fn, batch, out_shape, iter_size, reduce=None,
+              stages=no_stages):
     """Forward and backward of every micro-batch of one iteration; the
     parameters' ``.grad`` ends as the mean over micro-batches and ranks:
     the sum over micro-batches (``backward`` accumulates), then
@@ -257,7 +265,9 @@ def grad_step(model, loss_fn, batch, out_shape, iter_size, reduce=None):
     W × iter_size, as the JAX step's ``psum`` and division
     (train_loop.py:219-224). Only the leaves that take a gradient, those
     with a learning-rate multiplier above 0, are reduced. Returns the
-    metrics as a (len(METRIC_KEYS), iter_size) float32 device tensor."""
+    metrics as a (len(METRIC_KEYS), iter_size) float32 device tensor.
+    ``stages``: the stage hook around each backward and the reduction
+    (tools/train_time)."""
     for p in model.parameters():
         p.grad = None
     rows = []
@@ -266,14 +276,16 @@ def grad_step(model, loss_fn, batch, out_shape, iter_size, reduce=None):
             model, out_shape, batch["data"][i], float(batch["scale"][i]),
             batch["crop"][i].tolist(), batch["gt"][i], batch["gt_mask"][i],
             batch["im_hw"][i].tolist(), batch["valid_hw"][i].tolist())
-        loss.backward()
+        with stages("backward"):
+            loss.backward()
         rows.append(torch.stack([aux[k].detach().float()
                                  for k in METRIC_KEYS]))
-    grads = [p.grad for p in model.parameters() if p.grad is not None]
-    n_ranks = 1 if reduce is None else reduce(grads)
-    for g in grads:
-        g.div_(n_ranks * iter_size)
-    return torch.stack(rows, dim=1)
+    with stages("reduce"):
+        grads = [p.grad for p in model.parameters() if p.grad is not None]
+        n_ranks = 1 if reduce is None else reduce(grads)
+        for g in grads:
+            g.div_(n_ranks * iter_size)
+        return torch.stack(rows, dim=1)
 
 
 def get_training_roidb(imdb):

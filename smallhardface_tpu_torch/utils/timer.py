@@ -1,11 +1,20 @@
 """Wall-clock averaging timer: the port's copy of
 ``smallhardface_tpu/utils/timer.py`` (the reference's lib/utils/timer.py);
-and the device's busy time of a torch.profiler run."""
+the device's busy time of a torch.profiler run; and the stage hook of an
+uninstrumented run (``no_stages``; ``tools/measure.Stages`` records)."""
 
 from __future__ import annotations
 
+import contextlib
 import math
 import time
+
+
+def no_stages(name, level=None):
+    """The stage hook of a run that nobody times: ``with
+    stages(name, level):`` around a stage of ``TorchDetector`` or of a
+    training step does nothing."""
+    return contextlib.nullcontext()
 
 
 class Timer:
@@ -29,13 +38,17 @@ class Timer:
 
 def device_busy_s(prof):
     """The union of the intervals of the device's own events (kernels,
-    copies) of a finished torch.profiler run, in seconds."""
+    copies) of a finished torch.profiler run, in seconds. A
+    ``record_function`` range also shows on the device as a span from its
+    first kernel to its last (a GPU user annotation, gaps included): not
+    the device's work, so left out."""
     import torch
 
     cuda = torch.autograd.DeviceType.CUDA
     spans = sorted((ev.time_range.start, ev.time_range.end)
                    for ev in prof.events()
-                   if getattr(ev, "device_type", None) == cuda)
+                   if getattr(ev, "device_type", None) == cuda
+                   and not getattr(ev, "is_user_annotation", False))
     busy, end = 0.0, -math.inf
     for a, b in spans:
         busy += max(0.0, b - max(a, end))
