@@ -93,11 +93,12 @@ Then, each phase printing one line:
    max_batch 4 against per-image bf16 ``detect`` (the loose rule at
    BF16_MATCH_MIN) and one service request (the rows of ``detect``);
 6. the cliff map: every 3×3 convolution of the forward, as the forward
-   runs it, at the pyramid levels of five WIDER-sized images, exact and
-   bucketed, at batch 2, 4 and 8 (``tools/conv_map.py``): each distinct
-   shape's device time against its fp32 bound and the memory it adds;
-   then the same map in bf16 against the bf16 bound, held to the memory
-   limit and to the bf16 rounding of the fp32 sum at every shape;
+   runs it, at the pyramid levels of the detection workload's three
+   images, exact and bucketed, at batch 2, 4 and 8 (``tools/conv_map.py``
+   maps five images): each distinct shape's device time against its fp32
+   bound and the memory it adds; then the same map in bf16 at batch 2
+   over all five images against the bf16 bound, held to the memory limit
+   and to the bf16 rounding of the fp32 sum at every shape;
 7. K2 against its plain version (equal to the bit on small-integer inputs,
    within a stated tolerance on float inputs, equal to itself from run to
    run; K1 writes the routing it reads) and its tensor-core products
@@ -195,7 +196,21 @@ Then, each phase printing one line:
    launch, and the idle share), ``tools/train_time`` at 768×1024 (every
    step's loss equal, K3 launched), ``tools/perf_probe`` at 608×912 and
    ``tools/ap_parity --dry-run synth synth`` on 4 synthetic images
-   (PARITY OK). Then the smoke's total.
+   (PARITY OK);
+16. the end-to-end learning proof (``overfit_phase``,
+   ``tools/overfit_check`` in process, so its launches count here): the
+   flagship config trained from random init for OVERFIT_ITERS iterations
+   through ``__main__.main`` with scripts/overfit_check.py's amend list on
+   its 4-image synthetic tree at 192 px, then tested under the WIDER
+   protocol: AP above 0.95 on easy, medium and hard, K1, K3 and V1
+   launched as the run needs; the first and last logged losses, the
+   walls, iterations per second, the idle share over 20 profiled steps
+   and the exposed loader wait; on the trained final.npz (kept under
+   runs/overfit/): ``tools/ap_parity`` (PARITY OK, both triples above
+   0.95, the match rate printed) and the command line's evaluation in
+   bf16 (on the card and on the CPU) and in calibrated int8, each with its
+   AP and its detections against the fp32 run's image by image (printed).
+   Then the smoke's total.
 
 Each main path runs with the launch counts set to 0 just before it and read
 just after. The second-to-last line is a JSON summary of the kernels; the
@@ -338,6 +353,13 @@ SERVE_WINDOW_MS = 50
 # bound a convolution is a few kernels' latency (the smallest levels),
 # which no library call brings within 5×: those are reported, not held
 CLIFF_MAX_OF_BOUND, CLIFF_MAX_ADDED, CLIFF_FLOOR_MS = 5.0, 4e9, 0.05
+# the cliff maps' depth: fp32 over the detection workload's images at
+# every batch the port runs (2: detect; 4, 8: detect_many at max_batch 2,
+# 4), bf16 over conv_map's five images at detect's batch. conv_map's whole
+# map (five images, batch 2, 4 and 8: 1,212 shapes) took 253 s in both
+# dtypes on an H100 80GB HBM3, 700 W; it is left to the tool
+CLIFF_FP32 = (IMAGE_SIZES, (2, 4, 8))
+CLIFF_BF16_BATCHES = (2,)
 # K3's cases over the anchors of a 1200×1600 image: (gt, masked, layout)
 IOU_CASES = ((0, 0, "uniform"), (1, 0, "uniform"), (64, 0, "uniform"),
              (64, 64, "uniform"), (512, 100, "uniform"),
@@ -935,6 +957,7 @@ def main():
         dp_counts = dp_phases(cfg, tdm, dev, pristine, root, work, smi)
         tools_counts = tools_phase(cfg, pristine, tdm, params, images[0],
                                    card_dets[0], dev, smi, work)
+        overfit_counts = overfit_phase(cfg, pristine, tdm, smi)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -963,6 +986,7 @@ def main():
         kernels[k]["launches_dp_two_ranks"] = [c[k] for c in dp_counts]
     for k in ("fused_stem", "bbox_vote", "max_iou", "conv3x3_int8"):
         kernels[k]["launches_tools"] = tools_counts[k]
+        kernels[k]["launches_overfit"] = overfit_counts[k]
     sp_tree = spatial_train_out["counts"]
     kernels["fused_stem_grad"]["launches_train_spatial"] = {
         str(k): c["fused_stem_grad"] for k, c in sp_tree.items() if k > 1}
@@ -2967,9 +2991,9 @@ def serve_phase(params, spec, images, dev):
 def cliff_map(dev, dtype=torch.float32):
     """Every 3×3 convolution of the forward, as the forward runs it
     (``layers.conv3x3``), at each distinct shape of the pyramid levels of
-    five WIDER-sized images, exact and bucketed, at batch 2, 4 and 8
-    (``tools/conv_map.py``), on ``dtype`` inputs: its device time beside
-    its bound in that dtype (fp32 on the CUDA cores, bf16 on the tensor
+    CLIFF_FP32's images and batches in fp32, of conv_map's images at
+    CLIFF_BF16_BATCHES in bf16, exact and bucketed (``tools/conv_map.py``),
+    on ``dtype`` inputs: its device time beside its bound in that dtype (fp32 on the CUDA cores, bf16 on the tensor
     cores) and the memory it adds. The rows go to output/cliff_map.json
     (cliff_map_bf16.json); the line gives each layer's worst, the shapes
     over the limits, the slowest shapes against their bound and the
@@ -2984,7 +3008,10 @@ def cliff_map(dev, dtype=torch.float32):
     from smallhardface_tpu_torch.tools import conv_map
     bf16 = dtype == torch.bfloat16
     t = time.perf_counter()
-    rows = conv_map.conv_map(dev, log=lambda row: None, dtype=dtype)
+    images, batches = ((conv_map.IMAGES, CLIFF_BF16_BATCHES) if bf16
+                       else CLIFF_FP32)
+    rows = conv_map.conv_map(dev, log=lambda row: None, dtype=dtype,
+                             images=images, batches=batches)
     phase = "cliff_map_bf16" if bf16 else "cliff_map"
     with open(os.path.join(_output_dir(), phase + ".json"), "w") as f:
         json.dump(rows, f)
@@ -4311,6 +4338,261 @@ def tools_phase(cfg, pristine, tdm, params, image, plain_rows, dev, smi,
     say("tools", seconds=time.perf_counter() - t_phase,
         kernel_launches=launches, lost_device_events=lost, nvidia_smi=smi)
     return launches
+
+
+
+OVERFIT_ITERS = 400         # the JAX package's recorded run, OVERFIT_CHECK.md
+OVERFIT_SIZE = 192          # overfit_check's --im-size default
+# the steps (after the first, through the second) the overfit run spends
+# under torch.profiler, for the device's idle share: all 400 under
+# SHF_TRAIN_PROFILE cost more in the trace's processing than the run
+# itself (PERF.md §6). Both ends are iterations the log stamps
+OVERFIT_PROFILED = (100, 120)
+# the overfit check's runs and its trained final.npz (71 MB), kept for
+# the evaluations that follow; git-ignored
+OVERFIT_DIR = os.path.join(REPO, "runs", "overfit")
+# the match rate between ap_parity's two pipelines expected of trained
+# weights when the harness was written for the JAX package: printed
+# beside the reading, not held
+AP_PARITY_MATCH_EXPECTED = 0.99
+AP_PARITY_LINE = re.compile(r"(device|host) +path AP \(easy/medium/hard\): "
+                            r"\(([^)]*)\)")
+
+
+class _ProfiledSteps:
+    """torch.profiler (device activity only) over the training loop's
+    steps ``first`` + 1 to ``last``, by patching ``train_loop.grad_step``,
+    the name ``train_net`` looks up at call time; the card is synchronised
+    at both ends. Then ``wall_s`` and ``busy_s``: the window's host wall
+    and the union of its device events."""
+
+    def __init__(self, first, last):
+        self.first, self.last = first, last
+        self.prof, self.wall_s, self.busy_s = None, None, None
+
+    def _stop(self):
+        from smallhardface_tpu_torch.utils.timer import device_busy_s
+        torch.cuda.synchronize()
+        self.wall_s = time.perf_counter() - self._t0
+        self.prof.stop()
+        self.busy_s = device_busy_s(self.prof)
+
+    def __enter__(self):
+        from torch.profiler import ProfilerActivity, profile
+        from smallhardface_tpu_torch.train import train_loop
+        self._orig = train_loop.grad_step
+        calls = [0]
+
+        def step(*args, **kwargs):
+            calls[0] += 1
+            if calls[0] == self.first + 1:
+                torch.cuda.synchronize()
+                prof = profile(activities=[ProfilerActivity.CUDA])
+                prof.start()
+                self._t0 = time.perf_counter()
+                self.prof = prof
+            elif calls[0] == self.last + 1:
+                self._stop()
+            return self._orig(*args, **kwargs)
+        train_loop.grad_step = step
+        return self
+
+    def __exit__(self, *exc):
+        from smallhardface_tpu_torch.train import train_loop
+        train_loop.grad_step = self._orig
+        if self.prof is not None and self.wall_s is None:
+            self._stop()
+        return False
+
+
+def _overfit_eval(cli, tag, conf, model, device, extra=()):
+    """One evaluation of ``model`` on the overfit tree's val images through
+    the command line, in this process, at the check's test scale; returns
+    (its AP triple, its detections per image)."""
+    from smallhardface_tpu_torch.tools.ap_parity import AP_RE
+    exp_dir = f"overfit_{tag}"
+    result = cli.main([
+        "--train", "false", "--test", "true", "--device", device,
+        "--conf", conf, "--amend", "ROOT_DIR", OVERFIT_DIR,
+        "DATA_DIR", os.path.join(OVERFIT_DIR, "wider"), "EXP_DIR", exp_dir,
+        "NAME", tag, "TEST.MODEL", model,
+        "TEST.SCALES", f"[{OVERFIT_SIZE}]",
+        "TEST.MAX_SIZE", str(2 * OVERFIT_SIZE), "TEST.NO_CACHE", "False",
+        *extra])
+    pkl, = glob.glob(os.path.join(OVERFIT_DIR, "output", exp_dir,
+                                  "wider_val", f"{tag}_*", "detections.pkl"))
+    with open(pkl, "rb") as f:
+        dets = pickle.load(f)[1]
+    return tuple(float(v) for v in AP_RE.findall(str(result))[-1]), dets
+
+
+def _per_image(dets, ref, min_match=MATCH_MIN):
+    """``dets`` against ``ref`` image by image: the counts, the golden
+    tests' strict rule (``_rule``) and the loose bf16 rule
+    (``_bf16_rule``, ``_loose_match``) each way."""
+    strict = [_rule(a, b, min_match) for a, b in zip(dets, ref)]
+    loose = [_bf16_rule(a, b) for a, b in zip(dets, ref)]
+    return {"counts": [[len(a), len(b)] for a, b in zip(dets, ref)],
+            "strict_holds": [r[0] for r in strict],
+            "strict_match": [[r[1], r[2]] for r in strict],
+            "strict_min": min(min(r[1], r[2]) for r in strict),
+            "loose_holds": [r[0] for r in loose],
+            "loose_match": [[r[1], r[2]] for r in loose],
+            "loose_min": min(min(r[1], r[2]) for r in loose)}
+
+
+def overfit_phase(cfg, pristine, tdm, smi):
+    """The end-to-end learning proof on the card (``tools/overfit_check``,
+    in process): the flagship config trained from random init for
+    OVERFIT_ITERS iterations on the 4-image synthetic tree through
+    ``__main__.main`` with the JAX script's amend list (and TEST.NO_CACHE
+    False, for detections.pkl), then evaluated under the WIDER protocol;
+    its AP must exceed 0.95 on easy, medium and hard, K1, K3 and V1 must
+    run as often as the run needs. Printed: the first and last logged
+    losses and accuracy, the run's walls, iterations per second, the
+    device's idle share over OVERFIT_PROFILED's steps (``_ProfiledSteps``),
+    the exposed loader wait (``_TrainingClock``). Then on the trained final.npz: ``tools/ap_parity``
+    (PARITY OK and both AP triples above 0.95 required; the two
+    pipelines' match rate printed against AP_PARITY_MATCH_EXPECTED), and
+    the command line's evaluation in bf16 (on the card and on the CPU) and
+    in calibrated int8 (smallhardface-int8.toml, calibrated on the tree's
+    images), each printed with its AP and its detections against the
+    fp32 run's image by image (not held). Returns the launches of K1, K3,
+    V1 in the run and of Q1 in the int8 evaluation."""
+    from smallhardface_tpu_torch import __main__ as cli
+    from smallhardface_tpu_torch.config import CONFIG_DIR
+    from smallhardface_tpu_torch.ops import conv_int8, iou, nms_device, stem
+    from smallhardface_tpu_torch.tools import (ap_parity, compare_dets,
+                                               overfit_check, parse_log)
+    t_phase = time.perf_counter()
+    fns = {"fused_stem": stem.fused_stem,
+           "fused_stem_grad": stem.fused_stem_grad, "max_iou": iou.max_iou,
+           "bbox_vote": nms_device.bbox_vote_device,
+           "nms": nms_device.nms_device,
+           "conv3x3_int8": conv_int8.conv3x3_int8}
+
+    def restore():
+        cfg.clear()
+        cfg.update(copy.deepcopy(pristine))
+
+    shutil.rmtree(OVERFIT_DIR, ignore_errors=True)
+    os.makedirs(OVERFIT_DIR)
+    restore()
+    tdm.pin_fp32_numerics()
+    set_counts_zero(*fns.values())
+    with _TrainingClock() as spent, _ProfiledSteps(*OVERFIT_PROFILED) as win:
+        t = time.perf_counter()
+        aps = overfit_check.run(
+            iters=OVERFIT_ITERS, n_dev=1, im_size=OVERFIT_SIZE,
+            device="cuda", extra_amends=("TEST.NO_CACHE", "False"),
+            work=OVERFIT_DIR, in_process=True, verbose=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    launches = {k: f.launches for k, f in fns.items()}
+    n_val = overfit_check.N_IMAGES
+    want = {"fused_stem": OVERFIT_ITERS + n_val, "fused_stem_grad": 0,
+            "max_iou": OVERFIT_ITERS, "bbox_vote": n_val, "nms": 0,
+            "conv3x3_int8": 0}
+    dirs = overfit_check.run_dirs(OVERFIT_DIR)
+    rows = parse_log.parse(os.path.join(dirs["wider_train"], "stderr.log"))
+    stamp = {r["iteration"]: r["wall_ts"] for r in rows}
+    a, b = OVERFIT_PROFILED
+    # iterations per second between the first and the last logged one
+    # (the log's millisecond stamps), the profiled window left out
+    outside = ((rows[-1]["iteration"] - rows[0]["iteration"] - (b - a))
+               / (stamp[rows[-1]["iteration"]] - stamp[rows[0]["iteration"]]
+                  - (stamp[b] - stamp[a])))
+    test_rows = _log_times(os.path.join(dirs["wider_val"], "stderr.log"))
+    logged = {r["iteration"]: {k: r[k] for k in ("cls_loss", "reg_loss",
+                                                 "accuracy", "lr")}
+              for r in (rows[0], rows[-1])}
+    say("overfit", iterations=OVERFIT_ITERS, im_size=OVERFIT_SIZE,
+        first_and_last_logged=logged, ap=aps, ap_min=overfit_check.AP_MIN,
+        wall_s=wall, train_log_s=stamp[rows[-1]["iteration"]]
+        - stamp[rows[0]["iteration"]],
+        test_wall_s=test_rows[-1][0] - test_rows[0][0],
+        iterations_per_s=outside,
+        profiled_steps=[a + 1, b], profiled_wall_s=win.wall_s,
+        profiled_iterations_per_s=(b - a) / win.wall_s,
+        device_busy_s=win.busy_s, idle_share=1.0 - win.busy_s / win.wall_s,
+        exposed_wait_ms_per_iteration=1e3 * sum(spent["wait"])
+        / OVERFIT_ITERS,
+        worker_ms_per_iteration=1e3 * sum(spent["worker"]) / OVERFIT_ITERS,
+        queue_step_ms_per_iteration=1e3 * sum(spent["queue"])
+        / OVERFIT_ITERS,
+        snapshot_writes_s=spent["save"], launches=launches,
+        launches_expected=want,
+        timing="host walls; iterations per second from the log's stamps, "
+               "the profiled steps left out; idle share over the profiled "
+               "steps (torch.profiler, device activity only, the card "
+               "synchronised at both ends)",
+        nvidia_smi=smi)
+    if not min(aps) > overfit_check.AP_MIN:
+        raise AssertionError(f"overfit check FAILED: AP={aps}")
+    if launches != want:
+        raise AssertionError(f"overfit launches {launches}, expected {want}")
+
+    # tools/ap_parity on the trained weights: the fused and the host
+    # pipelines through two command-line processes
+    final = os.path.join(dirs["wider_train"], "final.npz")
+    restore()
+    t = time.perf_counter()
+    root = os.path.join(OVERFIT_DIR, "ap_parity")
+    rc, text = _quiet(ap_parity.main, [
+        os.path.join(OVERFIT_DIR, "wider"), final, "--amend",
+        "TEST.SCALES", f"[{OVERFIT_SIZE}]",
+        "TEST.MAX_SIZE", str(2 * OVERFIT_SIZE), "ROOT_DIR", root,
+        "--device", "cuda"])
+    restore()
+    pair = {m.group(1): tuple(float(v) for v in m.group(2).split(","))
+            for m in AP_PARITY_LINE.finditer(text)}
+    tars = [sorted(glob.glob(os.path.join(
+        root, "output", f"ap_parity_{k}", "wider_val", "appar_*",
+        "result.tar.gz")))[-1] for k in ("dev", "host")]
+    table, = compare_dets.compare(*map(compare_dets.load_any, tars))
+    say("overfit_ap_parity", returncode=rc, device_ap=pair.get("device"),
+        host_ap=pair.get("host"), mean_match_rate=table["mean"],
+        worst_image=table["worst"], dets=table["dets"],
+        match_rate_expected=AP_PARITY_MATCH_EXPECTED,
+        verdict=[ln for ln in text.splitlines() if "PARITY" in ln],
+        seconds=time.perf_counter() - t, nvidia_smi=smi)
+    if not (rc == 0 and "PARITY OK" in text and len(pair) == 2
+            and all(min(ap) > overfit_check.AP_MIN for ap in pair.values())):
+        raise AssertionError(f"ap_parity on the trained weights: rc {rc}"
+                             f"\n{text[-3000:]}")
+
+    # every precision on the same weights, against the fp32 run
+    with open(os.path.join(dirs["wider_val"], "detections.pkl"), "rb") as f:
+        fp32 = pickle.load(f)[1]
+    flagship = os.path.join(CONFIG_DIR, "smallhardface.toml")
+    runs = {}
+    for tag, conf, device, extra in (
+            ("bf16", flagship, "cuda", ("TPU.PRECISION", "bfloat16")),
+            ("bf16_cpu", flagship, "cpu", ("TPU.PRECISION", "bfloat16")),
+            ("int8", os.path.join(CONFIG_DIR, "smallhardface-int8.toml"),
+             "cuda", ())):
+        restore()
+        set_counts_zero(*fns.values())
+        t = time.perf_counter()
+        ap, dets = _overfit_eval(cli, tag, conf, final, device, extra)
+        runs[tag] = dets
+        got = {k: f.launches for k, f in fns.items()}
+        fields = {"ap": ap, "vs_fp32": _per_image(dets, fp32)}
+        if tag == "bf16_cpu":
+            fields["card_bf16_vs_cpu_bf16"] = _per_image(runs["bf16"], dets)
+        say(f"overfit_{tag}", conf=os.path.basename(conf), device=device,
+            launches=got, seconds=time.perf_counter() - t, nvidia_smi=smi,
+            **fields)
+        if tag == "int8":
+            q1_launches = got["conv3x3_int8"]
+    restore()
+    if not q1_launches:
+        raise AssertionError("the int8 evaluation ran no Q1")
+    say("overfit_done", seconds=time.perf_counter() - t_phase,
+        kept=os.path.relpath(final, REPO), nvidia_smi=smi)
+    return {"fused_stem": launches["fused_stem"],
+            "max_iou": launches["max_iou"],
+            "bbox_vote": launches["bbox_vote"], "conv3x3_int8": q1_launches}
 
 
 def _match_fraction(a, b):

@@ -76,17 +76,12 @@ def match_rate(a, b, iou_thresh, score_tol):
                _one_way(b, a, iou_thresh, score_tol))
 
 
-def main():
-    p = argparse.ArgumentParser()
-    p.add_argument("a")
-    p.add_argument("b")
-    p.add_argument("--iou", type=float, default=0.5)
-    p.add_argument("--score-tol", type=float, default=0.01)
-    args = p.parse_args()
-
-    da = load_any(args.a)
-    db = load_any(args.b)
+def compare(da, db, iou_thresh=0.5, score_tol=0.01):
+    """Per class of two ``load_any`` results: {"cls", "images", "dets" (a
+    pair of counts), "mean" (the mean symmetric match rate), "worst" (the
+    image and its rate)}; "mean" and "worst" are None for no images."""
     assert len(da) == len(db), "class count mismatch"
+    rows = []
     for cls in range(1, len(da)):
         ca, cb = da[cls], db[cls]
         assert isinstance(ca, dict) == isinstance(cb, dict), (
@@ -108,15 +103,34 @@ def main():
             b = np.asarray(b).reshape(-1, 5)
             count_a += len(a)
             count_b += len(b)
-            rates.append(match_rate(a, b, args.iou, args.score_tol))
-        if not rates:
-            print(f"class {cls}: no images")
+            rates.append(match_rate(a, b, iou_thresh, score_tol))
+        worst = int(np.argmin(rates)) if rates else None
+        rows.append({"cls": cls, "images": len(pairs),
+                     "dets": (count_a, count_b),
+                     "mean": float(np.mean(rates)) if rates else None,
+                     "worst": (names[worst], float(rates[worst]))
+                     if rates else None})
+    return rows
+
+
+def main():
+    p = argparse.ArgumentParser()
+    p.add_argument("a")
+    p.add_argument("b")
+    p.add_argument("--iou", type=float, default=0.5)
+    p.add_argument("--score-tol", type=float, default=0.01)
+    args = p.parse_args()
+
+    for row in compare(load_any(args.a), load_any(args.b), args.iou,
+                       args.score_tol):
+        if not row["images"]:
+            print(f"class {row['cls']}: no images")
             continue
-        worst = int(np.argmin(rates))
-        print(f"class {cls}: images {len(pairs)}, "
+        (count_a, count_b), (worst, rate) = row["dets"], row["worst"]
+        print(f"class {row['cls']}: images {row['images']}, "
               f"dets {count_a} vs {count_b}, "
-              f"mean match-rate {np.mean(rates):.4f}, "
-              f"worst image {names[worst]} ({np.min(rates):.4f})")
+              f"mean match-rate {row['mean']:.4f}, "
+              f"worst image {worst} ({rate:.4f})")
 
 
 if __name__ == "__main__":

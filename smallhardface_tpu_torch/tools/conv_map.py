@@ -308,9 +308,9 @@ def time_call(fn):
 
 @torch.inference_mode()
 def conv_map(dev, levers=("port",), profile_over=5.0, log=print,
-             dtype=torch.float32):
-    """Time every distinct shape of ``shape_map()`` under each
-    lever, under inference_mode as detection runs them, on inputs of
+             dtype=torch.float32, images=IMAGES, batches=BATCHES):
+    """Time every distinct shape of ``shape_map(images, batches)`` under
+    each lever, under inference_mode as detection runs them, on inputs of
     ``dtype`` against that dtype's bound; in bf16 the forward's way is
     also held against the fp32 sum rounded once (``bf16_vs_fp32``). A
     shape's kernels
@@ -319,7 +319,7 @@ def conv_map(dev, levers=("port",), profile_over=5.0, log=print,
     Returns the rows, one per (shape, lever)."""
     gen = torch.Generator(device=dev).manual_seed(0)
     rows = []
-    for shape, where in sorted(shape_map().items(),
+    for shape, where in sorted(shape_map(images, batches).items(),
                                key=lambda kv: kv[0]):
         B, C, O, H, W, d = shape
         bnd, by, flop = bound_ms(B, C, O, H, W, dtype)

@@ -9,7 +9,9 @@ tests/test_train_loop.py, patched and set alike in both packages:
 - train_net for 3 iterations in both packages from the same weights and
   roidb, augmentation off: per-iteration losses within rtol 1e-3, final
   weights within rtol 1e-3, atol 1e-6; the frozen leaves unchanged, the
-  others moved wherever the JAX run moved them;
+  others moved wherever the JAX run moved them; the same for 4
+  iterations at the overfit check's schedule (base rate 0.001, the STEP
+  drop after iteration 2, mining off);
 - snapshot + resume gives a final.npz equal to the bit to the straight
   run's, on the CPU; a resume past max_iter writes final.npz and stops;
 - each package loads the other's final.npz.
@@ -145,10 +147,24 @@ def _run_both(tmp_path, roidb, iters):
     return params, losses, jdir, tdir, model
 
 
-def test_train_net_matches_jax(tmp_path, port_cfg):
+@pytest.mark.parametrize("schedule", ["default", "overfit_check"])
+def test_train_net_matches_jax(tmp_path, port_cfg, schedule, monkeypatch):
+    iters = 3
+    if schedule == "overfit_check":
+        # scripts/overfit_check.py's settings (tools/overfit_check.py in
+        # the port): a 0.001 base rate dropped at 2/3 of the run (the STEP
+        # policy's GAMMA), augmentation and hard-image mining off, one
+        # micro-batch an iteration
+        iters = 4
+        for c in (jcfg, tcfg):
+            monkeypatch.setitem(c.TRAIN.LR, "BASELR", 0.001)
+            monkeypatch.setitem(c.TRAIN, "STEPSIZE", iters * 2 // 3)
+            monkeypatch.setitem(c.TRAIN.AUGMENT, "ENABLE", False)
+            monkeypatch.setitem(c.TRAIN.DISABLE_EASY_IMAGE, "ENABLE", False)
+            monkeypatch.setitem(c.TRAIN, "ITERSIZE", 1)
     roidb = _tiny_roidb(tmp_path)
-    init, losses, jdir, tdir, model = _run_both(tmp_path, roidb, 3)
-    assert len(losses["port"]) == len(losses["jax"]) == 3
+    init, losses, jdir, tdir, model = _run_both(tmp_path, roidb, iters)
+    assert len(losses["port"]) == len(losses["jax"]) == iters
     np.testing.assert_allclose(np.concatenate(losses["port"]),
                                np.concatenate(losses["jax"]), rtol=1e-3)
     got = _hwio(model)
@@ -170,7 +186,7 @@ def test_train_net_matches_jax(tmp_path, port_cfg):
     assert set(loaded) == set(init)
     back = load_params(os.path.join(jdir, "final.npz"))
     tdm.Detector(back, tdm.build_spec(tcfg), "cpu")
-    assert jckpt.load(port_final)[2] == 3
+    assert jckpt.load(port_final)[2] == iters
 
 
 def test_resume_is_bit_identical(tmp_path, port_cfg):
