@@ -55,6 +55,8 @@ at construction, and ``detect_many`` refuses it, as in JAX.
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import logging
 import math
 
@@ -146,7 +148,8 @@ def level_sizes(im_shape):
 
 
 def linear_resize_weights(in_size, out_size, scale, device=None,
-                          translation=0.0, dtype=torch.float32):
+                          translation=0.0, dtype=torch.float32,
+                          wait=contextlib.nullcontext):
     """(in_size, out_size) float32 weights of a linear resize by ``scale``
     and shift by ``translation`` output pixels, built as
     ``jax._src.image.scale.compute_weight_mat`` builds them for
@@ -157,9 +160,13 @@ def linear_resize_weights(in_size, out_size, scale, device=None,
     convention with an explicit fx (tests/test_device_preproc.py); a crop
     at offset c of the resized image is translation −c. ``dtype`` is the
     arithmetic's: float32 as on the device, float64 as cv2 computes its
-    sample positions."""
-    inv_scale = (1.0 / torch.tensor(scale, dtype=dtype)).to(device)
-    shift = torch.tensor(translation, dtype=dtype).to(device)
+    sample positions. ``wait()``: the span around each of the two scalar
+    copies to ``device``, a copy from pageable host memory that waits
+    for the device's queue to drain."""
+    with wait():
+        inv_scale = (1.0 / torch.tensor(scale, dtype=dtype)).to(device)
+    with wait():
+        shift = torch.tensor(translation, dtype=dtype).to(device)
     sample = ((torch.arange(out_size, dtype=dtype, device=device)
                + 0.5) * inv_scale - shift * inv_scale - 0.5)
     pos = torch.arange(in_size, dtype=dtype, device=device)
@@ -263,7 +270,8 @@ class TorchDetector:
         self._warned_host_preproc = False
         # the stage hook (utils.timer.no_stages; tools/pyramid_time sets a
         # tools.measure.Stages): prep, upload, preproc, forward, decode,
-        # vote, readback
+        # vote, readback; inside them, "wait_<stage>" around each call that
+        # waits for the device
         self.stages = no_stages
 
     def _prep(self, im):
@@ -297,7 +305,15 @@ class TorchDetector:
         return {"image": im, "padded": np.ascontiguousarray(padded),
                 "levels": levels, "key": key}
 
-    def _level_batch(self, imgs, lvs, hb, wb, rows=None):
+    def _upload(self, values, site, level=None):
+        """``values`` (host numbers) as a tensor on the device, under the
+        wait span ``site``: the copy from pageable host memory waits for
+        every operation queued before it."""
+        with self.stages(site, level):
+            return torch.tensor(values, device=self.device)
+
+    def _level_batch(self, imgs, lvs, hb, wb, rows=None,
+                     wait=contextlib.nullcontext):
         """(N·F, hb, wb, 3) network input of one level for N float images
         (N, H0, W0, 3) of one raw shape, each with its own level metadata
         ``lvs[i]``: its own linear resize, the mean subtracted, zeros beyond
@@ -305,13 +321,16 @@ class TorchDetector:
         about its own w_s right after it. ``rows=(r0, r1)``: only the
         level's rows [r0, r1) (a shard's, on the device of ``imgs``), as
         the product with those rows of the resize's ``wy``; rows past hb
-        are zeros like any row beyond h_s."""
+        are zeros like any row beyond h_s. ``wait()``: the span around each
+        copy of host numbers to the device."""
         n, H0, W0, _ = imgs.shape
         dev = imgs.device
         r0, r1 = rows or (0, hb)
-        wy = torch.stack([linear_resize_weights(H0, r1, lv["scale"], dev)
+        wy = torch.stack([linear_resize_weights(H0, r1, lv["scale"], dev,
+                                                wait=wait)
                           for lv in lvs])[:, :, r0:]
-        wx = torch.stack([linear_resize_weights(W0, wb, lv["scale"], dev)
+        wx = torch.stack([linear_resize_weights(W0, wb, lv["scale"], dev,
+                                                wait=wait)
                           for lv in lvs])
         t = (wy.transpose(1, 2) @ imgs.reshape(n, H0, W0 * 3)).reshape(
             n, r1 - r0, W0, 3)
@@ -319,8 +338,10 @@ class TorchDetector:
         t = t.permute(0, 1, 3, 2).reshape(n, (r1 - r0) * 3, W0)
         resized = ((t @ wx).reshape(n, r1 - r0, 3, wb).permute(0, 1, 3, 2)
                    - self.mean.to(dev))
-        h_s = torch.tensor([lv["h_s"] for lv in lvs], device=dev)
-        w_s = torch.tensor([lv["w_s"] for lv in lvs], device=dev)
+        with wait():
+            h_s = torch.tensor([lv["h_s"] for lv in lvs], device=dev)
+        with wait():
+            w_s = torch.tensor([lv["w_s"] for lv in lvs], device=dev)
         rows = torch.arange(r0, r1, device=dev) < h_s[:, None]
         cols = torch.arange(wb, device=dev) < w_s[:, None]
         valid = (rows[:, :, None] & cols[:, None, :])[..., None]
@@ -336,7 +357,7 @@ class TorchDetector:
         return torch.stack([resized, mirrored], dim=1).reshape(
             n * 2, r1 - r0, wb, 3)
 
-    def _sharded_level(self, imgs, lvs, hb, wb):
+    def _sharded_level(self, imgs, lvs, hb, wb, wait):
         """One level over the spatial unit: the shards of its batch, each
         built on its device from that device's copy of the raw images
         (``imgs``, {device: tensor}), over ``spatial.padded_height(hb, k)``
@@ -346,7 +367,7 @@ class TorchDetector:
         hp = spatial.padded_height(hb, k)
         hs = hp // k
         shards = [self._level_batch(imgs[dev], lvs, hb, wb,
-                                    rows=(i * hs, (i + 1) * hs))
+                                    rows=(i * hs, (i + 1) * hs), wait=wait)
                   for i, dev in enumerate(self.spatial)]
         return shards, ((hb, wb) if hp != hb else None)
 
@@ -354,15 +375,17 @@ class TorchDetector:
         """The forward of one level's batch: on one device from
         ``_level_batch``, or over the spatial unit, its outputs cropped to
         the level's hb / 8 rows."""
-        groups = self._scale_groups(lvs)
+        groups = self._scale_groups(lvs, level)
+        wait = functools.partial(self.stages, "wait_preproc", level)
         if self.spatial is None:
             with self.stages("preproc", level):
-                x = self._level_batch(imgs[self.device], lvs, hb, wb)
+                x = self._level_batch(imgs[self.device], lvs, hb, wb,
+                                      wait=wait)
             with self.stages("forward", level):
                 return self.model(x, valid_hw, self.precision, self.qstate,
                                   scale_groups=groups)
         with self.stages("preproc", level):
-            shards, valid = self._sharded_level(imgs, lvs, hb, wb)
+            shards, valid = self._sharded_level(imgs, lvs, hb, wb, wait)
         with self.stages("forward", level):
             out = self.model(shards, valid, self.precision, self.qstate,
                              scale_groups=groups)
@@ -389,59 +412,70 @@ class TorchDetector:
                                   for p in preps]))
             # the raw images once on every device of the unit
             raw = torch.from_numpy(raw)
-            imgs = {d: raw.to(d).float() for d in (self.spatial or [dev])}
+            imgs = {}
+            for d in self.spatial or [dev]:
+                with self.stages("wait_upload"):
+                    raw_d = raw.to(d)
+                imgs[d] = raw_d.float()
+                # the uint8 copy is freed here, not after the pyramid
+                del raw_d
         for li in range(len(preps[0]["levels"])):
             lvs = [p["levels"][li] for p in preps]
             hb, wb = ((lvs[0]["bh"], lvs[0]["bw"]) if bucketed
                       else (lvs[0]["hb"], lvs[0]["wb"]))
-            per_item = lambda k: torch.tensor(  # noqa: E731
-                [lv[k] for lv in lvs], device=dev).repeat_interleave(reps)
+            per_item = lambda k, site: self._upload(  # noqa: E731
+                [lv[k] for lv in lvs], site, li).repeat_interleave(reps)
             # the forward masks each item to its own ×16 extent in a bucket
+            # (uploaded before the level's stages open)
             out = self._forward_level(
                 imgs, lvs, hb, wb,
-                (per_item("hb"), per_item("wb")) if bucketed else None, li)
+                (per_item("hb", "wait_extents"),
+                 per_item("wb", "wait_extents")) if bucketed else None, li)
             with self.stages("decode", li):
                 boxes, scores = self._decode_level(out, lvs, per_item, n,
-                                                   reps, st)
+                                                   reps, st, li)
             all_boxes.append(boxes)
             all_scores.append(scores)
         with self.stages("decode"):
             return torch.cat(all_boxes, dim=1), torch.cat(all_scores, dim=1)
 
-    def _decode_level(self, out, lvs, per_item, n, reps, st):
+    def _decode_level(self, out, lvs, per_item, n, reps, st, level):
         """One level's rows of N images: the foreground softmax, decode at
-        each item's extent (``per_item``: a level field per item), the
-        mirror's boxes un-mirrored about each w_s, all in original-image
-        coordinates; boxes (N, reps·cap, 4) and scores (N, reps·cap), -inf
-        on empty slots."""
+        each item's extent (``per_item(field, site)``: a level field per
+        item), the mirror's boxes un-mirrored about each w_s, all in
+        original-image coordinates; boxes (N, reps·cap, 4) and scores
+        (N, reps·cap), -inf on empty slots."""
         dev = self.device
+        site = "wait_decode"
         probs = torch.softmax(out["cls_logits"], dim=-1)[..., 1]
         boxes, scores, counts = decode_mod.decode_proposals_batch(
             probs, out["bbox_deltas"], self.base_anchors,
             feat_stride=detector_mod.FEAT_STRIDE,
-            im_h=per_item("h_s").float(), im_w=per_item("w_s").float(),
-            valid_h=per_item("hb") // detector_mod.FEAT_STRIDE,
-            valid_w=per_item("wb") // detector_mod.FEAT_STRIDE,
-            score_thresh=st, min_size=0.0, capacity=self.capacity)
+            im_h=per_item("h_s", site).float(),
+            im_w=per_item("w_s", site).float(),
+            valid_h=per_item("hb", site) // detector_mod.FEAT_STRIDE,
+            valid_w=per_item("wb", site) // detector_mod.FEAT_STRIDE,
+            score_thresh=st, min_size=0.0, capacity=self.capacity,
+            wait=functools.partial(self.stages, site, level))
         cap = boxes.shape[1]
         boxes = boxes.view(n, reps, cap, 4)
         slot = torch.arange(cap, device=dev)
         row_ok = slot < counts.view(n, reps, 1)
         if cfg.TEST.FLIP:
             # un-mirror in network-input space, about each w_s
-            ws_f = torch.tensor([float(lv["w_s"]) for lv in lvs],
-                                device=dev)[:, None]
+            ws_f = self._upload([float(lv["w_s"]) for lv in lvs], site,
+                                level)[:, None]
             m = boxes[:, 1]
             flipped = torch.stack([ws_f - m[..., 2], m[..., 1],
                                    ws_f - m[..., 0], m[..., 3]], dim=-1)
             boxes = torch.stack([boxes[:, 0], flipped], dim=1)
-        inv_fx = torch.tensor([lv["inv_fx"] for lv in lvs], device=dev)
+        inv_fx = self._upload([lv["inv_fx"] for lv in lvs], site, level)
         boxes = boxes * inv_fx[:, None, None, None]
         scores = torch.where(row_ok, scores.view(n, reps, cap),
                              -float("inf"))
         return boxes.reshape(n, -1, 4), scores.reshape(n, -1)
 
-    def _scale_groups(self, lvs):
+    def _scale_groups(self, lvs, level=None):
         """The dynamic int8 mode's step groups of one level's batch (image
         i's items i·F .. i·F + F - 1): the ids that ``Detector.forward``
         shares one activation step across, (N·F,) on the device, or None
@@ -462,7 +496,7 @@ class TorchDetector:
             area = lv["hb"] * lv["wb"] if exact else lv["bh"] * lv["bw"]
             split = area >= int(cfg.TPU.FLIP_SPLIT_PX)
             ids += [i * reps + (f if split else 0) for f in range(reps)]
-        return torch.tensor(ids, device=self.device)
+        return self._upload(ids, "wait_groups", level)
 
     def calibrate_int8(self, images):
         """Calibrate the int8 mode's static activation steps (JAX
@@ -553,11 +587,17 @@ class TorchDetector:
         else the kept rows, voted on the host in float64. Returns cls_dets
         like ``detect``. (``thresh`` was applied in ``detect_async``.)"""
         with self.stages("readback"):
+            # the row count, or the boolean mask's, then the rows: each
+            # waits for the device
             if "keep" in handle:
-                dets = handle["packed"][handle["keep"]].cpu().numpy()
+                with self.stages("wait_readback"):
+                    rows = handle["packed"][handle["keep"]]
             else:
-                n = int(handle["n"])
-                dets = handle["packed"][:n].cpu().numpy()
+                with self.stages("wait_readback"):
+                    n = int(handle["n"])
+                rows = handle["packed"][:n]
+            with self.stages("wait_readback"):
+                dets = rows.cpu().numpy()
         if handle["voted"]:
             if cfg.TEST.NMS_METHOD == "BBOX_VOTE" and len(dets) == 0:
                 # the reference's dummy detection for an empty input

@@ -12,16 +12,23 @@ Tie order: ``lax.top_k`` puts the lower index first among equal scores.
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 
 from smallhardface_tpu_torch.ops import bbox
 
 
-def dense_anchor_grid(h, w, base_anchors, feat_stride, device=None):
+def dense_anchor_grid(h, w, base_anchors, feat_stride, device=None,
+                      wait=contextlib.nullcontext):
     """(h, w, A, 4) float32 anchor grid: base anchors shifted by
-    (x, y, x, y) = feat_stride · (col, row, col, row)."""
-    a = torch.as_tensor(np.asarray(base_anchors, np.float32), device=device)
+    (x, y, x, y) = feat_stride · (col, row, col, row). ``wait()``: the span
+    around the copy of host base anchors to ``device``, which waits for
+    the device's queue to drain."""
+    with wait():
+        a = torch.as_tensor(np.asarray(base_anchors, np.float32),
+                            device=device)
     ys = torch.arange(h, dtype=torch.float32, device=device) * feat_stride
     xs = torch.arange(w, dtype=torch.float32, device=device) * feat_stride
     A = a.shape[0]
@@ -44,14 +51,15 @@ def _per_image(v, device, dtype):
 
 def _decode_fields(fg_scores, bbox_deltas, base_anchors, *, feat_stride,
                    im_h, im_w, valid_h, valid_w, score_thresh, min_size,
-                   capacity):
+                   capacity, wait):
     """Elementwise half of the decode for a batch: decoded and clipped
     boxes (B, hwA, 4), the keepability-masked scores (B, hwA), the keep
     count (B,) (entries >= score_thresh, clamped to [1, capacity]: at least
     one box survives, proposal_layer.py:183-185), and the capacity."""
     _, h, w, A = fg_scores.shape
     dev = fg_scores.device
-    anchors = dense_anchor_grid(h, w, base_anchors, feat_stride, device=dev)
+    anchors = dense_anchor_grid(h, w, base_anchors, feat_stride, device=dev,
+                                wait=wait)
     decoded = bbox.bbox_transform_inv(anchors, bbox_deltas)
     if isinstance(im_h, torch.Tensor) and im_h.dim() == 1:
         # per image: x into [0, im_w - 1], y into [0, im_h - 1], as
@@ -84,18 +92,22 @@ def _decode_fields(fg_scores, bbox_deltas, base_anchors, *, feat_stride,
 
 def decode_proposals_batch(fg_scores, bbox_deltas, base_anchors, *,
                            feat_stride, im_h, im_w, valid_h, valid_w,
-                           score_thresh, min_size, capacity):
+                           score_thresh, min_size, capacity,
+                           wait=contextlib.nullcontext):
     """fg_scores (B, h, w, A) foreground probabilities, bbox_deltas
     (B, h, w, A, 4); im_h/im_w the unpadded image extent for clipping,
     valid_h/valid_w the valid grid extent: Python numbers, or (B,) tensors
     giving each image its own (the JAX function under ``vmap``).
     Returns (boxes (B, cap, 4), scores (B, cap), n_keep (B,) int32) with
     cap = min(capacity, h·w·A), rows in descending score order, lower
-    index first among ties. Rows at and beyond n_keep are to be ignored."""
+    index first among ties. Rows at and beyond n_keep are to be ignored.
+    ``wait()``: the span around the copy that waits for the device
+    (``dense_anchor_grid``'s)."""
     boxes, sortable, n_keep, cap = _decode_fields(
         fg_scores, bbox_deltas, base_anchors, feat_stride=feat_stride,
         im_h=im_h, im_w=im_w, valid_h=valid_h, valid_w=valid_w,
-        score_thresh=score_thresh, min_size=min_size, capacity=capacity)
+        score_thresh=score_thresh, min_size=min_size, capacity=capacity,
+        wait=wait)
     scores, idx = torch.sort(sortable, dim=1, descending=True, stable=True)
     scores, idx = scores[:, :cap], idx[:, :cap]
     top_boxes = torch.gather(boxes, 1, idx[..., None].expand(-1, -1, 4))

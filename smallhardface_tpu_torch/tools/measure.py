@@ -49,6 +49,9 @@ PEAK_BF16 = 989e12
 PEAK_INT8 = 1979e12
 GRAPH_REPS = 200
 STAGE_PREFIX = "stage:"
+# the spans the program opens inside a stage around each call that waits
+# for the device (``utils.timer.no_stages``)
+WAIT_PREFIX = "wait_"
 # the range ``trace`` opens first, around work that starts the tracer: late
 # in a long process the profiler was seen to drop about the first 50
 # device events of a session (about 5 and 21 ms of device time), which a
@@ -409,12 +412,15 @@ def profile_call(fn, device, n=20, warmup=3, export=None):
 
 def stage_table(stages, trace_, wall_ms, n_profiled=1, n_host=1):
     """Per stage of a ``Stages`` hook: host ms (perf_counter, no sync, per
-    run: the hook's sums over ``n_host`` runs), device ms and launches
-    (the profiled run's, per run over ``n_profiled``), host µs per launch;
-    and the run's device busy ms and idle share against ``wall_ms``.
-    Levels ("forward.L2") are listed apart and summed into their stage.
-    Device fields are None on the CPU; "lost_device_events" is
-    ``Trace.lost``."""
+    run: the hook's sums over ``n_host`` runs), of it wait ms (its
+    "wait_<stage>" spans: the calls that waited for the device) and self
+    ms (host less wait), device ms and launches (the profiled run's, per
+    run over ``n_profiled``), host µs per launch; and the run's device
+    busy ms and idle share against ``wall_ms``. Levels ("forward.L2") are
+    listed apart and summed into their stage. A wait span is a row of its
+    own only outside every stage; inside one, its copy's device time and
+    launch count in the stage. Device fields are None on the CPU;
+    "lost_device_events" is ``Trace.lost``."""
     on_card = trace_ is not None and trace_.on_card
     grouped = (trace_.group(lambda s: s.startswith(STAGE_PREFIX),
                             key=lambda s: s[len(STAGE_PREFIX):])
@@ -422,13 +428,21 @@ def stage_table(stages, trace_, wall_ms, n_profiled=1, n_host=1):
     rows = {}
     for key, host_s in stages.host_s.items():
         dev = grouped.get(key, {"device_ms": 0.0, "launches": 0})
-        for name in {key, key.split(".")[0]}:
-            row = rows.setdefault(name, {"host_ms": 0.0, "device_ms": 0.0,
-                                         "launches": 0})
-            row["host_ms"] += host_s * 1e3 / n_host
+        waits = key.startswith(WAIT_PREFIX)
+        owner = key[len(WAIT_PREFIX):] if waits else key
+        if owner not in stages.host_s:
+            owner = key
+        for name in {owner, owner.split(".")[0]}:
+            row = rows.setdefault(name, {"host_ms": 0.0, "wait_ms": 0.0,
+                                         "device_ms": 0.0, "launches": 0})
+            if owner == key:
+                row["host_ms"] += host_s * 1e3 / n_host
+            if waits:
+                row["wait_ms"] += host_s * 1e3 / n_host
             row["device_ms"] += dev["device_ms"] / n_profiled
             row["launches"] += dev["launches"] / n_profiled
     for row in rows.values():
+        row["self_ms"] = row["host_ms"] - row["wait_ms"]
         row["host_us_per_launch"] = (
             row["host_ms"] * 1e3 / row["launches"]
             if on_card and row["launches"] else None)

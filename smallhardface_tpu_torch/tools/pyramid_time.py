@@ -16,9 +16,11 @@ from Python, so the split comes from the port's own stage boundaries: a
   vote      ``top_rows`` and the vote V1 (``_dispatch``)
   readback  the voted rows to the host (``finalize_async``)
 
-For each stage (and each level of preproc, forward and decode): the
-host ms of issuing it (``time.perf_counter`` without a sync, the median
-``detect`` of ``--reps``), its device ms and launches in one profiled
+Inside a stage, a "wait_<stage>" span wraps each call that waits for the
+device. For each stage (and each level of preproc, forward and decode):
+the host ms of issuing it (``time.perf_counter`` without a sync, the
+median ``detect`` of ``--reps``), of it the ms spent waiting and the
+rest (self), its device ms and launches in one profiled
 ``detect`` (``torch.profiler``, device activity grouped by the stage open
 at launch) and host µs per launch; the ``detect``'s wall (host clock
 around it, its readback syncs), device busy ms and idle share (1 − busy /
@@ -134,13 +136,14 @@ def main(argv=None):
     print(f"# {card or 'cpu: no device times'}; source {h}x{w}; levels "
           f"{res['levels']}; {res['dets']} detections; rows equal to a "
           f"plain detect: {res['rows_equal']}")
-    print(f"{'stage':14s} {'host ms':>9s} {'device ms':>10s} "
-          f"{'launches':>9s} {'host us/launch':>15s}")
+    print(f"{'stage':14s} {'host ms':>9s} {'wait ms':>9s} {'self ms':>9s} "
+          f"{'device ms':>10s} {'launches':>9s} {'host us/launch':>15s}")
     for name, r in sorted(res["stages"].items(), key=lambda kv: (
             STAGES.index(kv[0].split(".")[0]), kv[0])):
         def f(v, fmt):
             return format(v, fmt) if v is not None else "-"
-        print(f"{name:14s} {r['host_ms']:9.3f} {f(r['device_ms'], '10.3f')} "
+        print(f"{name:14s} {r['host_ms']:9.3f} {r['wait_ms']:9.3f} "
+              f"{r['self_ms']:9.3f} {f(r['device_ms'], '10.3f')} "
               f"{f(r['launches'], '9.0f')} "
               f"{f(r['host_us_per_launch'], '15.2f')}")
     idle = res["idle_share"]

@@ -19,8 +19,10 @@ it, through ``train_loop.grad_step`` and ``train.solver.apply_update``
   update    the solver step over every leaf
   metrics   the step's metrics read back to the host
 
-For each stage: host ms of issuing it (``time.perf_counter`` without a
-sync, per step, the median step of ``--reps``), device ms and launches in
+Inside a stage, a "wait_<stage>" span wraps each call that waits for the
+device. For each stage: host ms of issuing it (``time.perf_counter``
+without a sync, per step, the median step of ``--reps``), of it the ms
+spent waiting and the rest (self), device ms and launches in
 one profiled step (``torch.profiler``, device activity grouped by the
 stage open at launch) and host µs per launch; the step's wall, device
 busy ms, idle share (1 − busy / wall) and peak device memory.
@@ -129,7 +131,7 @@ class Step:
                 lr_mults=self.lr_mults, decay_mults=self.decay_mults,
                 weight_decay=float(self.cfg.TRAIN.WEIGHT_DECAY),
                 momentum=float(self.cfg.TRAIN.MOMENTUM), iteration=it)
-        with self.stages("metrics"):
+        with self.stages("metrics"), self.stages("wait_metrics"):
             return metrics.cpu().numpy()
 
 
@@ -190,12 +192,13 @@ def main(argv=None):
         * args.iter_size
     print(f"# {card or 'cpu: no device times'}; size {th}x{tw}, bucket "
           f"{bucket[2:4]}, iter_size {args.iter_size}")
-    print(f"{'stage':10s} {'host ms':>9s} {'device ms':>10s} "
-          f"{'launches':>9s} {'host us/launch':>15s}")
+    print(f"{'stage':10s} {'host ms':>9s} {'wait ms':>9s} {'self ms':>9s} "
+          f"{'device ms':>10s} {'launches':>9s} {'host us/launch':>15s}")
     for name, r in res["stages"].items():
         def f(v, fmt):
             return format(v, fmt) if v is not None else "-"
-        print(f"{name:10s} {r['host_ms']:9.3f} {f(r['device_ms'], '10.3f')} "
+        print(f"{name:10s} {r['host_ms']:9.3f} {r['wait_ms']:9.3f} "
+              f"{r['self_ms']:9.3f} {f(r['device_ms'], '10.3f')} "
               f"{f(r['launches'], '9.0f')} "
               f"{f(r['host_us_per_launch'], '15.2f')}")
     busy = res["device_busy_ms"]

@@ -24,6 +24,7 @@ the current forward scores, on the device, with no host round trip:
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import torch
@@ -79,7 +80,8 @@ def _bottom_k_mask(scores, k_static, n_select, selectable):
 
 
 def anchor_targets(bg_prob, base_anchors, gt_boxes, gt_mask, *, im_h, im_w,
-                   valid_h, valid_w, tc: TargetConfig, feat_stride=8):
+                   valid_h, valid_w, tc: TargetConfig, feat_stride=8,
+                   wait=contextlib.nullcontext):
     """Per-anchor training targets for one image.
 
     bg_prob: (h, w, A) background probability of the current forward
@@ -87,6 +89,7 @@ def anchor_targets(bg_prob, base_anchors, gt_boxes, gt_mask, *, im_h, im_w,
     gt_boxes: (G, 5) padded [x1, y1, x2, y2, cls]; gt_mask: (G,) bool
     im_h/im_w: the actual image extent (floats)
     valid_h/valid_w: the ×16-grid extent over the stride (ints)
+    wait(): the span around each call that waits for the device
 
     Returns a dict of flat (N,) / (N, 4) tensors over the (h, w, a) anchor
     order: labels (-1/0/cls), bbox_targets, inside/outside weights, and
@@ -95,7 +98,7 @@ def anchor_targets(bg_prob, base_anchors, gt_boxes, gt_mask, *, im_h, im_w,
     h, w, A = bg_prob.shape
     dev = bg_prob.device
     anchors = dense_anchor_grid(h, w, base_anchors, feat_stride,
-                                device=dev).reshape(-1, 4)
+                                device=dev, wait=wait).reshape(-1, 4)
     n = anchors.shape[0]
     scores = bg_prob.reshape(-1)
 

@@ -66,6 +66,7 @@ from __future__ import annotations
 
 import contextlib
 import datetime
+import functools
 import hashlib
 import json
 import logging
@@ -176,19 +177,23 @@ def assemble_batch(samples, iter_size, gt_buckets, raw_dims=None):
             im_idx, (h0b, w0b, hb, wb, gb))
 
 
-def preprocess_image(data, scl, crp, im_hw, out_shape, pixel_mean):
+def preprocess_image(data, scl, crp, im_hw, out_shape, pixel_mean,
+                     wait=contextlib.nullcontext):
     """The fused training preprocess on the device. data: (h0b, w0b, 3)
     uint8, the distorted ORIGINAL (edge-padded). The resize to the
     training scale and the crop are one separable linear resample
     (``jax.image.scale_and_translate`` with translation = −crop, cv2's
     fx-sampling convention); then the mean is subtracted and everything
     beyond the final (im_h, im_w) extent is zero (minibatch.py:47-53).
-    scl, crp (hs, ws), im_hw: host numbers. Returns (hb, wb, 3) float32."""
+    scl, crp (hs, ws), im_hw: host numbers. Returns (hb, wb, 3) float32.
+    ``wait()``: the span around each copy that waits for the device."""
     hb, wb = out_shape
     h0b, w0b, _ = data.shape
     dev = data.device
-    wy = linear_resize_weights(h0b, hb, scl, dev, translation=-crp[0])
-    wx = linear_resize_weights(w0b, wb, scl, dev, translation=-crp[1])
+    wy = linear_resize_weights(h0b, hb, scl, dev, translation=-crp[0],
+                               wait=wait)
+    wx = linear_resize_weights(w0b, wb, scl, dev, translation=-crp[1],
+                               wait=wait)
     img = data.float()
     t = (wy.T @ img.reshape(h0b, w0b * 3)).reshape(hb, w0b, 3)
     resized = (t.permute(0, 2, 1) @ wx).permute(0, 2, 1)
@@ -208,7 +213,9 @@ class LossFn:
 
     def __init__(self, tc, device, unit=None, stages=no_stages):
         self.tc = tc
-        # the stage hook (tools/train_time): preproc, forward, targets
+        # the stage hook (tools/train_time): preproc, forward, targets, and
+        # "wait_<stage>" inside them around each call that waits for the
+        # device
         self.stages = stages
         self.unit = list(unit or [device])
         self.base_anchors = anchors_mod.generate_anchors(
@@ -226,8 +233,9 @@ class LossFn:
         tensors)."""
         stride = detector_mod.FEAT_STRIDE
         with self.stages("preproc"):
-            x = preprocess_image(data, scl, crp, im_hw, out_shape,
-                                 self.pixel_mean)
+            x = preprocess_image(
+                data, scl, crp, im_hw, out_shape, self.pixel_mean,
+                wait=functools.partial(self.stages, "wait_preproc"))
         extent = (int(valid_hw[0]) * stride, int(valid_hw[1]) * stride)
         with self.stages("forward"):
             # the rows padded to a multiple of 32·k are cropped off the
@@ -243,7 +251,8 @@ class LossFn:
                 bg_prob, self.base_anchors, gt, gt_mask,
                 im_h=float(im_hw[0]), im_w=float(im_hw[1]),
                 valid_h=int(valid_hw[0]), valid_w=int(valid_hw[1]),
-                tc=self.tc)
+                tc=self.tc,
+                wait=functools.partial(self.stages, "wait_targets"))
             cls_loss = softmax_ce_with_ignore(logits.reshape(-1, 2),
                                               tgt["labels"])
             reg_loss = smooth_l1(deltas.reshape(-1, 4), tgt["bbox_targets"],

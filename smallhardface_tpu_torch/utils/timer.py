@@ -13,7 +13,11 @@ import time
 def no_stages(name, level=None):
     """The stage hook of a run that nobody times: ``with
     stages(name, level):`` around a stage of ``TorchDetector`` or of a
-    training step does nothing."""
+    training step does nothing. Inside a stage ``s``, a span named
+    "wait_s" wraps each call that waits for the device (a copy from
+    pageable host memory, a readback) and nothing else; the few spans
+    outside any stage name what they upload ("wait_extents",
+    "wait_groups")."""
     return contextlib.nullcontext()
 
 

@@ -326,6 +326,36 @@ def test_stage_table_sums_levels_into_stages():
     assert cpu["idle_share"] is None and cpu["stages"]["y"]["launches"] is None
 
 
+def test_stage_table_folds_waits_into_their_stage():
+    """A "wait_<stage>" span counts in its stage: its host ms as the
+    stage's wait ms (self ms the rest), its copy's device ms and launch in
+    the stage's; a wait span outside every stage is a row of its own,
+    all wait."""
+    hook = measure.Stages()
+    hook.host_s.update({"x.L0": 0.004, "wait_x.L0": 0.003, "x": 0.002,
+                        "wait_x": 0.001, "wait_top": 0.0005})
+    tr = measure.Trace.__new__(measure.Trace)
+    tr.on_card, tr.lost = True, 0
+    tr.ranges = [("stage:x.L0", 0.0, 4.0, 1), ("stage:wait_x.L0", 1.0, 3.0,
+                                                1),
+                 ("stage:wait_top", 5.0, 6.0, 1)]
+    tr.ops = []
+    tr.device = [("k", 10.0, 12.0, 0.5, 1), ("memcpy", 12.0, 13.0, 2.0, 1),
+                 ("memcpy", 13.0, 14.0, 5.5, 1)]
+    rows = measure.stage_table(hook, tr, wall_ms=0.01)["stages"]
+    assert set(rows) == {"x", "x.L0", "wait_top"}
+    assert rows["x.L0"]["host_ms"] == pytest.approx(4.0)
+    assert rows["x.L0"]["wait_ms"] == pytest.approx(3.0)
+    assert rows["x.L0"]["self_ms"] == pytest.approx(1.0)
+    assert rows["x.L0"]["launches"] == 2
+    assert rows["x.L0"]["device_ms"] == pytest.approx(0.003)
+    assert rows["x"]["host_ms"] == pytest.approx(6.0)
+    assert rows["x"]["wait_ms"] == pytest.approx(4.0)
+    assert rows["wait_top"]["host_ms"] == rows["wait_top"]["wait_ms"] == \
+        pytest.approx(0.5)
+    assert rows["wait_top"]["self_ms"] == 0.0
+
+
 def _fake_prof():
     """A finished profiler run shaped like one the card gave (torch
     2.11+cu128: a record_function "conv3_1" around a matmul and an add,
