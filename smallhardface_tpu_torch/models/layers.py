@@ -8,7 +8,9 @@ carriers, ``bilinear_kernel`` (:181-192) and ``upsample2x_bilinear``
 (:195-213). Weights are OIHW, the PyTorch layout; ``io/weights.py``
 converts from the JAX package's HWIO. The fp32 convolutions are cuDNN's,
 or for the large 3×3 ones of detection nine cuBLAS products
-(``conv3x3``): the JAX package leaves them to XLA outside any Pallas
+(``conv3x3``); in training the 3×3 ones keep cuDNN's forward, and their
+backward is the nine products' adjoint (``Conv3x3Adjoint``), cuBLAS
+products again: the JAX package leaves them to XLA outside any Pallas
 kernel. The int8 3×3 products run through ``ops/conv_int8.conv3x3_int8``
 (the kernel Q1 on the card).
 
@@ -33,6 +35,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
 from smallhardface_tpu_torch.ops.conv_int8 import conv3x3_int8, fdiv
 
@@ -78,24 +81,80 @@ TAPS_SCRATCH_BYTES = 2 ** 31
 
 
 def conv3x3(x, w, b, *, dilation=1, halo=(0, 0)):
-    """The forward's 3×3 convolutions, zero padding ``dilation``: under
+    """The forward's 3×3 convolutions, zero padding ``dilation``. Under
     no_grad / inference_mode, those of at least TAPS_MIN_FLOP run as
-    ``conv3x3_taps``, the rest (and all of training, where autograd runs
-    cuDNN's backward) as cuDNN's ``conv2d``. Both are deterministic. A
-    bf16 x always runs as ``conv2d``'s bf16 product. ``halo``: the rows x
-    carries above and below its own (each 0 or ``dilation``); those sides
-    take no zero padding, and the output has x's own rows."""
+    ``conv3x3_taps``, the rest as cuDNN's ``conv2d``. Where autograd
+    records the call (x, w or b needs a gradient) it runs as
+    ``Conv3x3Adjoint``: cuDNN's forward, and as backward the nine
+    products' adjoint (``conv3x3_taps_grad``): with cudnn.deterministic
+    at batch 1, cuDNN's data gradient takes FFT algorithms (a memory-bound
+    gemv per frequency) at 27 of the 64 shapes of training's buckets, from
+    6·10⁹ FLOP up, at up to 5× the adjoint's time; cuDNN's backward wins
+    only where it has no data gradient to compute (conv3_1, by at most 0.9
+    ms a call) or at small shapes (by at most 0.18 ms; PERF.md §5). All
+    are deterministic. A bf16 x always runs as ``conv2d``'s bf16 product,
+    with cuDNN's backward. ``halo``: the rows x carries above and below
+    its own (each 0 or ``dilation``); those sides take no zero padding,
+    and the output has x's own rows.
+
+    ``conv3x3.adjoint_backwards`` and ``conv3x3.cudnn_backwards`` count
+    the backward calls of the recorded convolutions by route."""
     B, C, H, W = x.shape
+    if x.dtype != torch.bfloat16:
+        if torch.is_grad_enabled():
+            if any(t is not None and t.requires_grad for t in (x, w, b)):
+                return Conv3x3Adjoint.apply(x, w, b, dilation, halo)
+        elif (18.0 * B * (H - halo[0] - halo[1]) * W * C * w.shape[0]
+              >= TAPS_MIN_FLOP):
+            return conv3x3_taps(x, w, b, dilation=dilation, halo=halo)
+    y = conv3x3_cudnn(x, w, b, dilation, halo)
+    if y.requires_grad:
+        y.register_hook(_count_cudnn_backward)
+    return y
+
+
+conv3x3.adjoint_backwards = 0
+conv3x3.cudnn_backwards = 0
+
+
+def _count_cudnn_backward(grad):
+    conv3x3.cudnn_backwards += 1
+
+
+def conv3x3_cudnn(x, w, b, dilation, halo):
+    """cuDNN's 3×3 convolution (``conv2d``) with ``conv3x3``'s padding: d,
+    less the halo on a shard's row sides."""
     d = dilation
-    top, bottom = halo
-    if (x.dtype != torch.bfloat16 and not torch.is_grad_enabled()
-            and 18.0 * B * (H - top - bottom) * W * C * w.shape[0]
-            >= TAPS_MIN_FLOP):
-        return conv3x3_taps(x, w, b, dilation=d, halo=halo)
-    pt, pb = d - top, d - bottom
+    pt, pb = d - halo[0], d - halo[1]
     if pt == pb:
         return conv2d(x, w, b, dilation=d, padding=(pt, d))
     return conv2d(F.pad(x, (0, 0, pt, pb)), w, b, dilation=d, padding=(0, d))
+
+
+class Conv3x3Adjoint(torch.autograd.Function):
+    """A 3×3 convolution whose forward is cuDNN's (``conv3x3_cudnn``, the
+    same call as without it) and whose backward is ``conv3x3_taps_grad``:
+    the exact adjoint of ``conv3x3_taps``' nine products, in a fixed order.
+    Saves x and w, as cuDNN's own autograd node does; the gradient of x
+    is computed only where x needs one."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, dilation, halo):
+        ctx.save_for_backward(x, w)
+        ctx.dilation, ctx.halo = dilation, halo
+        return conv3x3_cudnn(x, w, b, dilation, halo)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        need_x, need_w, need_b = ctx.needs_input_grad[:3]
+        dx, dw = conv3x3_taps_grad(x, w, dy, dilation=ctx.dilation,
+                                   halo=ctx.halo, need_x=need_x,
+                                   need_w=need_w)
+        db = dy.sum(dim=(0, 2, 3)) if need_b else None
+        conv3x3.adjoint_backwards += 1
+        return dx, dw, db, None, None
 
 
 def conv3x3_taps(x, w, b, *, dilation=1, halo=(0, 0)):
@@ -141,6 +200,58 @@ def conv3x3_taps(x, w, b, *, dilation=1, halo=(0, 0)):
         out[b0:b0 + step] = acc.view(-1, Hp, Wp, O)[
             :, d:d + Ho, d:d + W].permute(0, 3, 1, 2)
     return out
+
+
+def conv3x3_taps_grad(x, w, dy, *, dilation=1, halo=(0, 0), need_x=True,
+                      need_w=True):
+    """The gradients (dx, dw) of a 3×3 convolution (``conv3x3``'s padding
+    and ``halo``) at x (B, C, H, W), w (O, C, 3, 3) for dy (B, O, Ho, W):
+    the transposes of ``conv3x3_taps``' products on its grid. dy is
+    scattered into a zeroed output grid ``dacc`` (its ring stays 0); tap
+    (ky, kx) at row offset s gives dw[:, :, ky, kx] = dacc[lo:hi]ᵀ @
+    rows[lo+s:hi+s] and, where x needs a gradient, drows[lo+s:hi+s] +=
+    dacc[lo:hi] @ w[:, :, ky, kx], the centre tap first, then the others
+    in row-major order; dx is drows cut back to x's rows (the halo rows
+    included). Each sum is in a fixed order, so the result is the same
+    from run to run. Each grid is freed once used. dx (channels_last) or
+    dw is None where not asked for."""
+    B, C, H, W = x.shape
+    O = w.shape[0]
+    d = dilation
+    pt, pb = d - halo[0], d - halo[1]
+    Ho = H + pt + pb - 2 * d
+    Hp, Wp = H + pt + pb, W + 2 * d
+    # tap t = 3·ky + kx at row offset s[t]; the centre tap first, then
+    # the others in row-major order
+    order = [4, 0, 1, 2, 3, 5, 6, 7, 8]
+    s = [(t // 3 - 1) * d * Wp + (t % 3 - 1) * d for t in range(9)]
+    dacc = x.new_zeros((B, Hp, Wp, O))
+    dacc[:, d:d + Ho, d:d + W] = dy.permute(0, 2, 3, 1)
+    dacc = dacc.view(-1, O)
+    n = dacc.shape[0]
+    span = [(max(0, -s[t]), n - max(0, s[t])) for t in range(9)]
+    dx = dw = None
+    if need_w:
+        rows = F.pad(x.permute(0, 2, 3, 1),
+                     (0, 0, d, d, pt, pb)).reshape(-1, C)
+        dw = x.new_empty((O, 9, C))
+        dw_t, dacc_t = dw.unbind(1), dacc.t()
+        for t in order:
+            lo, hi = span[t]
+            torch.mm(dacc_t[:, lo:hi], rows[lo + s[t]:hi + s[t]],
+                     out=dw_t[t])
+        del rows
+        dw = dw.view(O, 3, 3, C).permute(0, 3, 1, 2)
+    if need_x:
+        w_t = w.permute(2, 3, 0, 1).reshape(9, O, C).unbind(0)
+        drows = torch.mm(dacc, w_t[4])
+        for t in order[1:]:
+            lo, hi = span[t]
+            drows[lo + s[t]:hi + s[t]].addmm_(dacc[lo:hi], w_t[t])
+        del dacc
+        dx = drows.view(B, Hp, Wp, C)[:, pt:pt + H, d:d + W].permute(
+            0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+    return dx, dw
 
 
 def own_rows(y, halo):

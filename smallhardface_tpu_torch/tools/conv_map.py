@@ -3,8 +3,8 @@ levels of WIDER-sized images on one CUDA card: each distinct shape's
 device time beside its bound, the device kernels it launches and the
 device memory the call adds, in fp32 or in bf16.
 
-    python -m smallhardface_tpu_torch.tools.conv_map [--levers | --levels] \
-        [--dtype bfloat16] [--out conv_map.json]
+    python -m smallhardface_tpu_torch.tools.conv_map [--levers | --levels |
+        --train] [--dtype bfloat16] [--out conv_map.json]
 
 The levels are those of the flagship config (TEST.SCALES 100..1400 over
 PYRAMID_BASE_SIZE 800×1200) for the images in ``IMAGES``, both at the
@@ -18,9 +18,14 @@ flagship detector's forward per level and ``detect`` instead.
 ``--dtype bfloat16`` runs the map (and ``--levels``' forward and
 ``detect``, under TPU.PRECISION "bfloat16") in bf16, against the bf16
 bound; its ``--levers`` are cuDNN with the bias fused and the taps summed
-in fp32. Device times come from CUDA graphs, so the host is not in them.
-``chip_smoke.py`` runs ``conv_map`` as its ``cliff_map`` phase. Needs a
-CUDA card.
+in fp32. ``--train`` maps the flagship training step's 3×3 convolutions
+with a trainable weight instead, at its buckets (``train_buckets``,
+batch 1): each one's forward, data gradient and weight gradient, under
+cuDNN as autograd runs them and under the nine products' adjoint
+(``layers.conv3x3_taps_grad``), with the kernels each launches (cuDNN's
+FFT route or not). Device times come from CUDA graphs, so the host is
+not in them. ``chip_smoke.py`` runs ``conv_map`` as its ``cliff_map``
+phase. Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -44,6 +49,8 @@ SCALES = (100, 300, 600, 1000, 1400)
 BASE = (800, 1200)                  # TEST.PYRAMID_BASE_SIZE
 BATCHES = (2, 4, 8)
 BUCKETS = {"exact": 16, "bucket": 128}
+SHORT_SIDES = (400, 800, 1200)          # TRAIN.SCALES.SHORT_SIDE
+TRAIN_MAX_SIZE = 2000                   # TRAIN.SCALES.MAX_SIZE
 
 
 def _round_up(x, m):
@@ -376,6 +383,117 @@ def trace_cliff(dev, shape=(2, 512, 128, 176, 234, 1)):
     return {"shape": list(shape), **out}
 
 
+def train_buckets(images=IMAGES[:3], short_sides=SHORT_SIDES,
+                  max_size=TRAIN_MAX_SIZE):
+    """The (hb, wb) training buckets of the flagship config at batch 1:
+    each image's short side resized to each of TRAIN.SCALES.SHORT_SIDE
+    (the long side at most TRAIN.SCALES.MAX_SIZE), uncropped, snapped to
+    MAX_RESOLUTION and then to ``train_loop.BUCKET``."""
+    from smallhardface_tpu_torch.train.train_loop import BUCKET, _snap
+    out = []
+    for hw in images:
+        for side in short_sides:
+            s = side / min(hw)
+            if round(s * max(hw)) > max_size:
+                s = max_size / max(hw)
+            hb, wb = (_snap(_snap(round(v * s), 16), BUCKET) for v in hw)
+            if (hb, wb) not in out:
+                out.append((hb, wb))
+    return out
+
+
+def train_convs(hb, wb):
+    """The 3×3 convolutions with a trainable weight in the flagship
+    training step at an (hb, wb) bucket: ``forward_convs`` without the
+    frozen conv2_*; (name, C, O, H, W, dilation, needs dx). conv3_1's
+    input comes from the frozen conv2, so it takes no data gradient."""
+    return [(n, c, o, h, w, d, n != "conv3_1")
+            for n, c, o, h, w, d in forward_convs(hb, wb)
+            if not n.startswith("conv2")]
+
+
+def cudnn_grad(x, w, dy, d, need_x, need_w):
+    """cuDNN's backward as autograd runs it for ``F.conv2d`` (padding d),
+    one gradient: dx (need_x) or dw."""
+    out = torch.ops.aten.convolution_backward(
+        dy, x, w, None, [1, 1], [d, d], [d, d], False, [0, 0], 1,
+        [need_x, need_w, False])
+    return out[0] if need_x else out[1]
+
+
+def adjoint_grad(x, w, dy, d, need_x, need_w):
+    """The nine products' adjoint (``layers.conv3x3_taps_grad``), one
+    gradient: dx (need_x) or dw."""
+    dx, dw = layers.conv3x3_taps_grad(x, w, dy, dilation=d, need_x=need_x,
+                                      need_w=need_w)
+    return dx if need_x else dw
+
+
+def route_kernels(kern):
+    """Whether a traced call launched cuDNN's FFT route (an ``fft`` or a
+    ``gemv`` kernel)."""
+    return any("fft" in k or "gemv" in k for k in kern)
+
+
+def train_map(dev, log=print, buckets=None):
+    """Each distinct trainable 3×3 convolution of the flagship training
+    step at each training bucket (``train_buckets``, batch 1): its
+    forward (cuDNN, on both routes) and its data and weight gradients
+    under cuDNN as autograd runs them and under the adjoint, each with
+    its device ms (CUDA graphs), the memory the call adds, the bound and
+    its kernels (FFT or not). Returns {"rows": [...], "shapes": [...]}:
+    a row per (shape, pass, route) and a line per shape with its FLOP and
+    both routes' backward ms (data gradient where the layer takes one,
+    and weight gradient)."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    shapes = {}
+    for hb, wb in buckets or train_buckets():
+        for name, c, o, h, w, d, need_x in train_convs(hb, wb):
+            shapes.setdefault((1, c, o, h, w, d, need_x), []).append(
+                f"{hb}x{wb}/{name}")
+    rows, lines = [], []
+    for shape, where in sorted(shapes.items()):
+        B, C, O, H, W, d, need_x = shape
+        bnd, by, flop = bound_ms(B, C, O, H, W)
+        x, wt, b = inputs(shape[:6], dev, gen)
+        dy = torch.randn((B, O, H, W), device=dev, generator=gen).contiguous(
+            memory_format=torch.channels_last)
+        calls = {("forward", "cudnn"): lambda: cudnn(x, wt, b, d)}
+        for pas in (("dgrad",) if need_x else ()) + ("wgrad",):
+            for route, fn in (("cudnn", cudnn_grad),
+                              ("adjoint", adjoint_grad)):
+                calls[(pas, route)] = (
+                    lambda fn=fn, gx=pas == "dgrad":
+                    fn(x, wt, dy, d, gx, not gx))
+        ms = {}
+        for (pas, route), call in calls.items():
+            first, wall, t, added = time_call(call)
+            kern, _ = device_kernels(call)
+            row = {"shape": list(shape[:6]), "where": where, "pass": pas,
+                   "route": route, "ms": t, "wall_ms": wall,
+                   "first_ms": first, "bound_ms": bnd, "bound_by": by,
+                   "of_bound": t / bnd, "tflops": flop / t / 1e9,
+                   "added_bytes": added, "fft": route_kernels(kern),
+                   "kernels": kern}
+            ms[(pas, route)] = t
+            rows.append(row)
+            log(row)
+        backward = {r: sum(v for (p, rr), v in ms.items()
+                           if rr == r and p != "forward")
+                    for r in ("cudnn", "adjoint")}
+        line = {"shape": list(shape[:6]), "needs_dx": need_x,
+                "layers": sorted({s.rsplit("/", 1)[1] for s in where}),
+                "flop": flop, "cudnn_backward_ms": backward["cudnn"],
+                "adjoint_backward_ms": backward["adjoint"],
+                "adjoint_faster": backward["adjoint"] < backward["cudnn"]}
+        lines.append(line)
+        log(line)
+        del x, wt, b, dy
+        torch.cuda.empty_cache()
+    return {"buckets": [list(b) for b in buckets or train_buckets()],
+            "rows": rows, "shapes": lines}
+
+
 def level_walls(dev, image_hw=(768, 1024), reps=3, precision="float32"):
     """The flagship detector (random weights from seed 0) on one seeded
     image in ``precision``: each level's forward at batch 2 (image and
@@ -431,6 +549,9 @@ def main(argv=None):
     p.add_argument("--levers", action="store_true")
     p.add_argument("--levels", action="store_true",
                    help="only the per-level forward and detect walls")
+    p.add_argument("--train", action="store_true",
+                   help="only the training step's convolutions: forward, "
+                        "data and weight gradients, cuDNN and the adjoint")
     p.add_argument("--dtype", choices=("float32", "bfloat16"),
                    default="float32")
     p.add_argument("--out", default="")
@@ -448,7 +569,9 @@ def main(argv=None):
     result = {"device": smi, "torch": torch.__version__,
               "cudnn": torch.backends.cudnn.version()}
     log = lambda r: print(json.dumps(r), flush=True)   # noqa: E731
-    if args.levels:
+    if args.train:
+        result["train_map"] = train_map(dev, log=log)
+    elif args.levels:
         result["level_walls"] = level_walls(dev, precision=args.dtype)
         log(result["level_walls"])
     else:

@@ -25,7 +25,9 @@ without a sync, per step, the median step of ``--reps``), of it the ms
 spent waiting and the rest (self), device ms and launches in
 one profiled step (``torch.profiler``, device activity grouped by the
 stage open at launch) and host µs per launch; the step's wall, device
-busy ms, idle share (1 − busy / wall) and peak device memory.
+busy ms, idle share (1 − busy / wall) and peak device memory; the 3×3
+convolutions' backward calls an iteration by route (the nine products'
+adjoint or cuDNN's, ``layers.conv3x3``).
 
 Usage: python -m smallhardface_tpu_torch.tools.train_time
        [--size 768 1024] [--iter-size 1] [--reps 5] [--device cuda|cpu]
@@ -43,6 +45,7 @@ import torch
 
 from smallhardface_tpu_torch.config import CONFIG_DIR, cfg, cfg_from_file
 from smallhardface_tpu_torch.models import detector as dm
+from smallhardface_tpu_torch.models.layers import conv3x3
 from smallhardface_tpu_torch.tools import measure
 from smallhardface_tpu_torch.train import solver, targets
 from smallhardface_tpu_torch.train import train_loop as tl
@@ -148,6 +151,7 @@ def split_step(step, reps=5):
     stages = measure.Stages()
     step.set_stages(stages)
     walls = []
+    conv3x3.adjoint_backwards = conv3x3.cudnn_backwards = 0
     try:
         if measure.is_cuda(dev):
             torch.cuda.reset_peak_memory_stats(dev)
@@ -157,6 +161,8 @@ def split_step(step, reps=5):
             t = time.perf_counter()
             metrics.append(step(0))
             walls.append((time.perf_counter() - t) * 1e3)
+        backwards = {"adjoint": conv3x3.adjoint_backwards / reps,
+                     "cudnn": conv3x3.cudnn_backwards / reps}
         step.set_stages(measure.Stages())
         step.reset()
         tr, m = measure.trace(lambda: step(0), dev, n=1, warmup=0)
@@ -166,7 +172,8 @@ def split_step(step, reps=5):
     out = measure.stage_table(stages, tr, float(np.median(walls)),
                               n_host=reps)
     out.update(metrics=[m.tolist() for m in metrics], walls_ms=walls,
-               iterations=reps + 2, peak_bytes=(
+               iterations=reps + 2, conv3x3_backwards=backwards,
+               peak_bytes=(
                    torch.cuda.max_memory_allocated(dev)
                    if measure.is_cuda(dev) else None))
     return out
@@ -205,6 +212,9 @@ def main(argv=None):
     print(f"# step wall {res['wall_ms']:.2f} ms (median of {args.reps}); "
           f"device busy {busy} ms; idle share {res['idle_share']}; "
           f"peak {res['peak_bytes']} bytes")
+    nb = res["conv3x3_backwards"]
+    print(f"# 3x3 convolution backwards an iteration: {nb['adjoint']:g} "
+          f"adjoint, {nb['cudnn']:g} cuDNN")
     result = {"tool": "train_time", "size": [th, tw], "bucket": bucket,
               "iter_size": args.iter_size, "device": str(dev), "card": card,
               "step_flops": flops,

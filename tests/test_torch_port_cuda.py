@@ -47,6 +47,11 @@ a machine that has only PyTorch:
   integers;
 - conv4_fuse_final_dim_red, as detection runs it, at the shapes where
   cuDNN took an FFT algorithm: at most 4 GB of device memory added;
+- the training step's 3×3 backward (``layers.Conv3x3Adjoint``): one
+  flagship micro-batch at the 1200×1600 bucket launches no cuDNN FFT
+  kernel in its backward, every trainable 3×3 convolution takes the
+  adjoint, two backward passes agree to the bit, and each leaf's
+  gradient lies within the benchmark's gradient limit of cuDNN's;
 - Q1 (the int8 3×3 convolution, csrc/conv_int8.cu): equal to the bit to
   its plain version (float64 sums, then the same fp32 epilogue) for the
   three epilogues at dilations 1, 2 and 4, on random int8 values and on
@@ -559,6 +564,87 @@ def test_dim_red_conv_off_the_fft_cliff(cuda, shape):
     assert got.is_contiguous(memory_format=torch.channels_last)
     torch.testing.assert_close(got, want, rtol=RTOL,
                                atol=RTOL * want.abs().max().item())
+
+
+# the benchmark's limit on the training gradient (portbench
+# reference/compare.py ``grad_gap``), here on the norm of each leaf's
+# difference from cuDNN's backward, against max(its norm, the median's)
+GRAD_GAP = 9e-4
+
+
+@pytest.mark.cuda
+def test_train_backward_off_cudnn_fft(cuda, monkeypatch):
+    """One flagship micro-batch at the 1200×1600 bucket (1280×1664), as
+    ``grad_step`` runs it: its backward launches no cuDNN FFT kernel
+    (``fft2d_*``, ``gemvx``); every 3×3 convolution with a trainable
+    weight takes the adjoint (``layers.conv3x3.adjoint_backwards``), none
+    cuDNN's backward; two backward passes give the same bits; and each
+    leaf's gradient lies within GRAD_GAP of cuDNN's backward on the same
+    forward (``Conv3x3Adjoint`` replaced by cuDNN's own convolution)."""
+    import contextlib
+    import copy
+    import os
+    from torch.profiler import ProfilerActivity, profile
+    from smallhardface_tpu_torch.config import CONFIG_DIR, cfg, cfg_from_file
+    from smallhardface_tpu_torch.models import layers
+    from smallhardface_tpu_torch.tools import conv_map, train_time
+    from smallhardface_tpu_torch.train import train_loop
+
+    kernels = []
+
+    @contextlib.contextmanager
+    def traced(name, level=None):
+        if name != "backward":
+            yield
+            return
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            yield
+            torch.cuda.synchronize()
+        kernels.extend(e.name for e in prof.events()
+                       if e.device_type.name == "CUDA")
+
+    def grads(step, stages):
+        batch = dict(step.host)
+        for k in ("data", "gt", "gt_mask"):
+            batch[k] = step.host[k].to(cuda)
+        train_loop.grad_step(step.model, step.loss_fn, batch,
+                             step.out_shape, 1, stages=stages)
+        return {f"{n}.{k}": v.grad.clone()
+                for n, leaf in step.params.items()
+                for k, v in leaf.items() if v.grad is not None}
+
+    saved = copy.deepcopy(cfg)
+    try:
+        cfg_from_file(os.path.join(CONFIG_DIR, "default.toml"))
+        cfg_from_file(os.path.join(CONFIG_DIR, "smallhardface.toml"))
+        step = train_time.Step(cfg, cuda,
+                               train_time.make_samples(1200, 1600, 1))
+        assert tuple(step.out_shape) == (1280, 1664)
+        grads(step, train_loop.no_stages)                    # warm-up
+        layers.conv3x3.adjoint_backwards = 0
+        layers.conv3x3.cudnn_backwards = 0
+        got = grads(step, traced)
+        n_convs = len(conv_map.train_convs(1280, 1664))
+        assert (layers.conv3x3.adjoint_backwards,
+                layers.conv3x3.cudnn_backwards) == (n_convs, 0)
+        assert kernels and not [k for k in kernels
+                                if "fft2d" in k or "gemvx" in k]
+        again = grads(step, train_loop.no_stages)
+        assert got.keys() == again.keys()
+        assert all(torch.equal(got[k], again[k]) for k in got)
+        monkeypatch.setattr(layers.Conv3x3Adjoint, "apply",
+                            layers.conv3x3_cudnn)
+        want = grads(step, train_loop.no_stages)
+    finally:
+        cfg.clear()
+        cfg.update(saved)
+    assert got.keys() == want.keys()
+    norms = {k: float(v.double().norm()) for k, v in want.items()}
+    med = float(np.median(list(norms.values())))
+    for k in want:
+        gap = float((got[k].double() - want[k].double()).norm()) / max(
+            norms[k], med)
+        assert gap <= GRAD_GAP, (k, gap)
 
 
 def _int8_inputs(device, B, H, W, C, O, extreme, per_image, seed=0):

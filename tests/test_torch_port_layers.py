@@ -4,6 +4,7 @@ inputs. Both are true fp32 on the CPU: rtol 1e-5, atol 1e-5·max|ref|."""
 
 import numpy as np
 import pytest
+import jax
 import jax.numpy as jnp
 import torch
 
@@ -103,7 +104,11 @@ def test_conv3x3_taps_matches_jax(dilation, hw, monkeypatch):
 
 def test_conv3x3_route(monkeypatch):
     """conv3x3 takes the nine products only without autograd and from
-    TAPS_MIN_FLOP up; otherwise cuDNN's conv2d (training keeps it)."""
+    TAPS_MIN_FLOP up, otherwise cuDNN's conv2d. Where autograd records an
+    fp32 call (x, w or b needs a gradient) the forward is still conv2d's
+    and the backward the adjoint's (Conv3x3Adjoint); a bf16 call stays on
+    conv2d's bf16 product, and cuDNN's backward, under autograd. Each
+    backward counts on its route."""
     rng = np.random.RandomState(3)
     x = torch.from_numpy(rng.randn(1, 8, 6, 7).astype(np.float32))
     w = torch.from_numpy(rng.randn(4, 8, 3, 3).astype(np.float32))
@@ -117,3 +122,105 @@ def test_conv3x3_route(monkeypatch):
         monkeypatch.setattr(tl, "TAPS_MIN_FLOP", threshold)
         with torch.set_grad_enabled(grad):
             assert torch.equal(tl.conv3x3(x, w, b, dilation=2), want)
+    monkeypatch.setattr(tl.conv3x3, "adjoint_backwards", 0)
+    monkeypatch.setattr(tl.conv3x3, "cudnn_backwards", 0)
+    for xi, wi, bi in ((x, w.clone().requires_grad_(), b),
+                       (x.clone().requires_grad_(), w, b),
+                       (x, w, b.clone().requires_grad_())):
+        y = tl.conv3x3(xi, wi, bi, dilation=2)
+        assert torch.equal(y, plain)
+        assert type(y.grad_fn).__name__ == "Conv3x3AdjointBackward"
+        y.sum().backward()
+    assert (tl.conv3x3.adjoint_backwards, tl.conv3x3.cudnn_backwards) == (
+        3, 0)
+    x16 = x.to(torch.bfloat16).requires_grad_()
+    y16 = tl.conv3x3(x16, w, b, dilation=2)
+    assert y16.dtype == torch.bfloat16
+    assert type(y16.grad_fn).__name__ != "Conv3x3AdjointBackward"
+    assert torch.equal(y16, tl.conv2d(x.to(torch.bfloat16), w, b,
+                                      dilation=2, padding=2))
+    y16.float().sum().backward()
+    assert (tl.conv3x3.adjoint_backwards, tl.conv3x3.cudnn_backwards) == (
+        3, 1)
+
+
+def _conv3x3_vjp_jax(x, w, b, dy, dilation, halo):
+    """(y, dx, dw, db) of the JAX package's conv2d at padding ``dilation``
+    with a shard's halo rows: the own rows of the symmetric convolution
+    (a halo side reads real rows where the zero padding would be), and
+    its vjp, on NHWC / HWIO arrays."""
+    top, bottom = halo
+    H = x.shape[1]
+
+    def f(x, w, b):
+        return jl.conv2d(x, w, b, dilation=dilation,
+                         padding=dilation)[:, top:H - bottom]
+    y, vjp = jax.vjp(f, jnp.asarray(x), jnp.asarray(w), jnp.asarray(b))
+    return (np.asarray(y), *(np.asarray(g) for g in vjp(jnp.asarray(dy))))
+
+
+@pytest.mark.parametrize("need_x", [True, False])
+@pytest.mark.parametrize("batch", [1, 2])
+@pytest.mark.parametrize("halo", ["none", "bottom", "top", "both"])
+@pytest.mark.parametrize("dilation,hw", [
+    (1, (20, 24)), (2, (20, 24)), (4, (20, 24)), (4, (9, 5))])
+def test_conv3x3_adjoint_matches_jax(dilation, hw, halo, batch, need_x):
+    """conv3x3 under autograd (Conv3x3Adjoint): the forward equals cuDNN's
+    conv2d path to the bit, and the backward (the nine products'
+    adjoint, conv3x3_taps_grad) gives JAX's vjp of its conv2d, for dx
+    (the halo rows included, channels_last), dw and db; at dilations 1, 2,
+    4 and one wider than the image, with halos (0, 0), (0, d), (d, 0),
+    (d, d), batch 1 and 2, with x taking a gradient or not (then none is
+    computed); the same bits twice."""
+    d = dilation
+    top, bottom = {"none": (0, 0), "bottom": (0, d), "top": (d, 0),
+                   "both": (d, d)}[halo]
+    rng = np.random.RandomState(20 + d + hw[0] + 3 * top + bottom + batch)
+    x = rng.randn(batch, hw[0] + top + bottom, hw[1], 8).astype(
+        np.float32) * 10
+    w = rng.randn(3, 3, 8, 5).astype(np.float32)
+    b = rng.randn(5).astype(np.float32)
+    dy = rng.randn(batch, *hw, 5).astype(np.float32)
+    y_j, dx_j, dw_j, db_j = _conv3x3_vjp_jax(x, w, b, dy, d, (top, bottom))
+
+    def run():
+        xt = _nchw(x).contiguous(
+            memory_format=torch.channels_last).requires_grad_(need_x)
+        wt = torch.from_numpy(np.ascontiguousarray(
+            w.transpose(3, 2, 0, 1))).requires_grad_()
+        bt = torch.from_numpy(b).requires_grad_()
+        y = tl.conv3x3(xt, wt, bt, dilation=d, halo=(top, bottom))
+        assert type(y.grad_fn).__name__ == "Conv3x3AdjointBackward"
+        with torch.no_grad():
+            assert torch.equal(y, tl.conv3x3_cudnn(xt, wt, bt, d,
+                                                   (top, bottom)))
+        y.backward(_nchw(dy))
+        return y, xt.grad, wt.grad, bt.grad
+
+    y, dx, dw, db = run()
+    assert y.shape == (batch, 5, *hw)
+    _close(_nhwc(y.detach()), y_j)
+    if need_x:
+        assert dx.is_contiguous(memory_format=torch.channels_last)
+        _close(_nhwc(dx), dx_j)
+    else:
+        assert dx is None
+    _close(dw.permute(2, 3, 1, 0).numpy(), dw_j)
+    _close(db.numpy(), db_j)
+    again = run()
+    for g, g2 in zip((dx, dw, db), again[1:]):
+        assert g is g2 is None or torch.equal(g, g2)
+
+
+def test_conv3x3_adjoint_gradcheck():
+    """Conv3x3Adjoint's backward is the Jacobian's transpose of its
+    forward (torch.autograd.gradcheck in float64), with a halo on one
+    side, at a small shape."""
+    rng = np.random.RandomState(7)
+    x = torch.from_numpy(rng.randn(2, 3, 7, 6)).contiguous(
+        memory_format=torch.channels_last).requires_grad_()
+    w = torch.from_numpy(rng.randn(4, 3, 3, 3)).requires_grad_()
+    b = torch.from_numpy(rng.randn(4)).requires_grad_()
+    assert torch.autograd.gradcheck(
+        lambda x, w, b: tl.Conv3x3Adjoint.apply(x, w, b, 2, (0, 2)),
+        (x, w, b))
