@@ -5,7 +5,9 @@ object: setting a key here does not change the JAX package's config, nor
 the other way round. One schema serves both packages: the TOML files under
 ``smallhardface_tpu/configs/`` are read here as data (``default.toml`` is
 the schema, and ``--conf`` files work for either package); nothing of that
-package is imported. As in the reference config system (get_config.py),
+package is imported. The port's own keys (``configs/port.toml``:
+``MODEL.ARCH``) are added to that schema here; the JAX package does not
+know them. As in the reference config system (get_config.py),
 file merges (`cfg_from_file`) and dotted CLI amends (`cfg_from_list`) must
 name existing keys with matching types. Output-dir layout follows
 `get_output_dir` (get_config.py:48-65).
@@ -25,9 +27,26 @@ _PKG_DIR = osp.dirname(osp.abspath(__file__))
 # the TOML schema and configs, shared with the JAX package as data files
 CONFIG_DIR = osp.join(_PKG_DIR, "..", "smallhardface_tpu", "configs")
 _DEFAULT_CFG_PATH = osp.join(CONFIG_DIR, "default.toml")
+# the keys only the port reads (MODEL.ARCH), added to the shared schema
+PORT_CONFIG_DIR = osp.join(_PKG_DIR, "configs")
+_PORT_CFG_PATH = osp.join(PORT_CONFIG_DIR, "port.toml")
+
+
+def _add_keys(a, b, path=""):
+    """Add the keys of dict a to dict b, which may not hold them yet."""
+    for k, v in a.items():
+        if isinstance(v, dict) and isinstance(b.get(k), dict):
+            _add_keys(v, b[k], path=f"{path}{k}.")
+        elif k in b:
+            raise KeyError(f"{path}{k} is in the shared schema already")
+        else:
+            b[k] = v
+
 
 with open(_DEFAULT_CFG_PATH, "rb") as _f:
     _default_cfg = tomllib.load(_f)
+with open(_PORT_CFG_PATH, "rb") as _f:
+    _add_keys(tomllib.load(_f), _default_cfg)
 _default_cfg["LOG"] = {}
 
 cfg = AttrDict(_default_cfg)

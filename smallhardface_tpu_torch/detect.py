@@ -41,6 +41,14 @@ bf16 mode (JAX detect.py:121-123): preprocessing stays fp32, the forward
 runs in bf16 (``Detector.forward``) and gives fp32 logits, and softmax,
 decode, the merge and the vote run in fp32 as in the other modes.
 
+``MODEL.ARCH = "retinaface_r50"`` runs RetinaFace (``models/retinaface``)
+on the same path: preprocessing, the merge and the vote are shared; each
+level runs at its ×MAX_RESOLUTION shape (32 in its TOML) with the image
+masked to its own extent at every stride, and ``_decode_retina`` decodes
+the level's three maps (the priors' variance decode, no clip). It runs
+one fp32 image at a time: int8, bf16, spatial sharding,
+``TPU.HOST_PREPROC`` and ``detect_many`` raise.
+
 Spatial sharding (``TPU.SPATIAL_DEVICES`` = k > 1, JAX detect.py:92-137,
 :366-379, :560-568): the detector runs each level's rows over a unit of k
 devices (``spatial_devices``; ``parallel/spatial``). Every device gets the
@@ -65,6 +73,7 @@ import torch
 
 from smallhardface_tpu_torch.config import cfg
 from smallhardface_tpu_torch.models import detector as detector_mod
+from smallhardface_tpu_torch.models import retinaface as retina_mod
 from smallhardface_tpu_torch.ops import anchors as anchors_mod
 from smallhardface_tpu_torch.ops import decode as decode_mod
 from smallhardface_tpu_torch.ops import native as nms_host
@@ -217,6 +226,13 @@ class TorchDetector:
             raise ValueError(
                 f"TPU.PRECISION={precision!r}: expected 'float32', "
                 "'bfloat16' or 'int8'")
+        arch = str(cfg.MODEL.ARCH)
+        if arch not in ("smallhardface", retina_mod.ARCH):
+            raise ValueError(f"MODEL.ARCH={arch!r}: expected "
+                             f"'smallhardface' or {retina_mod.ARCH!r}")
+        self.retina = arch == retina_mod.ARCH
+        if self.retina:
+            _refuse_for_retina(precision, spatial_devices)
         if precision == "int8":
             mode = str(cfg.TPU.MASK_MODE)
             if mode not in ("band", "band_margin", "where", "exact"):
@@ -246,7 +262,12 @@ class TorchDetector:
             device = self.spatial[0]
         self.device = resolve_device(device)
         self.spec = spec or detector_mod.build_spec(cfg)
-        self.model = detector_mod.Detector(params, self.spec, self.device)
+        if self.retina:
+            self.model = retina_mod.RetinaFace(params, self.device)
+            # RetinaFace's prior grids, by map shape and stride
+            self._priors = {}
+        else:
+            self.model = detector_mod.Detector(params, self.spec, self.device)
         self.base_anchors = anchors_mod.generate_anchors(
             base_size=16, ratios=[1],
             scales=list(detector_mod.ANCHOR_SCALES),
@@ -426,11 +447,15 @@ class TorchDetector:
             per_item = lambda k, site: self._upload(  # noqa: E731
                 [lv[k] for lv in lvs], site, li).repeat_interleave(reps)
             # the forward masks each item to its own ×16 extent in a bucket
-            # (uploaded before the level's stages open)
-            out = self._forward_level(
-                imgs, lvs, hb, wb,
-                (per_item("hb", "wait_extents"),
-                 per_item("wb", "wait_extents")) if bucketed else None, li)
+            # (uploaded before the level's stages open); RetinaFace masks
+            # the image to its extent (h_s, w_s) at every stride
+            if self.retina:
+                valid = (lvs[0]["h_s"], lvs[0]["w_s"])
+            else:
+                valid = ((per_item("hb", "wait_extents"),
+                          per_item("wb", "wait_extents")) if bucketed
+                         else None)
+            out = self._forward_level(imgs, lvs, hb, wb, valid, li)
             with self.stages("decode", li):
                 boxes, scores = self._decode_level(out, lvs, per_item, n,
                                                    reps, st, li)
@@ -445,6 +470,8 @@ class TorchDetector:
         item), the mirror's boxes un-mirrored about each w_s, all in
         original-image coordinates; boxes (N, reps·cap, 4) and scores
         (N, reps·cap), -inf on empty slots."""
+        if self.retina:
+            return self._decode_retina(out, lvs[0], n, reps, st)
         dev = self.device
         site = "wait_decode"
         probs = torch.softmax(out["cls_logits"], dim=-1)[..., 1]
@@ -471,6 +498,42 @@ class TorchDetector:
             boxes = torch.stack([boxes[:, 0], flipped], dim=1)
         inv_fx = self._upload([lv["inv_fx"] for lv in lvs], site, level)
         boxes = boxes * inv_fx[:, None, None, None]
+        scores = torch.where(row_ok, scores.view(n, reps, cap),
+                             -float("inf"))
+        return boxes.reshape(n, -1, 4), scores.reshape(n, -1)
+
+    def _decode_retina(self, out, lv, n, reps, st):
+        """``_decode_level`` of RetinaFace, for one image (N = 1) of level
+        metadata ``lv``: the foreground softmax of each of the level's
+        three maps, the priors' variance decode over each map's valid grid
+        ceil(h_s / step) × ceil(w_s / step) (the extent the image has when
+        run at its own size), the maps' rows selected together, the
+        mirror's boxes un-mirrored about w_s, all scaled to original-image
+        coordinates. The extents are host numbers: nothing waits."""
+        dev = self.device
+        probs = [torch.softmax(c, dim=-1)[..., 1] for c in out["cls_logits"]]
+        priors, valid = [], []
+        for p, step, sizes in zip(probs, retina_mod.STEPS,
+                                  retina_mod.MIN_SIZES):
+            key = (p.shape[1], p.shape[2], step)
+            if key not in self._priors:
+                self._priors[key] = anchors_mod.prior_grid(*key, sizes, dev)
+            priors.append(self._priors[key])
+            valid.append((-(-lv["h_s"] // step), -(-lv["w_s"] // step)))
+        boxes, scores, counts = decode_mod.decode_priors_batch(
+            probs, out["bbox_deltas"], priors, valid=valid,
+            variances=retina_mod.VARIANCES, score_thresh=st,
+            capacity=self.capacity)
+        cap = boxes.shape[1]
+        boxes = boxes.view(n, reps, cap, 4)
+        row_ok = torch.arange(cap, device=dev) < counts.view(n, reps, 1)
+        if cfg.TEST.FLIP:
+            ws = float(lv["w_s"])
+            m = boxes[:, 1]
+            flipped = torch.stack([ws - m[..., 2], m[..., 1],
+                                   ws - m[..., 0], m[..., 3]], dim=-1)
+            boxes = torch.stack([boxes[:, 0], flipped], dim=1)
+        boxes = boxes * lv["inv_fx"]
         scores = torch.where(row_ok, scores.view(n, reps, cap),
                              -float("inf"))
         return boxes.reshape(n, -1, 4), scores.reshape(n, -1)
@@ -622,7 +685,12 @@ class TorchDetector:
         Under TPU.HOST_PREPROC there is no batched device path: rather
         than run another numeric path than asked, it runs ``detect`` per
         image with a one-time warning, and refuses ``score_thresh``, which
-        the host path does not take."""
+        the host path does not take. RetinaFace has no batched path: it
+        raises."""
+        if self.retina:
+            raise NotImplementedError(
+                "detect_many: RetinaFace (MODEL.ARCH='retinaface_r50') runs "
+                "one image at a time; use detect or detect_async")
         if self.host_preproc:
             if score_thresh is not None:
                 raise ValueError(
@@ -753,6 +821,23 @@ def top_rows(boxes, scores, keep, cap):
     dets = torch.cat([picked, top[..., None]], dim=-1).contiguous()
     n = keep.sum(-1).clamp(max=k).to(torch.int32)
     return dets, n
+
+
+def _refuse_for_retina(precision, spatial_devices):
+    """RetinaFace runs the single-image fp32 device path only (PERF.md §7):
+    a ValueError for any other precision, spatial sharding or the host
+    preprocessing path."""
+    name = f"MODEL.ARCH={retina_mod.ARCH!r}"
+    if precision != "float32":
+        raise ValueError(f"{name} runs in float32 only; TPU.PRECISION="
+                         f"{precision!r} is the smallhardface detector's")
+    if ((spatial_devices is not None and len(spatial_devices) > 1)
+            or int(cfg.TPU.SPATIAL_DEVICES) > 1):
+        raise ValueError(f"{name} has no spatially sharded path; set "
+                         "TPU.SPATIAL_DEVICES 1")
+    if bool(cfg.TPU.HOST_PREPROC):
+        raise ValueError(f"{name} has no host preprocessing path; set "
+                         "TPU.HOST_PREPROC false")
 
 
 def _indexed(device):

@@ -40,13 +40,15 @@ from torch.autograd.function import once_differentiable
 from smallhardface_tpu_torch.ops.conv_int8 import conv3x3_int8, fdiv
 
 
-def conv2d(x, w, b=None, *, dilation=1, padding=0):
-    """Conv with explicit symmetric zero padding and dilation. For a 3×3
-    kernel at dilation d the Caffe templates pad by d. On a bf16 x, the
-    product rounds once to bf16 and the bf16 bias is added after it."""
+def conv2d(x, w, b=None, *, dilation=1, padding=0, stride=1):
+    """Conv with explicit symmetric zero padding, dilation and stride. For
+    a 3×3 kernel at dilation d the Caffe templates pad by d. On a bf16 x,
+    the product rounds once to bf16 and the bf16 bias is added after it."""
     if x.dtype != torch.bfloat16:
-        return F.conv2d(x, w, b, padding=padding, dilation=dilation)
-    out = bf16_product(F.conv2d, x, w, padding=padding, dilation=dilation)
+        return F.conv2d(x, w, b, stride=stride, padding=padding,
+                        dilation=dilation)
+    out = bf16_product(F.conv2d, x, w, stride=stride, padding=padding,
+                       dilation=dilation)
     if b is None:
         return out
     # in place on the product, which nothing else holds: no second output

@@ -7,12 +7,14 @@ sub-grid of shifts scaled by the per-scale stride. For the shipped configs
 (base 16, ratios [1], scales [1,2,4], shifts [0]) this yields square anchors
 of side 16/32/64 px centered at (7.5, 7.5).
 
-All outputs are float64 numpy arrays computed once at setup time.
+These outputs are float64 numpy arrays computed once at setup time.
+``prior_grid`` is RetinaFace's: built on the device, per level.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 
 def _wh_to_anchor(ws, hs, x_ctr, y_ctr):
@@ -69,3 +71,20 @@ def dense_anchors(height, width, feat_stride, anchors):
     shifts = np.stack([sx.ravel(), sy.ravel(), sx.ravel(), sy.ravel()], axis=1)
     all_anchors = anchors[None, :, :] + shifts[:, None, :]
     return all_anchors.reshape(-1, 4)
+
+
+def prior_grid(h, w, step, min_sizes, device=None):
+    """RetinaFace's priors of an (h, w) map at stride ``step``
+    (Pytorch_Retinaface ``layers/functions/prior_box.py`` in pixels, not
+    normalised by the image size): (h, w, A, 4) float32 rows (cx, cy,
+    side, side), centre ((j + 0.5)·step, (i + 0.5)·step), side each of
+    ``min_sizes`` (A of them, in that order). Built on ``device`` with no
+    copy from the host."""
+    xs = (torch.arange(w, dtype=torch.float32, device=device) + 0.5) * step
+    ys = (torch.arange(h, dtype=torch.float32, device=device) + 0.5) * step
+    A = len(min_sizes)
+    side = torch.stack([torch.full((), float(m), device=device)
+                        for m in min_sizes]).expand(h, w, A)
+    return torch.stack([xs[None, :, None].expand(h, w, A),
+                        ys[:, None, None].expand(h, w, A), side, side],
+                       dim=-1)

@@ -3,7 +3,9 @@ capacity-capped detections with shapes known on the host.
 
 Counterpart of ``smallhardface_tpu/ops/decode.py``: ``dense_anchor_grid``
 (:32-43), ``_decode_fields`` (:75-111) and ``decode_proposals_batch``
-(:114-179) without the ``fast_k`` path (it never changed the output).
+(:114-179) without the ``fast_k`` path (it never changed the output);
+and RetinaFace's variance decode over its three maps a level
+(``decode_priors_batch``).
 
 Tie order: ``lax.top_k`` puts the lower index first among equal scores.
 ``torch.topk`` promises no order, so the selection is a stable descending
@@ -108,7 +110,52 @@ def decode_proposals_batch(fg_scores, bbox_deltas, base_anchors, *,
         im_h=im_h, im_w=im_w, valid_h=valid_h, valid_w=valid_w,
         score_thresh=score_thresh, min_size=min_size, capacity=capacity,
         wait=wait)
+    return (*_top(boxes, sortable, cap), n_keep)
+
+
+def _top(boxes, sortable, cap):
+    """The ``cap`` rows of highest score per image, in descending order
+    with the lower index first among ties: boxes (B, cap, 4), scores
+    (B, cap)."""
     scores, idx = torch.sort(sortable, dim=1, descending=True, stable=True)
     scores, idx = scores[:, :cap], idx[:, :cap]
     top_boxes = torch.gather(boxes, 1, idx[..., None].expand(-1, -1, 4))
-    return top_boxes, scores, n_keep
+    return top_boxes, scores
+
+
+def decode_priors(priors, deltas, variances):
+    """RetinaFace's decode (Pytorch_Retinaface ``utils/box_utils.decode``,
+    in pixels): priors (..., 4) rows (cx, cy, w, h), deltas (..., 4). The
+    centre moves by d_xy·v0·(w, h), the sides become (w, h)·exp(d_wh·v1),
+    then corners (x1, y1, x2, y2), with no +1 convention."""
+    centre = priors[..., :2] + deltas[..., :2] * variances[0] * priors[..., 2:]
+    sides = priors[..., 2:] * torch.exp(deltas[..., 2:] * variances[1])
+    lo = centre - sides / 2
+    return torch.cat([lo, sides + lo], dim=-1)
+
+
+def decode_priors_batch(fg_scores, deltas, priors, *, valid, variances,
+                        score_thresh, capacity):
+    """RetinaFace's boxes of one pyramid level, over its maps (strides):
+    fg_scores[k] (B, h_k, w_k, A) foreground probabilities, deltas[k]
+    (B, h_k, w_k, A, 4), priors[k] (h_k, w_k, A, 4) (``anchors.prior_grid``)
+    and valid[k] = (vh, vw), the map's valid grid as numbers. Every map's
+    boxes are decoded (``decode_priors``), those beyond the valid grid
+    dropped, and the maps' rows taken together in (map, row, column,
+    anchor) order, as Pytorch_Retinaface flattens them, with no clip.
+    The selection is ``decode_proposals_batch``'s: (boxes (B, cap, 4),
+    scores (B, cap), n_keep (B,) int32), cap = min(capacity, rows), rows
+    in descending score order, lower index first among ties, n_keep the
+    rows >= score_thresh clamped to [1, cap]."""
+    all_boxes, all_scores = [], []
+    for p, d, pr, (vh, vw) in zip(fg_scores, deltas, priors, valid):
+        _, h, w, _ = p.shape
+        inside = ((torch.arange(h, device=p.device)[:, None, None] < vh)
+                  & (torch.arange(w, device=p.device)[None, :, None] < vw))
+        all_scores.append(torch.where(inside, p, -float("inf")).flatten(1))
+        all_boxes.append(decode_priors(pr, d, variances).flatten(1, 3))
+    sortable = torch.cat(all_scores, dim=1)
+    cap = min(int(capacity), sortable.shape[1])
+    n_keep = (sortable >= score_thresh).sum(dim=1).clamp(1, cap).to(
+        torch.int32)
+    return (*_top(torch.cat(all_boxes, dim=1), sortable, cap), n_keep)

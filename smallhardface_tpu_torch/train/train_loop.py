@@ -451,6 +451,11 @@ def train_net(roidb, output_dir, pretrained_model, max_iter, device=None,
     object. With ``SHF_TRAIN_PROFILE=1`` on a card the iterations run
     under torch.profiler (device activity only), and the summary logged at
     the end (always logged over W ranks) carries the device's busy time."""
+    if str(cfg.MODEL.ARCH) != "smallhardface":
+        # RetinaFace's multibox and landmark loss is not ported (PERF.md §7)
+        raise NotImplementedError(
+            f"MODEL.ARCH={cfg.MODEL.ARCH!r} runs detection only; training "
+            "is the smallhardface detector's")
     if isinstance(device, (list, tuple)):
         unit = [resolve_device(d) for d in device]
         pdist.init_distributed(unit[0])
