@@ -3,11 +3,24 @@
 
     python3 chip_smoke.py
 
-Builds the port's five CUDA kernels with nvcc, one process per source, all
+Builds the port's six CUDA kernels with nvcc, one process per source, all
 at once: the fused VGG stem (K1, csrc/stem.cu), its backward (K2,
 csrc/stem_grad.cu), the anchor max-IoU (K3, csrc/iou.cu), the final vote
-(V1, csrc/vote.cu) and the int8 3×3 convolution (Q1, csrc/conv_int8.cu).
-Then, each phase printing one line:
+(V1, csrc/vote.cu), the int8 3×3 convolution (Q1, csrc/conv_int8.cu) and
+the fp32 3×3 convolution of detection (C1, csrc/conv_fp32.cu). Then, each
+phase printing one line:
+
+0. C1 against its plain version (``c1_phase``): equal to the bit to the
+   nine products of ``layers.conv3x3_taps`` (then the ReLU) on small
+   integers at C1_INT_CASES (dilations 1, 2 and 4, halos above, below and
+   on both sides, batch 1 and 2, C and O from 64 to 512, ragged tiles);
+   at each fp32 3×3 shape of the 1408×1872 level at batch 2 its largest
+   error against float64 at most C1_ERR_OVER_TAPS times the nine cuBLAS
+   products', its wrapper's wall, its device time (CUDA graph), its
+   3xTF32 bound, the plain version's time and cuDNN's fp32
+   (``library_ms``); per level of image 0's ``detect`` the convolutions
+   that reach C1, its device time and bound beside cuDNN's. ``python3
+   chip_smoke.py --only c1`` builds C1 alone and stops after this phase;
 
 1. K1 against its plain version at the shapes of the detection path: on
    small-integer inputs its output equal to the bit to the plain forward
@@ -21,7 +34,8 @@ Then, each phase printing one line:
    VOTE_CAP 2048, the default) on three seeded synthetic images with
    random weights, twice each, and against the same detector on the CPU at
    a small pyramid; one image again with the float64 host vote
-   (DEVICE_VOTE = false); no launch of K1 there writes a routing; K1's
+   (DEVICE_VOTE = false); no launch of K1 there writes a routing; C1 runs
+   in every ``detect``; K1's
    device time summed over the five launches of one warm ``detect``
    (torch.profiler);
 3. V1 against its plain version: equal to the bit on integer boxes with
@@ -586,7 +600,12 @@ def set_counts_zero(*fns):
             fn.route_writes = 0
 
 
-def main():
+def main(argv=None):
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--only", choices=("c1",), default=None,
+                    help="build the kernels, then run one phase alone")
+    only = ap.parse_args(argv).only
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "false)", file=sys.stderr)
@@ -594,8 +613,9 @@ def main():
     from smallhardface_tpu_torch.config import CONFIG_DIR, cfg, cfg_from_file
     from smallhardface_tpu_torch.detect import TorchDetector, _pyramid_scales
     from smallhardface_tpu_torch.models import detector as tdm
-    from smallhardface_tpu_torch.ops import (conv_int8, cuda_build, iou,
-                                             nms_device, stem)
+    from smallhardface_tpu_torch.models import layers
+    from smallhardface_tpu_torch.ops import (conv_fp32, conv_int8, cuda_build,
+                                             iou, nms_device, stem)
     from smallhardface_tpu_torch.ops.bbox import iou_matrix
 
     t_smoke = time.perf_counter()
@@ -621,7 +641,9 @@ def main():
                                    {"shf_empty": [cuda_build.CI] * 2
                                     + [cuda_build.VP]})
     libs = [stem.STEM, stem.STEM_GRAD, iou.IOU, nms_device.VOTE,
-            conv_int8.CONV_INT8, empty]
+            conv_int8.CONV_INT8, conv_fp32.CONV_FP32, empty]
+    if only == "c1":
+        libs = [conv_fp32.CONV_FP32]
     cuda_build.build_all(libs)
     say("build", seconds=round(time.perf_counter() - t0, 3),
         capability=list(torch.cuda.get_device_capability(0)),
@@ -631,7 +653,11 @@ def main():
         ptxas={lib.name: [ln.strip() for ln in lib.log.splitlines()
                           if "registers" in ln or "spill" in ln]
                for lib in libs})
-    kernels = {}
+    kernels = {"conv3x3_fp32": c1_phase(conv_fp32, layers, dev)}
+    torch.cuda.empty_cache()
+    if only == "c1":
+        print(json.dumps({"kernels": [kernels["conv3x3_fp32"]]}), flush=True)
+        return 0
 
     # ---- K1 against its plain version ----
     # small integers: the output and the routing equal to the bit
@@ -708,7 +734,7 @@ def main():
 
     vote_fns = (nms_device.bbox_vote_device, nms_device.nms_device)
     set_counts_zero(stem.fused_stem, stem.fused_stem_grad, iou.max_iou,
-                    *vote_fns)
+                    conv_fp32.conv3x3_fp32, *vote_fns)
     torch.cuda.reset_peak_memory_stats()
     n_forward = n_detect = 0
     card_dets = []
@@ -748,7 +774,8 @@ def main():
                      "fused_stem_grad": stem.fused_stem_grad.launches,
                      "max_iou": iou.max_iou.launches,
                      "bbox_vote": nms_device.bbox_vote_device.launches,
-                     "nms": nms_device.nms_device.launches}
+                     "nms": nms_device.nms_device.launches,
+                     "conv3x3_fp32": conv_fp32.conv3x3_fp32.launches}
     say("detect_path", forward_passes=n_forward, detects=n_detect,
         launches=detect_counts,
         max_memory_allocated_bytes=torch.cuda.max_memory_allocated())
@@ -758,6 +785,9 @@ def main():
         raise AssertionError("K1 wrote a pool routing under inference")
     if detect_counts["bbox_vote"] != n_detect or detect_counts["nms"]:
         raise AssertionError("the vote kernel did not run once per detect")
+    if detect_counts["conv3x3_fp32"] < n_detect:
+        raise AssertionError("the fp32 detect path did not reach C1")
+    kernels["conv3x3_fp32"]["launches_detect"] = detect_counts["conv3x3_fp32"]
 
     # the float64 host vote of the JAX DEVICE_VOTE=false path, for its time
     cfg.TPU.DEVICE_VOTE = False
@@ -1011,7 +1041,7 @@ def main():
     say("total", seconds=time.perf_counter() - t_smoke, nvidia_smi=smi)
     print(json.dumps({"kernels": [kernels[k] for k in (
         "fused_stem", "fused_stem_spatial", "fused_stem_grad", "max_iou",
-        "bbox_vote", "conv3x3_int8")]}),
+        "bbox_vote", "conv3x3_int8", "conv3x3_fp32")]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1230,6 +1260,175 @@ def q1_phase(conv_int8, layers, dev):
             "int_mm_ms": total["int_mm_ms"],
             "timed_as": "the 16 int8 convolutions of one batch-2 forward at "
                         "the 1408x1872 level, summed"}
+
+
+# C1's integer cases against its plain version: (B, C, O, H, W, dilation,
+# halo, relu), at dilations 1, 2 and 4, halos above and below, batch 1 and
+# 2, C and O from 64 to 512, ragged tiles and W under a tile
+C1_INT_CASES = (
+    tuple((2, 64, 128, 19, 23, d, (0, 0), True) for d in (1, 2, 4))
+    + tuple((1, 128, 64, 21, 30, d, (d, 0), False) for d in (1, 2, 4))
+    + tuple((2, 128, 64, 21, 30, d, (0, d), True) for d in (1, 2, 4))
+    + ((1, 512, 512, 9, 40, 1, (0, 0), True),
+       (2, 256, 512, 12, 5, 2, (2, 2), False),
+       (1, 512, 128, 3, 10, 4, (0, 0), True),
+       (2, 64, 64, 1, 37, 1, (0, 0), False)))
+# C1's float error against float64 may be at most this many times the
+# nine cuBLAS products' (conv3x3_taps) at the same shape
+C1_ERR_OVER_TAPS = 2.0
+
+
+def c1_bound_ms(B, C, O, H, W):
+    """C1's bound for one call: its bytes (input, weights, output and
+    bias, each once, in fp32) at 3.35 TB/s or its 2·M·N·K operations as
+    three TF32 products at 495 TFLOP/s, the larger, and which it is."""
+    M, K = B * H * W, 9 * C
+    n_bytes = 4 * (M * (C + O) + O * K + O)
+    return split_bound_ms(n_bytes, 0, 2.0 * M * O * K)
+
+
+def _c1_float_inputs(gen, B, C, O, H, W, dev):
+    """Post-ReLU activations, He-scaled weights and a bias, as detection
+    feeds C1."""
+    x = torch.relu(torch.randn((B, C, H, W), generator=gen, device=dev))
+    w = torch.randn((O, C, 3, 3), generator=gen, device=dev) * math.sqrt(
+        2.0 / (9 * C))
+    b = torch.randn((O,), generator=gen, device=dev) * 0.1
+    return x.contiguous(memory_format=torch.channels_last), w, b
+
+
+def c1_checks(conv_fp32, layers, dev):
+    """C1 against its plain version (``layers.conv3x3_taps`` on the card,
+    the ReLU after it) on the integer recipe (|x| <= 64, |w| <= 8, |b| <=
+    100: every value its own TF32 hi, every product and sum exact), equal
+    to the bit at C1_INT_CASES. Returns the checks; raises at the first
+    difference."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 21)
+    checks = []
+    for B, C, O, H, W, d, halo, relu in C1_INT_CASES:
+        x = torch.randint(-64, 65, (B, C, H, W), generator=gen, device=dev
+                          ).float().contiguous(
+            memory_format=torch.channels_last)
+        w = torch.randint(-8, 9, (O, C, 3, 3), generator=gen,
+                          device=dev).float()
+        b = torch.randint(-100, 101, (O,), generator=gen, device=dev).float()
+        before = conv_fp32.conv3x3_fp32.launches
+        got = conv_fp32.conv3x3_fp32(x, w, b, dilation=d, halo=halo,
+                                     relu=relu)
+        want = layers.conv3x3_taps(x, w, b, dilation=d, halo=halo)
+        if relu:
+            want = want.relu_()
+        torch.cuda.synchronize()
+        conv_fp32.conv3x3_fp32.launches = before    # a comparison launch
+        equal = torch.equal(got, want)
+        checks.append({"shape": [B, C, O, H, W], "dilation": d,
+                       "halo": list(halo), "relu": relu,
+                       "plan": list(conv_fp32.plan(H - sum(halo), W, O)),
+                       "bit_equal": equal,
+                       "max_abs_err": (got - want).abs().max().item()})
+        if not equal:
+            say("c1_int_vs_plain", checks=checks)
+            raise AssertionError(f"C1 differs from its plain version at "
+                                 f"{checks[-1]}")
+    return checks
+
+
+def c1_phase(conv_fp32, layers, dev):
+    """C1 against its plain version on integers (``c1_checks``); then at
+    each fp32 3×3 shape of the 1408×1872 level at batch 2: its float error
+    against float64 beside the nine cuBLAS products' (conv3x3_taps), at
+    most C1_ERR_OVER_TAPS times theirs; its wall, device time and bound,
+    the plain version's time and cuDNN's fp32 (``library_ms``); then per
+    level of image 0's ``detect`` the convolutions that reach C1, C1's
+    device time and bound beside cuDNN's. Returns the kernels entry."""
+    from smallhardface_tpu_torch.detect import level_sizes
+    checks = c1_checks(conv_fp32, layers, dev)
+    say("c1_int_vs_plain", checks=checks, all_bit_equal=True,
+        reference="layers.conv3x3_taps (nine cuBLAS products) on the card")
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 22)
+    B, rows, worst = 2, [], 0.0
+    for name, C, O, H, W, d, _ in int8_layer_shapes():
+        x, w, b = _c1_float_inputs(gen, B, C, O, H, W, dev)
+        with torch.no_grad():
+            got = conv_fp32.conv3x3_fp32(x, w, b, dilation=d)
+            taps = layers.conv3x3_taps(x, w, b, dilation=d)
+            want = torch.nn.functional.conv2d(
+                x.double(), w.double(), b.double(), padding=d, dilation=d)
+        err = (got.double() - want).abs().max().item()
+        taps_err = (taps.double() - want).abs().max().item()
+        del got, taps, want
+        ratio = err / max(taps_err, 1e-30)
+        worst = max(worst, ratio)
+        call = lambda: conv_fp32.conv3x3_fp32(  # noqa: E731
+            x, w, b, dilation=d, relu=True)
+        before = conv_fp32.conv3x3_fp32.launches
+        row = {"layer": name, "C": C, "O": O, "hw": [H, W], "dilation": d,
+               "plan": list(conv_fp32.plan(H, W, O)), "max_abs_err": err,
+               "taps_max_abs_err": taps_err, "err_over_taps": ratio,
+               "ms": median_ms(call, n=5, warmup=2),
+               "device_ms": graph_ms(call, reps=10, n=3),
+               "plain_ms": median_ms(lambda: layers.conv3x3_taps(
+                   x, w, b, dilation=d), n=3, warmup=1),
+               "library_ms": median_ms(lambda: torch.nn.functional.conv2d(
+                   x, w, b, padding=d, dilation=d), n=3, warmup=1)}
+        conv_fp32.conv3x3_fp32.launches = before
+        row["bound_ms"], row["bound_by"] = c1_bound_ms(B, C, O, H, W)
+        row["of_bound"] = row["bound_ms"] / row["device_ms"]
+        rows.append(row)
+        del x, w, b
+        torch.cuda.empty_cache()
+        if ratio > C1_ERR_OVER_TAPS:
+            say("c1_time", layers=rows)
+            raise AssertionError(f"C1's error is {ratio:.3g}× the nine "
+                                 f"products' at {name}")
+    total = {k: sum(r[k] for r in rows) for k in (
+        "ms", "device_ms", "plain_ms", "library_ms", "bound_ms")}
+    say("c1_time", batch=B, level=list(INT8_LEVEL), layers=rows, sum=total,
+        of_bound=total["bound_ms"] / total["device_ms"],
+        max_err_over_taps=worst, limit_err_over_taps=C1_ERR_OVER_TAPS,
+        reference="F.conv2d in float64 on the same fp32 values",
+        timing="ms: CUDA events around the wrapper, median of 5; "
+               "device_ms: 10 calls in one CUDA graph, median of 3 "
+               "replays; plain, library_ms (cuDNN fp32, TF32 off): CUDA "
+               "events, median of 3; bound: "
+               "bytes at 3.35 TB/s or 2*M*N*K as three TF32 products at "
+               "495 TFLOP/s, the larger")
+    levels = []
+    for *_, hb, wb in level_sizes(IMAGE_SIZES[0]):
+        lv = {"level": [hb, wb], "convs": 0, "device_ms": 0.0,
+              "library_ms": 0.0, "bound_ms": 0.0}
+        for name, C, O, H, W, d, _ in int8_layer_shapes((hb, wb)):
+            if 18.0 * B * H * W * C * O < layers.TAPS_MIN_FLOP:
+                continue
+            x, w, b = _c1_float_inputs(gen, B, C, O, H, W, dev)
+            lv["convs"] += 1
+            lv["device_ms"] += graph_ms(lambda: conv_fp32.conv3x3_fp32(
+                x, w, b, dilation=d, relu=True), reps=10, n=3)
+            lv["library_ms"] += median_ms(
+                lambda: torch.nn.functional.conv2d(
+                    x, w, b, padding=d, dilation=d), n=3, warmup=1)
+            lv["bound_ms"] += c1_bound_ms(B, C, O, H, W)[0]
+            del x, w, b
+        levels.append(lv)
+    torch.cuda.empty_cache()
+    say("c1_detect_levels", image=list(IMAGE_SIZES[0]), batch=B,
+        levels=levels, taps_min_flop=layers.TAPS_MIN_FLOP,
+        timing="device_ms: 10 calls in one CUDA graph, median of 3 "
+               "replays, summed over the level's convolutions that reach "
+               "C1; library_ms: cuDNN fp32 at the same shapes, CUDA "
+               "events, median of 3")
+    return {"name": "conv3x3_fp32", "route": "cuda",
+            "source": "smallhardface_tpu_torch/csrc/conv_fp32.cu",
+            "replaces": None,
+            "replaces_route": "smallhardface_tpu_torch/models/layers.py "
+                              "conv3x3_taps (nine cuBLAS fp32 products)",
+            "max_err_over_taps": worst, "ms": total["ms"],
+            "device_ms": total["device_ms"], "plain_ms": total["plain_ms"],
+            "bound_ms": total["bound_ms"], "bound_by": "operations",
+            "library_ms": total["library_ms"],
+            "timed_as": "the 16 fp32 3x3 convolutions of one batch-2 "
+                        "forward at the 1408x1872 level, summed"}
 
 
 def detect_device_split(det, image, wall_ms, n=2):

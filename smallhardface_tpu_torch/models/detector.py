@@ -484,8 +484,8 @@ class Detector(nn.Module):
             return out
 
         def conv_relu(hs, name, dilation=1):
-            return [F.relu(conv3x3(h, *w_b(i, name), dilation=dilation,
-                                   halo=rows))
+            return [conv3x3(h, *w_b(i, name), dilation=dilation, halo=rows,
+                            relu=True)
                     for i, (h, rows) in enumerate(spatial.halo(hs, dilation))]
 
         def record(name, hs):

@@ -7,12 +7,14 @@ the int8 mode's ``quantize_weights_int8``, ``conv2d_int8`` and
 carriers, ``bilinear_kernel`` (:181-192) and ``upsample2x_bilinear``
 (:195-213). Weights are OIHW, the PyTorch layout; ``io/weights.py``
 converts from the JAX package's HWIO. The fp32 convolutions are cuDNN's,
-or for the large 3×3 ones of detection nine cuBLAS products
-(``conv3x3``); in training the 3×3 ones keep cuDNN's forward, and their
-backward is the nine products' adjoint (``Conv3x3Adjoint``), cuBLAS
-products again: the JAX package leaves them to XLA outside any Pallas
-kernel. The int8 3×3 products run through ``ops/conv_int8.conv3x3_int8``
-(the kernel Q1 on the card).
+or for the large 3×3 ones of detection ``ops/conv_fp32.conv3x3_fp32``
+(``conv3x3``: the kernel C1 on the card, 3xTF32 on the tensor cores, with
+the nine channel products of ``conv3x3_taps`` as its plain version); in
+training the 3×3 ones keep cuDNN's forward, and their backward is the
+nine products' adjoint (``Conv3x3Adjoint``), cuBLAS products: the JAX
+package leaves them to XLA outside any Pallas kernel. The int8 3×3
+products run through ``ops/conv_int8.conv3x3_int8`` (the kernel Q1 on the
+card).
 
 The spatial ops also take a shard of an H-sharded image
 (``parallel/spatial``): ``halo=(top, bottom)`` gives the rows the input
@@ -37,6 +39,7 @@ import torch
 import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
+from smallhardface_tpu_torch.ops.conv_fp32 import conv3x3_fp32
 from smallhardface_tpu_torch.ops.conv_int8 import conv3x3_int8, fdiv
 
 
@@ -70,24 +73,28 @@ def bf16_product(fn, x, w, **kwargs):
     return fn(x.float(), w.float(), **kwargs).to(torch.bfloat16)
 
 
-# From this many FLOP up, a 3×3 convolution of detection runs as nine
-# channel products (conv3x3_taps): over the pyramid levels of WIDER-sized
-# images, cuDNN's heuristic picks FFT algorithms for some convolutions
-# above it, which took up to 0.53 s and 38 GB of workspace a call, while
-# below it cuDNN is the faster of the two and picked none (PERF.md §5).
-# 1.34e10 FLOP is 0.2 ms at the fp32 peak of an H100.
-TAPS_MIN_FLOP = 1.34e10
+# From this many FLOP up, a 3×3 convolution of detection runs as C1
+# (conv3x3_fp32) on the card, as conv3x3_taps on the CPU; below it, as
+# cuDNN's conv2d. Over the 393 shapes of tools/conv_map.py's map below the
+# nine products' old threshold (1.34e10, above which cuDNN's heuristic had
+# picked FFT algorithms of up to 0.53 s and 38 GB a call), C1 took at most
+# 0.67× cuDNN's device time at every shape from 5e9 FLOP up, and lost only
+# at shapes of at most 2.42e9 FLOP, few tiles of 512 channels (`conv_map
+# --threshold`, PERF.md §6). One threshold for every model: it reads only
+# the call's work.
+TAPS_MIN_FLOP = 5e9
 # conv3x3_taps works through the batch a few images at a time, so that its
 # padded input and output take at most this much beyond its output
 TAPS_SCRATCH_BYTES = 2 ** 31
 
 
-def conv3x3(x, w, b, *, dilation=1, halo=(0, 0)):
-    """The forward's 3×3 convolutions, zero padding ``dilation``. Under
-    no_grad / inference_mode, those of at least TAPS_MIN_FLOP run as
-    ``conv3x3_taps``, the rest as cuDNN's ``conv2d``. Where autograd
-    records the call (x, w or b needs a gradient) it runs as
-    ``Conv3x3Adjoint``: cuDNN's forward, and as backward the nine
+def conv3x3(x, w, b, *, dilation=1, halo=(0, 0), relu=False):
+    """The forward's 3×3 convolutions, zero padding ``dilation``, followed
+    by a ReLU where ``relu``. Under no_grad / inference_mode, those of at
+    least TAPS_MIN_FLOP run as ``conv3x3_fp32`` (C1 on the card, the ReLU
+    fused; ``conv3x3_taps`` on the CPU), the rest as cuDNN's ``conv2d``.
+    Where autograd records the call (x, w or b needs a gradient) it runs
+    as ``Conv3x3Adjoint``: cuDNN's forward, and as backward the nine
     products' adjoint (``conv3x3_taps_grad``): with cudnn.deterministic
     at batch 1, cuDNN's data gradient takes FFT algorithms (a memory-bound
     gemv per frequency) at 27 of the 64 shapes of training's buckets, from
@@ -105,14 +112,18 @@ def conv3x3(x, w, b, *, dilation=1, halo=(0, 0)):
     if x.dtype != torch.bfloat16:
         if torch.is_grad_enabled():
             if any(t is not None and t.requires_grad for t in (x, w, b)):
-                return Conv3x3Adjoint.apply(x, w, b, dilation, halo)
+                y = Conv3x3Adjoint.apply(x, w, b, dilation, halo)
+                return F.relu(y) if relu else y
         elif (18.0 * B * (H - halo[0] - halo[1]) * W * C * w.shape[0]
               >= TAPS_MIN_FLOP):
-            return conv3x3_taps(x, w, b, dilation=dilation, halo=halo)
+            return conv3x3_fp32(x, w, b, dilation=dilation, halo=halo,
+                                relu=relu)
     y = conv3x3_cudnn(x, w, b, dilation, halo)
     if y.requires_grad:
         y.register_hook(_count_cudnn_backward)
-    return y
+        return F.relu(y) if relu else y
+    # in place on the convolution's own output, which nothing else holds
+    return y.relu_() if relu else y
 
 
 conv3x3.adjoint_backwards = 0
@@ -161,7 +172,8 @@ class Conv3x3Adjoint(torch.autograd.Function):
 
 def conv3x3_taps(x, w, b, *, dilation=1, halo=(0, 0)):
     """A 3×3 convolution with zero padding ``dilation``, as nine channel
-    products (``torch.addmm``) summed in a fixed order. x: (B, C, H, W) in
+    products (``torch.addmm``) summed in a fixed order: C1's plain version
+    (``ops/conv_fp32``), which runs it for CPU tensors. x: (B, C, H, W) in
     channels_last memory; w: (O, C, 3, 3). Returns (B, O, H, W) in
     channels_last memory, or x's own rows under a ``halo`` (as
     ``conv3x3``).

@@ -28,9 +28,9 @@ parameter is one convolution: {name: {'w': OIHW, 'b': (O,)}}, named by the
 convolution's module in Pytorch_Retinaface's state dict ("body.conv1",
 "body.layer2.0.downsample.0", "fpn.merge1.0", "ssh1.conv3X3.0",
 "ClassHead.0.conv1x1", ...). The stride-1 3×3 convolutions run through
-``layers.conv3x3`` (nine cuBLAS products from ``layers.TAPS_MIN_FLOP``
-up, cuDNN below); the 1×1, the strided and the 7×7 convolutions through
-``layers.conv2d`` (cuDNN).
+``layers.conv3x3`` (C1 in 3xTF32 from ``layers.TAPS_MIN_FLOP`` up, its
+ReLU fused, cuDNN below); the 1×1, the strided and the 7×7 convolutions
+through ``layers.conv2d`` (cuDNN).
 
 A level may run inside a larger bucket: with ``valid_hw`` = (h, w), the
 image's own extent in the input, every position of a map at stride s
@@ -205,9 +205,8 @@ class RetinaFace:
     def _conv(self, h, name, k=1, stride=1, relu=True):
         w, b = self.params[name]["w"], self.params[name]["b"]
         if k == 3 and stride == 1:
-            y = conv3x3(h, w, b)
-        else:
-            y = conv2d(h, w, b, stride=stride, padding=k // 2)
+            return conv3x3(h, w, b, relu=relu)
+        y = conv2d(h, w, b, stride=stride, padding=k // 2)
         return y.relu_() if relu else y
 
     def _bottleneck(self, x, p, stride, s, mask):

@@ -4,7 +4,7 @@ device time beside its bound, the device kernels it launches and the
 device memory the call adds, in fp32 or in bf16.
 
     python -m smallhardface_tpu_torch.tools.conv_map [--levers | --levels |
-        --train] [--dtype bfloat16] [--out conv_map.json]
+        --train | --threshold] [--dtype bfloat16] [--out conv_map.json]
 
 The levels are those of the flagship config (TEST.SCALES 100..1400 over
 PYRAMID_BASE_SIZE 800×1200) for the images in ``IMAGES``, both at the
@@ -15,8 +15,11 @@ mirrors). Each shape runs as the forward runs it (``layers.conv3x3``);
 (``LEVERS``) and traces the ``conv4_fuse_final_dim_red`` shape of the
 1408×1872 level through cuDNN cold and warm; ``--levels`` times the
 flagship detector's forward per level and ``detect`` instead.
-``--dtype bfloat16`` runs the map (and ``--levels``' forward and
-``detect``, under TPU.PRECISION "bfloat16") in bf16, against the bf16
+``--threshold`` times only the shapes below ``layers.TAPS_MIN_FLOP``
+(which run on cuDNN) under cuDNN and under C1 (``ops/conv_fp32``), the
+measurement the threshold rests on. ``--dtype bfloat16`` runs the map
+(and ``--levels``' forward and ``detect``, under TPU.PRECISION
+"bfloat16") in bf16, against the bf16
 bound; its ``--levers`` are cuDNN with the bias fused and the taps summed
 in fp32. ``--train`` maps the flagship training step's 3×3 convolutions
 with a trainable weight instead, at its buckets (``train_buckets``,
@@ -41,6 +44,7 @@ import torch
 import torch.nn.functional as F
 
 from smallhardface_tpu_torch.models import layers
+from smallhardface_tpu_torch.ops.conv_fp32 import conv3x3_fp32
 from smallhardface_tpu_torch.tools.measure import (PEAK_BF16, PEAK_BYTES,
                                                    PEAK_FP32)
 
@@ -195,9 +199,14 @@ def port(x, w, b, d):
     return layers.conv3x3(x, w, b, dilation=d)
 
 
+def c1(x, w, b, d):
+    """C1 (``ops/conv_fp32.conv3x3_fp32``) at any FLOP count."""
+    return conv3x3_fp32(x, w, b, dilation=d)
+
+
 LEVERS = {"port": port, "cudnn": cudnn, "cudnn_b1": cudnn_b1,
           "cudnn_nchw": cudnn_nchw, "cudnn_nondet": cudnn_nondet,
-          "taps": taps, "gemm9": gemm9}
+          "taps": taps, "gemm9": gemm9, "c1": c1}
 # scratch of gemm9's product beyond which it is not timed
 GEMM9_BYTES = 4e9
 
@@ -315,9 +324,11 @@ def time_call(fn):
 
 @torch.inference_mode()
 def conv_map(dev, levers=("port",), profile_over=5.0, log=print,
-             dtype=torch.float32, images=IMAGES, batches=BATCHES):
-    """Time every distinct shape of ``shape_map(images, batches)`` under
-    each lever, under inference_mode as detection runs them, on inputs of
+             dtype=torch.float32, images=IMAGES, batches=BATCHES,
+             select=lambda shape: True):
+    """Time every distinct shape of ``shape_map(images, batches)`` that
+    ``select`` takes under each lever, under inference_mode as detection
+    runs them, on inputs of
     ``dtype`` against that dtype's bound; in bf16 the forward's way is
     also held against the fp32 sum rounded once (``bf16_vs_fp32``). A
     shape's kernels
@@ -328,6 +339,8 @@ def conv_map(dev, levers=("port",), profile_over=5.0, log=print,
     rows = []
     for shape, where in sorted(shape_map(images, batches).items(),
                                key=lambda kv: kv[0]):
+        if not select(shape):
+            continue
         B, C, O, H, W, d = shape
         bnd, by, flop = bound_ms(B, C, O, H, W, dtype)
         x, w, b = inputs(shape, dev, gen, dtype)
@@ -547,6 +560,9 @@ def level_walls(dev, image_hw=(768, 1024), reps=3, precision="float32"):
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--levers", action="store_true")
+    p.add_argument("--threshold", action="store_true",
+                   help="only the shapes below layers.TAPS_MIN_FLOP, "
+                        "under cuDNN and C1")
     p.add_argument("--levels", action="store_true",
                    help="only the per-level forward and detect walls")
     p.add_argument("--train", action="store_true",
@@ -574,6 +590,11 @@ def main(argv=None):
     elif args.levels:
         result["level_walls"] = level_walls(dev, precision=args.dtype)
         log(result["level_walls"])
+    elif args.threshold:
+        result["threshold"] = conv_map(
+            dev, levers=("cudnn", "c1"), log=log, select=lambda s: (
+                18.0 * s[0] * s[3] * s[4] * s[1] * s[2]
+                < layers.TAPS_MIN_FLOP))
     else:
         bf16 = dtype == torch.bfloat16
         if args.levers and not bf16:

@@ -64,6 +64,14 @@ a machine that has only PyTorch:
   (``tests/test_torch_port_conv_int8_tiles.py`` models the same shapes on
   the CPU); on outputs that are all ties (settled without its reciprocal
   product) and on steps at both ends of the range its product takes;
+- C1 (the fp32 3×3 convolution of detection, csrc/conv_fp32.cu, 3xTF32
+  on the tensor cores): equal to the bit to its plain version (the nine
+  products of ``layers.conv3x3_taps``, then the ReLU) on small integers,
+  at dilations 1, 2 and 4, with a shard's halo above or below, from 64 to
+  512 channels, at the edges of its tiling and on inputs that are not
+  channels_last; on floats its largest error against float64 at most
+  twice the nine cuBLAS products', the same from run to run; its wrapper
+  refuses channel counts its tiles do not take;
 - bf16 (TPU.PRECISION = "bfloat16"): a bf16 convolution as the forward
   runs it against the fp32 sum of the same bf16 products rounded once,
   then its bf16 bias; the flagship bf16 forward and a bf16 detect on the
@@ -777,6 +785,100 @@ def test_conv_int8_kernel_steps_at_the_ends_of_the_range(cuda, step):
 # comparison on a crowded image to 0.90)
 BF16_CONV_MAX_DIFFER = 0.01
 BF16_MATCH_MIN = 0.95
+
+
+def _c1_int_inputs(device, B, C, O, H, W, seed=0):
+    """C1's integer recipe: |x| <= 64, |w| <= 8, |b| <= 100, so every value
+    is its own TF32 hi and every product and sum is exact in fp32."""
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randint(-64, 65, (B, C, H, W), generator=gen).float()
+    w = torch.randint(-8, 9, (O, C, 3, 3), generator=gen).float()
+    b = torch.randint(-100, 101, (O,), generator=gen).float()
+    return (x.to(device).contiguous(memory_format=torch.channels_last),
+            w.to(device), b.to(device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dilation", [1, 2, 4])
+@pytest.mark.parametrize("halo", ["none", "top", "bottom"])
+@pytest.mark.parametrize("B,C,O,relu", [(1, 64, 128, True),
+                                        (2, 128, 64, False),
+                                        (2, 512, 512, True)])
+def test_conv_fp32_kernel_vs_plain_on_integers(cuda, dilation, halo, B, C,
+                                               O, relu):
+    """C1 (csrc/conv_fp32.cu) equal to the bit to its plain version (the
+    nine products of ``layers.conv3x3_taps``, then the ReLU) on the integer
+    recipe, at dilations 1, 2 and 4, with a shard's halo above or below,
+    on a ragged tile; one launch, a channels_last output."""
+    from smallhardface_tpu_torch.models import layers
+    from smallhardface_tpu_torch.ops import conv_fp32
+    rows = {"none": (0, 0), "top": (dilation, 0),
+            "bottom": (0, dilation)}[halo]
+    x, w, b = _c1_int_inputs(cuda, B, C, O, 19 + sum(rows), 23)
+    before = conv_fp32.conv3x3_fp32.launches
+    got = conv_fp32.conv3x3_fp32(x, w, b, dilation=dilation, halo=rows,
+                                 relu=relu)
+    want = layers.conv3x3_taps(x, w, b, dilation=dilation, halo=rows)
+    if relu:
+        want = want.relu_()
+    torch.cuda.synchronize()
+    assert conv_fp32.conv3x3_fp32.launches == before + 1
+    assert got.shape == (B, O, 19, 23)
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,W,C,O", [(1, 1, 37, 64, 64),   # H = 1
+                                       (2, 40, 5, 64, 128),  # W under a tile
+                                       (1, 3, 3, 256, 128),  # d 4 beyond it
+                                       (3, 17, 130, 64, 192)])
+def test_conv_fp32_kernel_tile_edges(cuda, B, H, W, C, O):
+    """C1 at the edges of its tiling, equal to the bit to its plain
+    version on the integer recipe, also on an input that is not
+    channels_last (read from a copy) and one whose rows are a view."""
+    from smallhardface_tpu_torch.models import layers
+    from smallhardface_tpu_torch.ops import conv_fp32
+    x, w, b = _c1_int_inputs(cuda, B, C, O, H + 2, W, seed=1)
+    for xi in (x, x.contiguous(), x[:, :, 1:H + 1]):
+        got = conv_fp32.conv3x3_fp32(xi, w, b, dilation=4)
+        want = layers.conv3x3_taps(xi, w, b, dilation=4)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_conv_fp32_kernel_float_error_is_the_products_size(cuda):
+    """On floats (post-ReLU inputs, He-scaled weights) C1's largest error
+    against a float64 reference is at most twice that of the nine cuBLAS
+    fp32 products (chip_smoke.py's C1_ERR_OVER_TAPS), and two calls agree
+    to the bit."""
+    from smallhardface_tpu_torch.models import layers
+    from smallhardface_tpu_torch.ops import conv_fp32
+    gen = torch.Generator().manual_seed(4)
+    x = torch.relu(torch.randn((2, 256, 40, 56), generator=gen)).to(cuda)
+    x = x.contiguous(memory_format=torch.channels_last)
+    w = (torch.randn((256, 256, 3, 3), generator=gen) / 48).to(cuda)
+    b = (torch.randn((256,), generator=gen) * 0.1).to(cuda)
+    got = conv_fp32.conv3x3_fp32(x, w, b, dilation=2)
+    again = conv_fp32.conv3x3_fp32(x, w, b, dilation=2)
+    taps = layers.conv3x3_taps(x, w, b, dilation=2)
+    want = torch.nn.functional.conv2d(x.double(), w.double(), b.double(),
+                                      padding=2, dilation=2)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    err = (got.double() - want).abs().max().item()
+    taps_err = (taps.double() - want).abs().max().item()
+    assert err <= 2.0 * taps_err, (err, taps_err)
+
+
+@pytest.mark.cuda
+def test_conv_fp32_wrapper_refuses_what_the_tiles_do_not_take(cuda):
+    from smallhardface_tpu_torch.ops import conv_fp32
+    for C, O in ((96, 64), (64, 96)):
+        x, w, b = _c1_int_inputs(cuda, 1, C, O, 8, 8)
+        with pytest.raises(ValueError, match="multiple"):
+            conv_fp32.conv3x3_fp32(x, w, b)
 
 
 @pytest.mark.cuda

@@ -144,6 +144,108 @@ def test_conv3x3_route(monkeypatch):
         3, 1)
 
 
+def _tf32_rna_model(a):
+    """NumPy model of ``cvt.rna.tf32.f32`` in float64: a normal a rounded
+    to 11 significant bits (10 fraction bits), a subnormal one to the grid
+    of 2^-136 (TF32's own subnormal step), to nearest, ties away from
+    zero."""
+    a = np.asarray(a, np.float64)
+    mant, exp = np.frexp(a)                 # |mant| in [0.5, 1)
+    step = np.where(np.abs(a) >= 2.0 ** -126, np.ldexp(1.0, exp - 11),
+                    2.0 ** -136)
+    q = a / step                            # exact: a power-of-two scaling
+    return np.sign(q) * np.floor(np.abs(q) + 0.5) * step
+
+
+@pytest.mark.parametrize("kind", ["normal", "ties", "wide", "subnormal"])
+def test_tf32_split_matches_a_numpy_model(kind):
+    """``ops/conv_fp32``'s plain TF32 rounding (C1's split of x in
+    registers and of w in its scratch) against a NumPy model of
+    ``cvt.rna.tf32.f32``: hi is the model's rounding of a and a TF32
+    pattern (its 13 low fraction bits 0), lo the model's rounding of
+    a - hi, and hi + lo is a to 2^-22 of |a| where a - hi is no subnormal
+    (whose TF32 step is coarser)."""
+    from smallhardface_tpu_torch.ops import conv_fp32
+    rng = np.random.RandomState(["normal", "ties", "wide",
+                                 "subnormal"].index(kind))
+    if kind == "ties":          # exactly half a TF32 step above a pattern
+        bits = (rng.randint(0x0c000000, 0x7e000000, 4096) & ~0x1fff) | 0x1000
+        a = bits.astype(np.uint32).view(np.float32)
+    elif kind == "wide":
+        a = (rng.randn(4096) * 2.0 ** rng.randint(-90, 90, 4096))
+    elif kind == "subnormal":
+        a = rng.randn(4096) * 2.0 ** -130
+    else:
+        a = rng.randn(4096)
+    a = (np.asarray(a, np.float32) * np.where(rng.rand(4096) < 0.5, -1, 1)
+         ).astype(np.float32)
+    hi, lo = conv_fp32.tf32_split(torch.from_numpy(a))
+    hi, lo = hi.numpy(), lo.numpy()
+    assert not (hi.view(np.uint32) & 0x1fff).any()
+    assert not (lo.view(np.uint32) & 0x1fff).any()
+    np.testing.assert_array_equal(hi.astype(np.float64), _tf32_rna_model(a))
+    rest = a.astype(np.float64) - hi
+    assert np.array_equal(rest.astype(np.float32).astype(np.float64), rest)
+    np.testing.assert_array_equal(lo.astype(np.float64),
+                                  _tf32_rna_model(rest))
+    if kind != "subnormal":
+        a64 = a.astype(np.float64)
+        assert (np.abs(a64 - hi - lo) <= 2.0 ** -22 * np.abs(a64)).all()
+    if kind == "ties":          # away from zero: the magnitude goes up
+        assert (np.abs(hi) > np.abs(a)).all()
+
+
+@pytest.mark.parametrize("relu", [False, True])
+@pytest.mark.parametrize("halo", [(0, 0), (2, 0), (0, 2), (2, 2)])
+def test_conv3x3_fp32_route_on_cpu(halo, relu, monkeypatch):
+    """From TAPS_MIN_FLOP up under no_grad, conv3x3 goes to
+    ``conv3x3_fp32``, whose CPU path is its plain version: the nine
+    products (``conv3x3_taps``), then the ReLU where asked; no kernel
+    launches. At any channel count: the CPU path takes what C1 refuses."""
+    from smallhardface_tpu_torch.ops import conv_fp32
+    rng = np.random.RandomState(20 + sum(halo) + relu)
+    x = torch.from_numpy(rng.randn(2, 8, 9, 7).astype(np.float32)
+                         ).contiguous(memory_format=torch.channels_last)
+    w = torch.from_numpy(rng.randn(6, 8, 3, 3).astype(np.float32))
+    b = torch.from_numpy(rng.randn(6).astype(np.float32))
+    want = tl.conv3x3_taps(x, w, b, dilation=2, halo=halo)
+    if relu:
+        want = torch.relu(want)
+    monkeypatch.setattr(tl, "TAPS_MIN_FLOP", 0.0)
+    monkeypatch.setattr(conv_fp32.conv3x3_fp32, "launches", 0)
+    with torch.no_grad():
+        got = tl.conv3x3(x, w, b, dilation=2, halo=halo, relu=relu)
+    assert got.shape == (2, 6, 9 - sum(halo), 7)
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(got, want)
+    assert torch.equal(conv_fp32.conv3x3_fp32(x, w, b, dilation=2, halo=halo,
+                                              relu=relu), want)
+    assert conv_fp32.conv3x3_fp32.launches == 0
+    monkeypatch.setattr(tl, "TAPS_MIN_FLOP", float("inf"))
+    with torch.no_grad():
+        cudnn = tl.conv3x3(x, w, b, dilation=2, halo=halo, relu=relu)
+    _close(_nhwc(cudnn), _nhwc(want))
+
+
+@pytest.mark.parametrize("C,O", [(96, 64), (64, 96), (32, 128), (64, 3)])
+def test_conv3x3_fp32_refuses_channel_counts(C, O):
+    """Off the CPU the wrapper launches C1 or raises: C and O must be
+    multiples of 64 (its K steps and channel blocks). The check comes
+    before any launch, so a tensor without data (device "meta") shows it
+    here."""
+    from smallhardface_tpu_torch.ops import conv_fp32
+    before = conv_fp32.conv3x3_fp32.launches
+    x = torch.empty((1, C, 8, 8), device="meta")
+    w = torch.empty((O, C, 3, 3), device="meta")
+    with pytest.raises(ValueError, match="multiples of 64"):
+        conv_fp32.conv3x3_fp32(x, w, torch.empty(O, device="meta"))
+    with pytest.raises(ValueError, match="float32 CUDA tensors"):
+        conv_fp32.conv3x3_fp32(torch.empty((1, 64, 8, 8), device="meta"),
+                               torch.empty((64, 64, 3, 3), device="meta"),
+                               torch.empty(64, device="meta"))
+    assert conv_fp32.conv3x3_fp32.launches == before
+
+
 def _conv3x3_vjp_jax(x, w, b, dy, dilation, halo):
     """(y, dx, dw, db) of the JAX package's conv2d at padding ``dilation``
     with a shard's halo rows: the own rows of the symmetric convolution
