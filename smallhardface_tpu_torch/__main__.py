@@ -290,8 +290,8 @@ def _train(device, handlers, own_command_line):
 
 
 def _test(device, handlers, own_command_line):
+    from smallhardface_tpu_torch import models
     from smallhardface_tpu_torch.datasets.factory import get_imdb
-    from smallhardface_tpu_torch.models import retinaface
     from smallhardface_tpu_torch.test_runner import test_net
 
     if cfg.TEST.DEMO.ENABLE:
@@ -306,12 +306,9 @@ def _test(device, handlers, own_command_line):
             cfg_dump({i: cfg[i] for i in cfg if i != "TRAIN"}, f)
     tb.sess.add_text(
         "test_cfg", cfg_table({i: cfg[i] for i in cfg if i != "TRAIN"}))
-    # the detection cut: lib/test.py's 0.05, or RetinaFace's
-    # test_widerface.py's 0.02
-    thresh = (retinaface.CONFIDENCE_THRESHOLD
-              if str(cfg.MODEL.ARCH) == retinaface.ARCH else 0.05)
     try:
-        return test_net(imdb, output_dir, thresh=thresh,
+        return test_net(imdb, output_dir,
+                        thresh=models.for_config(cfg).CONFIDENCE_THRESHOLD,
                         no_cache=cfg.TEST.NO_CACHE, device=device)
     except Exception as e:       # filtered inside: execs away or re-raises
         _maybe_auto_resume_test(e, own_command_line)

@@ -41,13 +41,13 @@ bf16 mode (JAX detect.py:121-123): preprocessing stays fp32, the forward
 runs in bf16 (``Detector.forward``) and gives fp32 logits, and softmax,
 decode, the merge and the vote run in fp32 as in the other modes.
 
-``MODEL.ARCH = "retinaface_r50"`` runs RetinaFace (``models/retinaface``)
-on the same path: preprocessing, the merge and the vote are shared; each
-level runs at its ×MAX_RESOLUTION shape (32 in its TOML) with the image
-masked to its own extent at every stride, and ``_decode_retina`` decodes
-the level's three maps (the priors' variance decode, no clip). It runs
-one fp32 image at a time: int8, bf16, spatial sharding,
-``TPU.HOST_PREPROC`` and ``detect_many`` raise.
+The network is the model of ``MODEL.ARCH`` (``models.for_config``):
+preprocessing, the merge and the vote are shared by every model; the model
+answers what it refuses, what its forward masks a level to and one level's
+decode into rows in network-input coordinates, and ``_image_rows`` takes
+those rows to original-image coordinates for every model alike. Each
+level runs at its extent rounded up to ×MAX_RESOLUTION, which the model's
+TOML sets (the "×16 shapes" below).
 
 Spatial sharding (``TPU.SPATIAL_DEVICES`` = k > 1, JAX detect.py:92-137,
 :366-379, :560-568): the detector runs each level's rows over a unit of k
@@ -71,10 +71,9 @@ import math
 import numpy as np
 import torch
 
+from smallhardface_tpu_torch import models
 from smallhardface_tpu_torch.config import cfg
 from smallhardface_tpu_torch.models import detector as detector_mod
-from smallhardface_tpu_torch.models import retinaface as retina_mod
-from smallhardface_tpu_torch.ops import anchors as anchors_mod
 from smallhardface_tpu_torch.ops import decode as decode_mod
 from smallhardface_tpu_torch.ops import native as nms_host
 from smallhardface_tpu_torch.ops import nms_device
@@ -226,13 +225,9 @@ class TorchDetector:
             raise ValueError(
                 f"TPU.PRECISION={precision!r}: expected 'float32', "
                 "'bfloat16' or 'int8'")
-        arch = str(cfg.MODEL.ARCH)
-        if arch not in ("smallhardface", retina_mod.ARCH):
-            raise ValueError(f"MODEL.ARCH={arch!r}: expected "
-                             f"'smallhardface' or {retina_mod.ARCH!r}")
-        self.retina = arch == retina_mod.ARCH
-        if self.retina:
-            _refuse_for_retina(precision, spatial_devices)
+        # the model of MODEL.ARCH (models.for_config)
+        self.arch = models.for_config(cfg)
+        self.arch.refuse(cfg, "detect", spatial_devices)
         if precision == "int8":
             mode = str(cfg.TPU.MASK_MODE)
             if mode not in ("band", "band_margin", "where", "exact"):
@@ -262,17 +257,7 @@ class TorchDetector:
             device = self.spatial[0]
         self.device = resolve_device(device)
         self.spec = spec or detector_mod.build_spec(cfg)
-        if self.retina:
-            self.model = retina_mod.RetinaFace(params, self.device)
-            # RetinaFace's prior grids, by map shape and stride
-            self._priors = {}
-        else:
-            self.model = detector_mod.Detector(params, self.spec, self.device)
-        self.base_anchors = anchors_mod.generate_anchors(
-            base_size=16, ratios=[1],
-            scales=list(detector_mod.ANCHOR_SCALES),
-            shifts=[0],
-            strides=[detector_mod.FEAT_STRIDE] * 3)
+        self.model = self.arch.build(params, self.spec, self.device)
         cap = int(cfg.TPU.DET_CAPACITY)
         self.capacity = cap if cap > 0 else int(cfg.TEST.N_DETS_PER_MODULE)
         self.mean = torch.tensor(np.asarray(cfg.PIXEL_MEANS, np.float32)
@@ -444,99 +429,23 @@ class TorchDetector:
             lvs = [p["levels"][li] for p in preps]
             hb, wb = ((lvs[0]["bh"], lvs[0]["bw"]) if bucketed
                       else (lvs[0]["hb"], lvs[0]["wb"]))
-            per_item = lambda k, site: self._upload(  # noqa: E731
-                [lv[k] for lv in lvs], site, li).repeat_interleave(reps)
-            # the forward masks each item to its own ×16 extent in a bucket
-            # (uploaded before the level's stages open); RetinaFace masks
-            # the image to its extent (h_s, w_s) at every stride
-            if self.retina:
-                valid = (lvs[0]["h_s"], lvs[0]["w_s"])
-            else:
-                valid = ((per_item("hb", "wait_extents"),
-                          per_item("wb", "wait_extents")) if bucketed
-                         else None)
+            upload = functools.partial(self._upload, level=li)
+            # the extent the forward masks each item to, uploaded before
+            # the level's stages open
+            valid = self.model.level_extent(
+                lvs, functools.partial(upload, site="wait_extents"), reps,
+                bucketed)
             out = self._forward_level(imgs, lvs, hb, wb, valid, li)
             with self.stages("decode", li):
-                boxes, scores = self._decode_level(out, lvs, per_item, n,
-                                                   reps, st, li)
+                rows = self.model.decode_level(
+                    out, lvs, functools.partial(upload, site="wait_decode"),
+                    reps, st, self.capacity,
+                    functools.partial(self.stages, "wait_decode", li))
+                boxes, scores = _image_rows(*rows, n, reps)
             all_boxes.append(boxes)
             all_scores.append(scores)
         with self.stages("decode"):
             return torch.cat(all_boxes, dim=1), torch.cat(all_scores, dim=1)
-
-    def _decode_level(self, out, lvs, per_item, n, reps, st, level):
-        """One level's rows of N images: the foreground softmax, decode at
-        each item's extent (``per_item(field, site)``: a level field per
-        item), the mirror's boxes un-mirrored about each w_s, all in
-        original-image coordinates; boxes (N, reps·cap, 4) and scores
-        (N, reps·cap), -inf on empty slots."""
-        if self.retina:
-            return self._decode_retina(out, lvs[0], n, reps, st)
-        dev = self.device
-        site = "wait_decode"
-        probs = torch.softmax(out["cls_logits"], dim=-1)[..., 1]
-        boxes, scores, counts = decode_mod.decode_proposals_batch(
-            probs, out["bbox_deltas"], self.base_anchors,
-            feat_stride=detector_mod.FEAT_STRIDE,
-            im_h=per_item("h_s", site).float(),
-            im_w=per_item("w_s", site).float(),
-            valid_h=per_item("hb", site) // detector_mod.FEAT_STRIDE,
-            valid_w=per_item("wb", site) // detector_mod.FEAT_STRIDE,
-            score_thresh=st, min_size=0.0, capacity=self.capacity,
-            wait=functools.partial(self.stages, site, level))
-        cap = boxes.shape[1]
-        boxes = boxes.view(n, reps, cap, 4)
-        slot = torch.arange(cap, device=dev)
-        row_ok = slot < counts.view(n, reps, 1)
-        if cfg.TEST.FLIP:
-            # un-mirror in network-input space, about each w_s
-            ws_f = self._upload([float(lv["w_s"]) for lv in lvs], site,
-                                level)[:, None]
-            m = boxes[:, 1]
-            flipped = torch.stack([ws_f - m[..., 2], m[..., 1],
-                                   ws_f - m[..., 0], m[..., 3]], dim=-1)
-            boxes = torch.stack([boxes[:, 0], flipped], dim=1)
-        inv_fx = self._upload([lv["inv_fx"] for lv in lvs], site, level)
-        boxes = boxes * inv_fx[:, None, None, None]
-        scores = torch.where(row_ok, scores.view(n, reps, cap),
-                             -float("inf"))
-        return boxes.reshape(n, -1, 4), scores.reshape(n, -1)
-
-    def _decode_retina(self, out, lv, n, reps, st):
-        """``_decode_level`` of RetinaFace, for one image (N = 1) of level
-        metadata ``lv``: the foreground softmax of each of the level's
-        three maps, the priors' variance decode over each map's valid grid
-        ceil(h_s / step) × ceil(w_s / step) (the extent the image has when
-        run at its own size), the maps' rows selected together, the
-        mirror's boxes un-mirrored about w_s, all scaled to original-image
-        coordinates. The extents are host numbers: nothing waits."""
-        dev = self.device
-        probs = [torch.softmax(c, dim=-1)[..., 1] for c in out["cls_logits"]]
-        priors, valid = [], []
-        for p, step, sizes in zip(probs, retina_mod.STEPS,
-                                  retina_mod.MIN_SIZES):
-            key = (p.shape[1], p.shape[2], step)
-            if key not in self._priors:
-                self._priors[key] = anchors_mod.prior_grid(*key, sizes, dev)
-            priors.append(self._priors[key])
-            valid.append((-(-lv["h_s"] // step), -(-lv["w_s"] // step)))
-        boxes, scores, counts = decode_mod.decode_priors_batch(
-            probs, out["bbox_deltas"], priors, valid=valid,
-            variances=retina_mod.VARIANCES, score_thresh=st,
-            capacity=self.capacity)
-        cap = boxes.shape[1]
-        boxes = boxes.view(n, reps, cap, 4)
-        row_ok = torch.arange(cap, device=dev) < counts.view(n, reps, 1)
-        if cfg.TEST.FLIP:
-            ws = float(lv["w_s"])
-            m = boxes[:, 1]
-            flipped = torch.stack([ws - m[..., 2], m[..., 1],
-                                   ws - m[..., 0], m[..., 3]], dim=-1)
-            boxes = torch.stack([boxes[:, 0], flipped], dim=1)
-        boxes = boxes * lv["inv_fx"]
-        scores = torch.where(row_ok, scores.view(n, reps, cap),
-                             -float("inf"))
-        return boxes.reshape(n, -1, 4), scores.reshape(n, -1)
 
     def _scale_groups(self, lvs, level=None):
         """The dynamic int8 mode's step groups of one level's batch (image
@@ -685,12 +594,9 @@ class TorchDetector:
         Under TPU.HOST_PREPROC there is no batched device path: rather
         than run another numeric path than asked, it runs ``detect`` per
         image with a one-time warning, and refuses ``score_thresh``, which
-        the host path does not take. RetinaFace has no batched path: it
-        raises."""
-        if self.retina:
-            raise NotImplementedError(
-                "detect_many: RetinaFace (MODEL.ARCH='retinaface_r50') runs "
-                "one image at a time; use detect or detect_async")
+        the host path does not take. A model may refuse it
+        (``refuse(cfg, "detect_many")``)."""
+        self.arch.refuse(cfg, "detect_many")
         if self.host_preproc:
             if score_thresh is not None:
                 raise ValueError(
@@ -747,7 +653,7 @@ class TorchDetector:
                              precision=self.precision, qstate=self.qstate)
             probs = torch.softmax(out["cls_logits"], dim=-1)[..., 1]
             boxes, scores, counts = decode_mod.decode_proposals_batch(
-                probs, out["bbox_deltas"], self.base_anchors,
+                probs, out["bbox_deltas"], detector_mod.BASE_ANCHORS,
                 feat_stride=detector_mod.FEAT_STRIDE,
                 im_h=float(im_h), im_w=float(im_w),
                 valid_h=h16 // detector_mod.FEAT_STRIDE,
@@ -823,21 +729,23 @@ def top_rows(boxes, scores, keep, cap):
     return dets, n
 
 
-def _refuse_for_retina(precision, spatial_devices):
-    """RetinaFace runs the single-image fp32 device path only (PERF.md §7):
-    a ValueError for any other precision, spatial sharding or the host
-    preprocessing path."""
-    name = f"MODEL.ARCH={retina_mod.ARCH!r}"
-    if precision != "float32":
-        raise ValueError(f"{name} runs in float32 only; TPU.PRECISION="
-                         f"{precision!r} is the smallhardface detector's")
-    if ((spatial_devices is not None and len(spatial_devices) > 1)
-            or int(cfg.TPU.SPATIAL_DEVICES) > 1):
-        raise ValueError(f"{name} has no spatially sharded path; set "
-                         "TPU.SPATIAL_DEVICES 1")
-    if bool(cfg.TPU.HOST_PREPROC):
-        raise ValueError(f"{name} has no host preprocessing path; set "
-                         "TPU.HOST_PREPROC false")
+def _image_rows(boxes, scores, counts, w_s, inv_fx, n, reps):
+    """A model's ``decode_level`` rows of N images (boxes (N·F, cap, 4) in
+    network-input coordinates, scores, counts, and each image's w_s and
+    inv_fx, tensors or numbers) in original-image coordinates: boxes
+    (N, F·cap, 4) and scores (N, F·cap), the mirror's boxes flipped back
+    about w_s, all scaled by inv_fx, -inf past each count."""
+    cap = boxes.shape[1]
+    boxes = boxes.view(n, reps, cap, 4)
+    row_ok = torch.arange(cap, device=boxes.device) < counts.view(n, reps, 1)
+    if reps == 2:
+        m = boxes[:, 1]
+        flipped = torch.stack([w_s - m[..., 2], m[..., 1],
+                               w_s - m[..., 0], m[..., 3]], dim=-1)
+        boxes = torch.stack([boxes[:, 0], flipped], dim=1)
+    boxes = boxes * inv_fx
+    scores = torch.where(row_ok, scores.view(n, reps, cap), -float("inf"))
+    return boxes.reshape(n, -1, 4), scores.reshape(n, -1)
 
 
 def _indexed(device):

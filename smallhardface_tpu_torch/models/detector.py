@@ -31,10 +31,13 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from smallhardface_tpu_torch.io import caffemodel, weights
 from smallhardface_tpu_torch.models.layers import (
     bilinear_kernel, conv2d, conv2d_int8, conv2d_int8_chain, conv3x3,
     dynamic_amax, dynamic_step, kernel_weights, max_pool_2x2, quantize_int8,
     quantize_weights_int8, upsample2x_bilinear, zero_outside)
+from smallhardface_tpu_torch.ops import anchors as anchors_mod
+from smallhardface_tpu_torch.ops import decode as decode_mod
 from smallhardface_tpu_torch.ops.stem import fused_stem, fused_stem_spatial
 from smallhardface_tpu_torch.parallel import spatial
 
@@ -47,9 +50,16 @@ VGG_STAGES = (
     ("conv5", 512, 3),
 )
 
+ARCH = "smallhardface"
+# lib/test.py's detection cut
+CONFIDENCE_THRESHOLD = 0.05
 ANCHOR_SCALES = (1, 2, 4)
 HEAD_DILATIONS = (1, 2, 4)
 FEAT_STRIDE = 8
+# the anchors of one stride-8 cell, one per scale (x1, y1, x2, y2)
+BASE_ANCHORS = anchors_mod.generate_anchors(
+    base_size=16, ratios=[1], scales=list(ANCHOR_SCALES), shifts=[0],
+    strides=[FEAT_STRIDE] * 3)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -253,6 +263,32 @@ def scope_names(spec: ModelSpec):
     else:
         names += ["head", "cls_score", "bbox_pred"]
     return names
+
+
+def build(params, spec: ModelSpec, device):
+    """The forward for detection (``models.for_config``)."""
+    return Detector(params, spec, device)
+
+
+def refuse(cfg, path, spatial_devices=None):
+    """Nothing: this detector runs every path (``models.for_config``)."""
+
+
+def load_params(path, spec: ModelSpec, seed):
+    """TEST.MODEL (``path``): random init from ``seed`` when empty; a
+    ``.caffemodel`` loaded by layer name over that init (JAX
+    test_runner.py:31-43); else an ``.npz`` checkpoint of either package."""
+    if not path or path.endswith(".caffemodel"):
+        params = init_params(torch.Generator().manual_seed(seed), spec)
+        if not path:
+            return params
+        return caffemodel.load_into_params(path, params)
+    return weights.load_params(path)
+
+
+def _per_item(upload, lvs, key, reps):
+    """Level field ``key`` uploaded, once per item (image, mirror)."""
+    return upload([lv[key] for lv in lvs]).repeat_interleave(reps)
 
 
 def pin_fp32_numerics():
@@ -595,6 +631,36 @@ class Detector(nn.Module):
         return {"cls_logits": spatial.gather(cls_logits).float().contiguous(),
                 "bbox_deltas": spatial.gather(bbox_deltas).float()
                 .contiguous()}
+
+    def level_extent(self, lvs, upload, reps, bucketed):
+        """What ``forward`` masks a level of N images (metadata ``lvs``,
+        F = ``reps`` items each) to: each item's ×16 extent in a shared
+        bucket (``bucketed``), uploaded by ``upload(values)``; else None."""
+        if not bucketed:
+            return None
+        return (_per_item(upload, lvs, "hb", reps),
+                _per_item(upload, lvs, "wb", reps))
+
+    def decode_level(self, out, lvs, upload, reps, score_thresh, capacity,
+                     wait):
+        """One level's rows of N images (``detect._image_rows``):
+        the anchor decode clipped to each item's extent, level fields
+        uploaded by ``upload``, ``wait()`` around the anchor grid's copy;
+        w_s (N, 1) and inv_fx (N, 1, 1, 1) on the device."""
+        probs = torch.softmax(out["cls_logits"], dim=-1)[..., 1]
+        boxes, scores, counts = decode_mod.decode_proposals_batch(
+            probs, out["bbox_deltas"], BASE_ANCHORS,
+            feat_stride=FEAT_STRIDE,
+            im_h=_per_item(upload, lvs, "h_s", reps).float(),
+            im_w=_per_item(upload, lvs, "w_s", reps).float(),
+            valid_h=_per_item(upload, lvs, "hb", reps) // FEAT_STRIDE,
+            valid_w=_per_item(upload, lvs, "wb", reps) // FEAT_STRIDE,
+            score_thresh=score_thresh, min_size=0.0, capacity=capacity,
+            wait=wait)
+        w_s = (upload([float(lv["w_s"]) for lv in lvs])[:, None]
+               if reps == 2 else None)
+        inv_fx = upload([lv["inv_fx"] for lv in lvs])[:, None, None, None]
+        return boxes, scores, counts, w_s, inv_fx
 
 
 def int8_layer_names(spec: ModelSpec):

@@ -41,7 +41,7 @@ Pytorch_Retinaface runs it). Outputs beyond each level's valid grid are
 not meaningful.
 
 Inference in float32 only; int8, bf16, training, spatial sharding and
-batched detection raise (PERF.md §7).
+batched detection raise (``refuse``, PERF.md §7).
 """
 
 from __future__ import annotations
@@ -51,8 +51,10 @@ import math
 import torch
 import torch.nn.functional as F
 
+from smallhardface_tpu_torch.io import weights
 from smallhardface_tpu_torch.models.detector import pin_fp32_numerics, scope
 from smallhardface_tpu_torch.models.layers import conv2d, conv3x3
+from smallhardface_tpu_torch.ops import anchors, decode
 
 ARCH = "retinaface_r50"
 # cfg_re50: the levels' strides, the two anchor sides of each level and the
@@ -143,6 +145,54 @@ def init_params(generator: torch.Generator):
     return params
 
 
+def build(params, spec, device):
+    """The forward for detection (``models.for_config``); no ``spec``."""
+    return RetinaFace(params, device)
+
+
+def refuse(cfg, path, spatial_devices=None):
+    """NotImplementedError for training and ``detect_many``; ValueError
+    for a detector in any precision but float32, spatially sharded or on
+    the host preprocessing path (PERF.md §7)."""
+    name = f"MODEL.ARCH={ARCH!r}"
+    if path == "train":
+        # its multibox and landmark loss is not ported
+        raise NotImplementedError(
+            f"{name} runs detection only; training is the smallhardface "
+            "detector's")
+    if path == "detect_many":
+        raise NotImplementedError(
+            f"detect_many: RetinaFace ({name}) runs one image at a time; "
+            "use detect or detect_async")
+    precision = str(cfg.TPU.PRECISION)
+    if precision != "float32":
+        raise ValueError(f"{name} runs in float32 only; TPU.PRECISION="
+                         f"{precision!r} is the smallhardface detector's")
+    if ((spatial_devices is not None and len(spatial_devices) > 1)
+            or int(cfg.TPU.SPATIAL_DEVICES) > 1):
+        raise ValueError(f"{name} has no spatially sharded path; set "
+                         "TPU.SPATIAL_DEVICES 1")
+    if bool(cfg.TPU.HOST_PREPROC):
+        raise ValueError(f"{name} has no host preprocessing path; set "
+                         "TPU.HOST_PREPROC false")
+
+
+def load_params(path, spec, seed):
+    """TEST.MODEL (``path``): random init from ``seed`` when empty; an
+    ``.npz`` checkpoint of the port; else a Pytorch_Retinaface ``.pth``
+    (``Resnet50_Final.pth``), its batch norms folded (``io/retinaface``)."""
+    if not path:
+        return init_params(torch.Generator().manual_seed(seed))
+    if path.endswith(".caffemodel"):
+        raise ValueError(f"TEST.MODEL={path!r}: RetinaFace loads a "
+                         "Pytorch_Retinaface .pth or an .npz checkpoint")
+    if path.endswith(".npz"):
+        return weights.load_params(path)
+    # imported here: io.retinaface reads this module's conv_table
+    from smallhardface_tpu_torch.io import retinaface as retinaface_io
+    return retinaface_io.load_pth(path)
+
+
 def forward_flops(h, w, batch=1):
     """Convolution FLOPs (2×MACs) of one forward at an image of (h, w):
     each convolution on its output map, ceil(h / s) × ceil(w / s)."""
@@ -184,6 +234,8 @@ class RetinaFace:
 
     def __init__(self, params, device):
         pin_fp32_numerics()
+        # the decode's prior grids, by map shape and stride
+        self.priors = {}
         shapes = param_shapes()
         missing = set(shapes) ^ set(params)
         if missing:
@@ -278,3 +330,29 @@ class RetinaFace:
                         B, hh, ww, NUM_ANCHORS, per_anchor))
         return out
 
+    def level_extent(self, lvs, upload, reps, bucketed):
+        """What the forward masks a level of one image to at every stride:
+        its extent (h_s, w_s), host numbers."""
+        return lvs[0]["h_s"], lvs[0]["w_s"]
+
+    def decode_level(self, out, lvs, upload, reps, score_thresh, capacity,
+                     wait):
+        """One level's rows of one image (``detect._image_rows``):
+        the priors' variance decode of its three maps over each one's valid
+        grid ceil(h_s / step) × ceil(w_s / step) (the extent the image has
+        when run at its own size), no clip. The extents are host numbers
+        and the priors are built on the device: nothing waits."""
+        lv = lvs[0]
+        probs = [torch.softmax(c, dim=-1)[..., 1] for c in out["cls_logits"]]
+        priors, valid = [], []
+        for p, step, sizes in zip(probs, STEPS, MIN_SIZES):
+            key = (p.shape[1], p.shape[2], step)
+            if key not in self.priors:
+                self.priors[key] = anchors.prior_grid(*key, sizes, p.device)
+            priors.append(self.priors[key])
+            valid.append((-(-lv["h_s"] // step), -(-lv["w_s"] // step)))
+        boxes, scores, counts = decode.decode_priors_batch(
+            probs, out["bbox_deltas"], priors, valid=valid,
+            variances=VARIANCES, score_thresh=score_thresh,
+            capacity=capacity)
+        return boxes, scores, counts, float(lv["w_s"]), lv["inv_fx"]

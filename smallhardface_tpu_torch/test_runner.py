@@ -42,14 +42,11 @@ import pickle
 from collections import deque
 
 import numpy as np
-import torch
 
+from smallhardface_tpu_torch import models
 from smallhardface_tpu_torch.config import cfg
 from smallhardface_tpu_torch.detect import TorchDetector, _imread
-from smallhardface_tpu_torch.io import caffemodel, weights
-from smallhardface_tpu_torch.io import retinaface as retinaface_io
 from smallhardface_tpu_torch.models import detector as detector_mod
-from smallhardface_tpu_torch.models import retinaface
 from smallhardface_tpu_torch.parallel import dist as pdist
 from smallhardface_tpu_torch.parallel import spatial
 from smallhardface_tpu_torch.utils.faults import injected_fault
@@ -63,38 +60,13 @@ PIPELINE_DEPTH = 3
 
 
 def _load_params(spec):
-    """TEST.MODEL as the port's parameter tree: random init from
-    cfg.RNG_SEED when empty; a ``.caffemodel`` loaded by layer name over
-    that init (JAX test_runner.py:31-43); else an ``.npz`` checkpoint of
-    either package. Under MODEL.ARCH "retinaface_r50": ``_load_retinaface``."""
+    """TEST.MODEL as the parameter tree of the model of MODEL.ARCH (its
+    ``load_params``, ``models.for_config``): random init from cfg.RNG_SEED
+    when empty, else the weights files that model reads."""
     path = cfg.TEST.MODEL
-    if str(cfg.MODEL.ARCH) == retinaface.ARCH:
-        return _load_retinaface(path)
-    if not path or path.endswith(".caffemodel"):
-        gen = torch.Generator().manual_seed(int(cfg.RNG_SEED))
-        params = detector_mod.init_params(gen, spec)
-        if not path:
-            logger.warning("TEST.MODEL is empty; using random-init weights")
-            return params
-        return caffemodel.load_into_params(path, params)
-    return weights.load_params(path)
-
-
-def _load_retinaface(path):
-    """RetinaFace's weights: random init from cfg.RNG_SEED when TEST.MODEL
-    is empty; an ``.npz`` checkpoint of the port; else a
-    Pytorch_Retinaface ``.pth`` (``Resnet50_Final.pth``), its batch norms
-    folded (``io/retinaface.py``)."""
     if not path:
         logger.warning("TEST.MODEL is empty; using random-init weights")
-        return retinaface.init_params(
-            torch.Generator().manual_seed(int(cfg.RNG_SEED)))
-    if path.endswith(".caffemodel"):
-        raise ValueError(f"TEST.MODEL={path!r}: RetinaFace loads a "
-                         "Pytorch_Retinaface .pth or an .npz checkpoint")
-    if path.endswith(".npz"):
-        return weights.load_params(path)
-    return retinaface_io.load_pth(path)
+    return models.for_config(cfg).load_params(path, spec, int(cfg.RNG_SEED))
 
 
 def _process_range(n_total):

@@ -82,11 +82,11 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from smallhardface_tpu_torch import models
 from smallhardface_tpu_torch.config import cfg
 from smallhardface_tpu_torch.detect import linear_resize_weights
 from smallhardface_tpu_torch.io import caffemodel, checkpoint, weights
 from smallhardface_tpu_torch.models import detector as detector_mod
-from smallhardface_tpu_torch.ops import anchors as anchors_mod
 from smallhardface_tpu_torch.ops import iou as iou_mod
 from smallhardface_tpu_torch.ops import stem as stem_mod
 from smallhardface_tpu_torch.parallel import dist as pdist
@@ -218,10 +218,6 @@ class LossFn:
         # device
         self.stages = stages
         self.unit = list(unit or [device])
-        self.base_anchors = anchors_mod.generate_anchors(
-            base_size=16, ratios=[1],
-            scales=list(detector_mod.ANCHOR_SCALES), shifts=[0],
-            strides=[detector_mod.FEAT_STRIDE] * 3)
         self.pixel_mean = torch.tensor(
             np.asarray(cfg.PIXEL_MEANS, np.float32).reshape(1, 1, 3),
             device=device)
@@ -248,7 +244,7 @@ class LossFn:
         with self.stages("targets"):
             bg_prob = torch.softmax(logits.detach(), dim=-1)[..., 0]
             tgt = targets_mod.anchor_targets(
-                bg_prob, self.base_anchors, gt, gt_mask,
+                bg_prob, detector_mod.BASE_ANCHORS, gt, gt_mask,
                 im_h=float(im_hw[0]), im_w=float(im_hw[1]),
                 valid_h=int(valid_hw[0]), valid_w=int(valid_hw[1]),
                 tc=self.tc,
@@ -451,11 +447,7 @@ def train_net(roidb, output_dir, pretrained_model, max_iter, device=None,
     object. With ``SHF_TRAIN_PROFILE=1`` on a card the iterations run
     under torch.profiler (device activity only), and the summary logged at
     the end (always logged over W ranks) carries the device's busy time."""
-    if str(cfg.MODEL.ARCH) != "smallhardface":
-        # RetinaFace's multibox and landmark loss is not ported (PERF.md §7)
-        raise NotImplementedError(
-            f"MODEL.ARCH={cfg.MODEL.ARCH!r} runs detection only; training "
-            "is the smallhardface detector's")
+    models.for_config(cfg).refuse(cfg, "train")
     if isinstance(device, (list, tuple)):
         unit = [resolve_device(d) for d in device]
         pdist.init_distributed(unit[0])

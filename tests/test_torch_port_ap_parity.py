@@ -22,6 +22,7 @@ from smallhardface_tpu.models import detector as jdm
 from smallhardface_tpu_torch.config import cfg as tcfg
 from smallhardface_tpu_torch.models import detector as tdm
 from smallhardface_tpu_torch.tools import ap_parity
+import torch_threads  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SKELETAL = (("conv1", 8, 1), ("conv2", 8, 1), ("conv3", 16, 1),

@@ -36,6 +36,8 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONF = "smallhardface_tpu/configs/smallhardface.toml"
 SKELETAL = (("conv1", 8, 1), ("conv2", 8, 1), ("conv3", 16, 1),

@@ -47,6 +47,7 @@ from smallhardface_tpu_torch.models import detector as tdm
 from smallhardface_tpu_torch.models import layers
 from smallhardface_tpu_torch.ops import decode as tdecode
 from smallhardface_tpu_torch.ops import nms_device, stem
+import torch_threads  # noqa: F401
 from tests.test_torch_port_eval import (  # noqa: F401 (fixtures)
     _skeletal_weights, data_dir, eval_cfg, synth_wider)
 from tests.test_torch_port_slice import _agree, port_cfg  # noqa: F401

@@ -26,6 +26,8 @@ and JAX-initialised weights converted with io/weights.py:
   through ``layers.conv2d`` raises TypeError.
 """
 
+import contextlib
+
 import numpy as np
 import pytest
 import jax
@@ -42,8 +44,9 @@ from smallhardface_tpu_torch.detect import TorchDetector
 from smallhardface_tpu_torch.io.weights import params_from_numpy
 from smallhardface_tpu_torch.models import detector as tdm
 from smallhardface_tpu_torch.models import layers as tl
+import torch_threads  # noqa: F401
 from tests.test_full_detect_golden import (  # noqa: F401 (golden_cfg)
-    GOLDEN, THRESH, _fixture_inputs, golden_cfg)
+    GOLDEN, SCALES, THRESH, _fixture_inputs, golden_cfg)
 from tests.test_torch_port_slice import _agree, port_cfg  # noqa: F401
 
 BF16 = torch.bfloat16
@@ -202,25 +205,53 @@ def _loose_match(a, b):
     return float(ok.mean())
 
 
+@contextlib.contextmanager
+def _bf16_cfg():
+    """golden_cfg's TEST/TPU settings in both packages' configs (as
+    golden_cfg and port_cfg set them) and TPU.PRECISION "bfloat16";
+    restored after."""
+    saved = [(c, c.TEST.copy(), c.TPU.copy()) for c in (cfg, tcfg)]
+    try:
+        for c in (cfg, tcfg):
+            c.TEST.update(SCALES=list(SCALES), FLIP=True,
+                          NMS_METHOD="BBOX_VOTE", NMS_THRESH=0.4,
+                          SCORE_THRESH=0.002, N_DETS_PER_MODULE=10000)
+            c.TPU.update(VOTE_CAP=16384, TEST_BUCKET=128, DEVICE_VOTE=True,
+                         HOST_PREPROC=False, PRECISION="bfloat16")
+        yield
+    finally:
+        for c, test, tpu in saved:
+            c.TEST.update(test)
+            c.TPU.update(tpu)
+
+
+@pytest.fixture(scope="module")
+def bf16_shared():
+    """One bf16 TorchDetector for the module, and its detections of the
+    golden fixture's image, computed once."""
+    with _bf16_cfg():
+        im, spec, params = _fixture_inputs()
+        tree = {k: {kk: np.asarray(vv) for kk, vv in v.items()}
+                for k, v in params.items()}
+        det = TorchDetector(params_from_numpy(tree),
+                            tdm.ModelSpec(different_dilation=True), "cpu")
+        dets = det.detect(im, thresh=THRESH)[0][0]
+    return im, spec, params, det, dets
+
+
 @pytest.fixture
-def bf16_detector(port_cfg):
-    saved = cfg.TPU.PRECISION, tcfg.TPU.PRECISION
-    cfg.TPU.PRECISION = tcfg.TPU.PRECISION = "bfloat16"
-    im, spec, params = _fixture_inputs()
-    tree = {k: {kk: np.asarray(vv) for kk, vv in v.items()}
-            for k, v in params.items()}
-    det = TorchDetector(params_from_numpy(tree),
-                        tdm.ModelSpec(different_dilation=True), "cpu")
-    yield im, spec, params, det
-    cfg.TPU.PRECISION, tcfg.TPU.PRECISION = saved
+def bf16_detector(bf16_shared):
+    """The module's bf16 detector and the image's detections, under the
+    module's config."""
+    with _bf16_cfg():
+        yield bf16_shared
 
 
 def test_detect_bf16_drift_bounded(bf16_detector):
     """The bounds of test_full_detect_bfloat16_drift_bounded, on the
     port."""
-    im, _, _, det = bf16_detector
+    im, _, _, det, dets = bf16_detector
     golden = np.load(GOLDEN)["dets"]
-    dets = det.detect(im, thresh=THRESH)[0][0]
     assert abs(dets.shape[0] - golden.shape[0]) <= max(
         3, 0.15 * golden.shape[0])
     assert _loose_match(golden, dets) >= 0.85
@@ -229,9 +260,8 @@ def test_detect_bf16_drift_bounded(bf16_detector):
 
 def test_detect_bf16_matches_jax_detector(bf16_detector):
     from smallhardface_tpu.detect import TPUDetector
-    im, spec, params, det = bf16_detector
+    im, spec, params, det, got = bf16_detector
     want = TPUDetector(params, spec).detect(im, thresh=THRESH)[0][0]
-    got = det.detect(im, thresh=THRESH)[0][0]
     assert abs(len(got) - len(want)) <= max(3, 0.05 * len(want))
     assert _loose_match(got, want) >= 0.95
     assert _loose_match(want, got) >= 0.95
@@ -242,11 +272,11 @@ def test_detect_many_and_service_bf16(bf16_detector):
     the service, against per-image bf16 detect."""
     import cv2
     from smallhardface_tpu_torch.serve import DetectorService
-    im, _, _, det = bf16_detector
+    im, _, _, det, dets = bf16_detector
     ims = [im, np.ascontiguousarray(im[:150, :190]),
            np.ascontiguousarray(im[:144, :180])]
     assert len({det._prep(m)["key"] for m in ims}) == 1
-    singles = [det.detect(m, thresh=THRESH)[0][0] for m in ims]
+    singles = [dets] + [det.detect(m, thresh=THRESH)[0][0] for m in ims[1:]]
     for got, want in zip(det.detect_many(ims, THRESH, max_batch=3), singles):
         _agree(got[0], want)
     service = DetectorService(det.model.tree(), det.spec, device="cpu")

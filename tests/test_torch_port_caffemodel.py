@@ -34,6 +34,7 @@ from smallhardface_tpu_torch.io.weights import (
     load_params, params_from_numpy, params_to_numpy)
 from smallhardface_tpu_torch.models import detector as tdm
 from smallhardface_tpu_torch.train import train_loop as ttl
+import torch_threads  # noqa: F401
 from tests.test_caffemodel_v1 import (
     V1_CONVOLUTION, V1_DECONVOLUTION, _v1_layer, _v1_net,
     _vgg16_imagenet_v1)

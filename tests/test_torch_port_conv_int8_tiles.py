@@ -38,6 +38,7 @@ import torch
 from smallhardface_tpu.models import layers as jl
 from smallhardface_tpu_torch.models import layers as tl
 from smallhardface_tpu_torch.ops import conv_int8
+import torch_threads  # noqa: F401
 
 EPILOGUES = {"link": (True, True), "end": (True, False),
              "dynamic": (False, False)}

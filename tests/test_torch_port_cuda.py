@@ -90,6 +90,7 @@ from smallhardface_tpu_torch.ops.vote_cases import (EDGE_CASES, chain_dets,
                                                    crowd_dets, edge_case,
                                                    integer_dets)
 from smallhardface_tpu_torch.parallel import spatial
+import torch_threads  # noqa: F401
 
 VALID = (24, 96)
 # K1 on float inputs against the plain forward (fp32 cuDNN): fp32 rounding,

@@ -10,6 +10,7 @@ from smallhardface_tpu.ops import anchors, bbox_jax
 from smallhardface_tpu.ops import decode as jdecode
 from smallhardface_tpu_torch.ops import bbox as tbbox
 from smallhardface_tpu_torch.ops import decode as tdecode
+import torch_threads  # noqa: F401
 
 BASE = anchors.generate_anchors(base_size=16, ratios=[1], scales=[1, 2, 4],
                                 shifts=[0], strides=[8, 8, 8])

@@ -61,6 +61,7 @@ from smallhardface_tpu_torch.config import cfg as tcfg
 from smallhardface_tpu_torch.models import detector as tdm
 from smallhardface_tpu_torch.parallel import dist as pdist
 from smallhardface_tpu_torch.train import train_loop as ttl
+import torch_threads  # noqa: F401
 from tests.test_torch_port_train import (  # noqa: F401 (fixtures)
     MIRRORED, _jax_params, port_cfg, train_cfg)
 from tests.test_train_loop import _tiny_roidb

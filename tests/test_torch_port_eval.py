@@ -36,6 +36,7 @@ from smallhardface_tpu.models import detector as jdm
 from smallhardface_tpu_torch.config import cfg as tcfg
 from smallhardface_tpu_torch.models import detector as tdm
 from smallhardface_tpu_torch.train import train_loop as ttl
+import torch_threads  # noqa: F401
 from tests.test_full_detect_golden import (  # noqa: F401 (golden_cfg)
     THRESH, _fixture_inputs, golden_cfg)
 from tests.test_torch_port_slice import _agree, port_cfg  # noqa: F401

@@ -11,6 +11,7 @@ import torch
 from smallhardface_tpu.models import detector as dm
 from smallhardface_tpu_torch.io.weights import params_from_numpy
 from smallhardface_tpu_torch.models import detector as tdm
+import torch_threads  # noqa: F401
 
 RTOL = 1e-4
 

@@ -1,7 +1,8 @@
 """Guards of the PyTorch port: it loads neither jax nor anything of the JAX
 package, its entry points run on the card unless asked for the CPU, and
 chip_smoke.py refuses to report a result without a CUDA card or without
-the repository."""
+the repository; and of its tests: under pytest-xdist each worker runs
+torch on its share of the cores (``tests/torch_threads.py``)."""
 
 import os
 import pkgutil
@@ -10,6 +11,8 @@ import subprocess
 import sys
 
 import pytest
+
+import torch_threads  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -145,3 +148,33 @@ def test_service_defaults_to_the_card():
                  "--port", "0"])
     assert proc.returncode != 0
     assert "no CUDA device" in proc.stderr
+
+
+@pytest.mark.parametrize("workers", [None, 6, 16], ids=["alone", "xdist_6",
+                                                        "xdist_16"])
+def test_xdist_workers_share_the_cores(workers):
+    """Importing ``tests/torch_threads`` in a worker of ``workers`` xdist
+    workers sets torch's intra-op threads to the cores this process may
+    run on divided by the workers, at least two; outside xdist it leaves
+    the count alone. This process, when xdist runs it, holds at most its
+    share."""
+    import torch
+    env = dict(os.environ)
+    env.pop("PYTEST_XDIST_WORKER_COUNT", None)
+    if workers:
+        env["PYTEST_XDIST_WORKER_COUNT"] = str(workers)
+    code = ("import os, torch\n"
+            "before = torch.get_num_threads()\n"
+            "import torch_threads\n"
+            "print(before, torch.get_num_threads(), "
+            "len(os.sched_getaffinity(0)))\n")
+    proc = subprocess.run([sys.executable, "-c", code],
+                          cwd=os.path.join(REPO, "tests"), env=env,
+                          capture_output=True, text=True, timeout=240)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    before, after, cores = map(int, proc.stdout.split())
+    assert after == (max(2, cores // workers) if workers else before)
+    running = os.environ.get("PYTEST_XDIST_WORKER_COUNT")
+    if running:
+        share = max(2, len(os.sched_getaffinity(0)) // int(running))
+        assert torch.get_num_threads() <= share

@@ -55,6 +55,7 @@ from smallhardface_tpu_torch.io.weights import (
 from smallhardface_tpu_torch.models import detector as tdm
 from smallhardface_tpu_torch.models import layers as tl
 from smallhardface_tpu_torch.ops import conv_int8
+import torch_threads  # noqa: F401
 from tests.test_full_detect_golden import _match_fraction
 from tests.test_torch_port_eval import (  # noqa: F401 (fixtures)
     SKELETAL, _skeletal_weights, data_dir, synth_wider)

@@ -21,6 +21,7 @@ from smallhardface_tpu_torch.ops import anchors as anchors_mod
 from smallhardface_tpu_torch.ops import iou
 from smallhardface_tpu_torch.ops.iou_cases import (BLOCK, CAP, K3_CASES,
                                                   k3_case)
+import torch_threads  # noqa: F401
 
 BASE = anchors_mod.generate_anchors(base_size=16, ratios=[1],
                                     scales=[1, 2, 4], shifts=[0],

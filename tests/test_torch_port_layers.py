@@ -10,6 +10,7 @@ import torch
 
 from smallhardface_tpu.models import layers as jl
 from smallhardface_tpu_torch.models import layers as tl
+import torch_threads  # noqa: F401
 
 RTOL = 1e-5
 

@@ -20,6 +20,7 @@ from smallhardface_tpu.config import cfg as jcfg
 from smallhardface_tpu.train.loader import RoIDataLoader as JaxLoader
 from smallhardface_tpu_torch.config import cfg as tcfg
 from smallhardface_tpu_torch.train import loader as tloader
+import torch_threads  # noqa: F401
 
 SETTINGS = {
     ("TRAIN", "SCALES", "SHORT_SIDE"): [64, 240],

@@ -29,6 +29,7 @@ import pytest
 
 from smallhardface_tpu_torch.io import checkpoint
 from smallhardface_tpu_torch.tools import overfit_check
+import torch_threads  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SKELETAL = (("conv1", 8, 1), ("conv2", 8, 1), ("conv3", 16, 1),

@@ -39,6 +39,7 @@ from smallhardface_tpu_torch.config import cfg as tcfg
 from smallhardface_tpu_torch.train import loader as tloader
 from smallhardface_tpu_torch.train import train_loop as ttl
 from smallhardface_tpu_torch.utils.faults import device_fault, injected_fault
+import torch_threads  # noqa: F401
 from tests.test_torch_port_loader import _roidb, both_cfgs  # noqa: F401
 from tests.test_torch_port_train import (  # noqa: F401
     _InlineExecutor, _run_both, port_cfg)

@@ -26,6 +26,7 @@ from smallhardface_tpu_torch.models import detector as tdm
 from smallhardface_tpu_torch.ops.merge_prediction import (
     merge_prediction as tmerge)
 from smallhardface_tpu_torch.tools import draw_net as tdraw
+import torch_threads  # noqa: F401
 from tests.test_prototxt_parity import REF_MODELS
 
 # every form of the text-format subset: colon-brace and brace messages,

@@ -30,6 +30,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401
 import retinaface_ref as ref
 from portbench import common
 from portbench.gen import images

@@ -25,6 +25,7 @@ from smallhardface_tpu_torch import serve as tserve
 from smallhardface_tpu_torch.config import cfg as tcfg
 from smallhardface_tpu_torch.io.weights import params_from_numpy
 from smallhardface_tpu_torch.models import detector as tdm
+import torch_threads  # noqa: F401
 from tests.test_torch_port_slice import _agree
 
 

@@ -35,6 +35,8 @@ import sys
 
 import numpy as np
 
+import torch_threads  # noqa: F401
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MAX_ITER = 8
 

@@ -24,6 +24,7 @@ from smallhardface_tpu_torch.detect import (
     TorchDetector, linear_resize_weights)
 from smallhardface_tpu_torch.io.weights import params_from_numpy
 from smallhardface_tpu_torch.models import detector as tdm
+import torch_threads  # noqa: F401
 from tests.test_full_detect_golden import (  # noqa: F401 (golden_cfg)
     GOLDEN, THRESH, _fixture_inputs, _match_fraction, golden_cfg)
 

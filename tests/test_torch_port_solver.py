@@ -20,6 +20,7 @@ from smallhardface_tpu.train import solver as jsolver
 from smallhardface_tpu_torch.config import cfg as tcfg
 from smallhardface_tpu_torch.train import losses as tlosses
 from smallhardface_tpu_torch.train import solver as tsolver
+import torch_threads  # noqa: F401
 
 
 def test_losses_and_grads_match_jax():

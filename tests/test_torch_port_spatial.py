@@ -47,6 +47,7 @@ from smallhardface_tpu_torch.io.weights import params_from_numpy
 from smallhardface_tpu_torch.models import detector as tdm
 from smallhardface_tpu_torch.ops import stem
 from smallhardface_tpu_torch.parallel import spatial
+import torch_threads  # noqa: F401
 from tests.test_full_detect_golden import _match_fraction
 from tests.test_torch_port_bf16 import _loose_match
 

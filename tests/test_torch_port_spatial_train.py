@@ -52,6 +52,7 @@ from smallhardface_tpu_torch.parallel import spatial
 from smallhardface_tpu_torch.train import solver as tsolver
 from smallhardface_tpu_torch.train import targets as ttg
 from smallhardface_tpu_torch.train import train_loop as ttl
+import torch_threads  # noqa: F401
 from tests.test_train_loop import _tiny_roidb
 
 CPU = torch.device("cpu")

@@ -25,6 +25,7 @@ import torch
 from smallhardface_tpu.models.layers import conv2d, max_pool_2x2
 from smallhardface_tpu.ops.pallas_stem import fused_stem as jax_fused_stem
 from smallhardface_tpu_torch.ops import stem
+import torch_threads  # noqa: F401
 
 
 @pytest.fixture

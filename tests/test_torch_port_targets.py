@@ -13,6 +13,7 @@ import torch
 
 from smallhardface_tpu.train import targets as jtg
 from smallhardface_tpu_torch.train import targets as ttg
+import torch_threads  # noqa: F401
 from tests.test_targets import BASE
 
 

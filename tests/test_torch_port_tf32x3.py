@@ -35,6 +35,7 @@ import torch.nn.functional as F
 
 from smallhardface_tpu_torch.models.layers import zero_outside
 from smallhardface_tpu_torch.ops import stem
+import torch_threads  # noqa: F401
 
 SHAPE, VALID = (2, 32, 128, 3), (24, 96)
 BOUND = 1e-5                    # max |err| / peak |product|, the card's check

@@ -26,6 +26,7 @@ from smallhardface_tpu_torch.tools import (benchmark, layer_time, measure,
                                            train_time)
 from smallhardface_tpu_torch.train import solver
 from smallhardface_tpu_torch.train import train_loop as ttl
+import torch_threads  # noqa: F401
 
 SKELETAL = (("conv1", 8, 1), ("conv2", 8, 1), ("conv3", 16, 1),
             ("conv4", 16, 1), ("conv5", 16, 1))

@@ -22,6 +22,7 @@ from smallhardface_tpu_torch.tools import compare_dets as tcompare
 from smallhardface_tpu_torch.tools import device_query
 from smallhardface_tpu_torch.tools import parse_log as tparse
 from smallhardface_tpu_torch.train import train_loop as ttl
+import torch_threads  # noqa: F401
 from tests.test_torch_port_train import port_cfg  # noqa: F401
 from tests.test_train_loop import _tiny_roidb, train_cfg  # noqa: F401
 

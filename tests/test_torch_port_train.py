@@ -38,6 +38,7 @@ from smallhardface_tpu_torch.models import detector as tdm
 from smallhardface_tpu_torch.train import targets as ttg
 from smallhardface_tpu_torch.train import train_loop as ttl
 from smallhardface_tpu_torch.train.loader import RoIDataLoader
+import torch_threads  # noqa: F401
 from tests.test_train_loop import _tiny_roidb, train_cfg  # noqa: F401
 
 MIRRORED = ("TRAIN.SCALES.SHORT_SIDE", "TRAIN.SCALES.MAX_SIZE",

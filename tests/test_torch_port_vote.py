@@ -22,6 +22,7 @@ from smallhardface_tpu_torch.detect import TorchDetector
 from smallhardface_tpu_torch.io.weights import params_from_numpy
 from smallhardface_tpu_torch.models import detector as tdm
 from smallhardface_tpu_torch.ops import nms_device
+import torch_threads  # noqa: F401
 from tests.test_full_detect_golden import (  # noqa: F401 (golden_cfg)
     THRESH, _fixture_inputs, golden_cfg)
 from tests.test_torch_port_slice import _agree, port_cfg  # noqa: F401

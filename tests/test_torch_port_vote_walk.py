@@ -37,6 +37,7 @@ from smallhardface_tpu.ops import nms_jax
 from smallhardface_tpu_torch.ops import nms_device, vote_cases
 from smallhardface_tpu_torch.ops.nms_device import _iou_with, greedy_steps
 from smallhardface_tpu_torch.ops.vote_cases import EDGE_CASES, edge_case
+import torch_threads  # noqa: F401
 
 BOX_TOL = 1e-6
 # csrc/vote.cu's phase A tile (16 rows x 256 columns) and phase C block

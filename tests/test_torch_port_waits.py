@@ -34,6 +34,7 @@ from smallhardface_tpu_torch.models import detector as tdm
 from smallhardface_tpu_torch.tools import measure, pyramid_time, train_time
 from smallhardface_tpu_torch.train import train_loop as ttl
 from smallhardface_tpu_torch.utils.timer import no_stages
+import torch_threads  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SKELETAL = (("conv1", 8, 1), ("conv2", 8, 1), ("conv3", 16, 1),

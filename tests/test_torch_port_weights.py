@@ -10,6 +10,7 @@ from smallhardface_tpu.io import checkpoint
 from smallhardface_tpu.models import detector as dm
 from smallhardface_tpu_torch.io import weights
 from smallhardface_tpu_torch.models import detector as tdm
+import torch_threads  # noqa: F401
 
 
 def _jax_tree(seed=7, different_dilation=True):
