@@ -5,7 +5,11 @@ and ``_pyramid_scales`` (:38-73), and ``TPUDetector`` (``_build_run``,
 ``forward_scale``, ``detect_async``, ``finalize_async``, ``detect``) as
 ``TorchDetector``:
 
-- the raw uint8 image, edge-padded to ×16, is uploaded once;
+- the raw uint8 image, edge-padded to ×16, is uploaded once, and so is
+  the level table, every number the levels read on the device
+  (``_level_table``); both leave from pinned memory without waiting for
+  the device, so nothing before the readback waits for it, and the
+  readback waits for its own image's work alone (``_after``);
 - every pyramid level is derived on the device: a linear resize with the
   weight matrices ``jax.image.scale_and_translate(method="linear",
   antialias=False)`` builds, mean subtraction, zeros beyond the level's
@@ -64,7 +68,6 @@ at construction, and ``detect_many`` refuses it, as in JAX.
 from __future__ import annotations
 
 import contextlib
-import functools
 import logging
 import math
 
@@ -155,9 +158,15 @@ def level_sizes(im_shape):
     return sizes
 
 
+def inverse_scale(scale, dtype=torch.float32):
+    """fl(1 / scale) in ``dtype``, taken on the host (a 0-d CPU tensor):
+    the factor by which ``linear_resize_weights`` places its samples."""
+    return 1.0 / torch.tensor(scale, dtype=dtype)
+
+
 def linear_resize_weights(in_size, out_size, scale, device=None,
                           translation=0.0, dtype=torch.float32,
-                          wait=contextlib.nullcontext):
+                          wait=contextlib.nullcontext, inv_scale=None):
     """(in_size, out_size) float32 weights of a linear resize by ``scale``
     and shift by ``translation`` output pixels, built as
     ``jax._src.image.scale.compute_weight_mat`` builds them for
@@ -168,15 +177,22 @@ def linear_resize_weights(in_size, out_size, scale, device=None,
     convention with an explicit fx (tests/test_device_preproc.py); a crop
     at offset c of the resized image is translation −c. ``dtype`` is the
     arithmetic's: float32 as on the device, float64 as cv2 computes its
-    sample positions. ``wait()``: the span around each of the two scalar
-    copies to ``device``, a copy from pageable host memory that waits
-    for the device's queue to drain."""
-    with wait():
-        inv_scale = (1.0 / torch.tensor(scale, dtype=dtype)).to(device)
-    with wait():
-        shift = torch.tensor(translation, dtype=dtype).to(device)
+    sample positions.
+
+    ``scale`` and ``translation`` are host numbers: ``inverse_scale(scale)``
+    and ``translation`` are copied to ``device``, each under ``wait()``
+    (a copy from pageable host memory waits for the device's queue to
+    drain). Or ``inv_scale``, a 0-d tensor on ``device`` holding
+    ``inverse_scale(scale)``, stands for ``scale`` and ``translation`` is
+    a 0-d tensor on ``device`` too (the detector's level table): nothing
+    is copied."""
+    if inv_scale is None:
+        with wait():
+            inv_scale = inverse_scale(scale, dtype).to(device)
+        with wait():
+            translation = torch.tensor(translation, dtype=dtype).to(device)
     sample = ((torch.arange(out_size, dtype=dtype, device=device)
-               + 0.5) * inv_scale - shift * inv_scale - 0.5)
+               + 0.5) * inv_scale - translation * inv_scale - 0.5)
     pos = torch.arange(in_size, dtype=dtype, device=device)
     weights = (1.0 - (sample[None, :] - pos[:, None]).abs()).clamp_min(0.0)
     total = weights.sum(dim=0, keepdim=True)
@@ -186,6 +202,30 @@ def linear_resize_weights(in_size, out_size, scale, device=None,
                           0.0)
     inside = (sample >= -0.5) & (sample <= in_size - 0.5)
     return torch.where(inside[None, :], weights, 0.0)
+
+
+def upload_arrays(arrays, device):
+    """Host arrays ({name: numpy array}) on ``device`` as views of one
+    buffer that one copy fills. To a CUDA device the copy leaves from
+    fresh pinned memory and does not wait for the device: the caching
+    host allocator keeps the block until the copy has run, so a call made
+    while earlier work is queued overwrites nothing that work reads. On
+    the CPU the views are of the host buffer."""
+    tensors = {k: torch.from_numpy(np.ascontiguousarray(a))
+               for k, a in arrays.items()}
+    spans, end = {}, 0
+    for k, t in tensors.items():
+        start = end + -end % 8      # each view at a multiple of 8 bytes
+        spans[k], end = (start, start + t.nbytes), start + t.nbytes
+    host = torch.empty(end, dtype=torch.uint8,
+                       pin_memory=device.type == "cuda")
+
+    def views(buf):
+        return {k: buf[a:b].view(tensors[k].dtype).view(tensors[k].shape)
+                for k, (a, b) in spans.items()}
+    for k, v in views(host).items():
+        v.copy_(tensors[k])
+    return views(host.to(device, non_blocking=True))
 
 
 def _imread(path):
@@ -311,15 +351,36 @@ class TorchDetector:
         return {"image": im, "padded": np.ascontiguousarray(padded),
                 "levels": levels, "key": key}
 
-    def _upload(self, values, site, level=None):
-        """``values`` (host numbers) as a tensor on the device, under the
-        wait span ``site``: the copy from pageable host memory waits for
-        every operation queued before it."""
-        with self.stages(site, level):
-            return torch.tensor(values, device=self.device)
+    def _level_table(self, levels):
+        """The numbers that the levels of N images read on the device, as
+        host arrays {field: (L, N)}, ``levels[l][i]`` being image i's
+        metadata of level l: int64 "h_s", "w_s", "hb", "wb"; in the
+        dynamic int8 mode "groups" (L, N·F), each level's step groups
+        (``_scale_groups``); float32 "inv_scale" (``inverse_scale`` of the
+        level's scale), "shift" (the resize's translation, 0), "w_flip"
+        (w_s, the width the mirror's boxes flip about) and "inv_fx"."""
+        def field(key, dtype):
+            return np.array([[lv[key] for lv in lvs] for lvs in levels],
+                            dtype)
+        table = {k: field(k, np.int64) for k in ("h_s", "w_s", "hb", "wb")}
+        groups = [self._scale_groups(lvs) for lvs in levels]
+        if groups[0] is not None:
+            table["groups"] = np.stack(groups)
+        table["inv_scale"] = np.array(
+            [[inverse_scale(lv["scale"]).item() for lv in lvs]
+             for lvs in levels], np.float32)
+        table["shift"] = np.zeros(table["h_s"].shape, np.float32)
+        table["w_flip"] = field("w_s", np.float32)
+        table["inv_fx"] = field("inv_fx", np.float32)
+        return table
 
-    def _level_batch(self, imgs, lvs, hb, wb, rows=None,
-                     wait=contextlib.nullcontext):
+    def _fields(self, lvs, device):
+        """One level's numbers of N images (metadata ``lvs``) on
+        ``device``: the views of a one-level table (``_level_table``)."""
+        return {k: v[0] for k, v in
+                upload_arrays(self._level_table([lvs]), device).items()}
+
+    def _level_batch(self, imgs, lvs, hb, wb, rows=None, fields=None):
         """(N·F, hb, wb, 3) network input of one level for N float images
         (N, H0, W0, 3) of one raw shape, each with its own level metadata
         ``lvs[i]``: its own linear resize, the mean subtracted, zeros beyond
@@ -327,27 +388,28 @@ class TorchDetector:
         about its own w_s right after it. ``rows=(r0, r1)``: only the
         level's rows [r0, r1) (a shard's, on the device of ``imgs``), as
         the product with those rows of the resize's ``wy``; rows past hb
-        are zeros like any row beyond h_s. ``wait()``: the span around each
-        copy of host numbers to the device."""
+        are zeros like any row beyond h_s. ``fields``: the level's numbers
+        on the device of ``imgs`` (views of an uploaded ``_level_table``);
+        None copies them from ``lvs`` for this call (``_fields``)."""
         n, H0, W0, _ = imgs.shape
         dev = imgs.device
+        if fields is None:
+            fields = self._fields(lvs, dev)
         r0, r1 = rows or (0, hb)
-        wy = torch.stack([linear_resize_weights(H0, r1, lv["scale"], dev,
-                                                wait=wait)
-                          for lv in lvs])[:, :, r0:]
-        wx = torch.stack([linear_resize_weights(W0, wb, lv["scale"], dev,
-                                                wait=wait)
-                          for lv in lvs])
+
+        def resize(in_size, out_size):
+            return torch.stack([linear_resize_weights(
+                in_size, out_size, None, dev, translation=fields["shift"][i],
+                inv_scale=fields["inv_scale"][i]) for i in range(n)])
+        wy = resize(H0, r1)[:, :, r0:]
+        wx = resize(W0, wb)
         t = (wy.transpose(1, 2) @ imgs.reshape(n, H0, W0 * 3)).reshape(
             n, r1 - r0, W0, 3)
         # rows and colours of an image fold into one product with its wx
         t = t.permute(0, 1, 3, 2).reshape(n, (r1 - r0) * 3, W0)
         resized = ((t @ wx).reshape(n, r1 - r0, 3, wb).permute(0, 1, 3, 2)
                    - self.mean.to(dev))
-        with wait():
-            h_s = torch.tensor([lv["h_s"] for lv in lvs], device=dev)
-        with wait():
-            w_s = torch.tensor([lv["w_s"] for lv in lvs], device=dev)
+        h_s, w_s = fields["h_s"], fields["w_s"]
         rows = torch.arange(r0, r1, device=dev) < h_s[:, None]
         cols = torch.arange(wb, device=dev) < w_s[:, None]
         valid = (rows[:, :, None] & cols[:, None, :])[..., None]
@@ -363,35 +425,35 @@ class TorchDetector:
         return torch.stack([resized, mirrored], dim=1).reshape(
             n * 2, r1 - r0, wb, 3)
 
-    def _sharded_level(self, imgs, lvs, hb, wb, wait):
+    def _sharded_level(self, imgs, lvs, hb, wb, fields):
         """One level over the spatial unit: the shards of its batch, each
         built on its device from that device's copy of the raw images
-        (``imgs``, {device: tensor}), over ``spatial.padded_height(hb, k)``
-        rows; and the valid extent the forward masks to, None when no rows
-        were added."""
+        (``imgs``) and of the level's numbers (``fields``), both {device:
+        …}, over ``spatial.padded_height(hb, k)`` rows; and the valid
+        extent the forward masks to, None when no rows were added."""
         k = len(self.spatial)
         hp = spatial.padded_height(hb, k)
         hs = hp // k
         shards = [self._level_batch(imgs[dev], lvs, hb, wb,
-                                    rows=(i * hs, (i + 1) * hs), wait=wait)
+                                    rows=(i * hs, (i + 1) * hs),
+                                    fields=fields[dev])
                   for i, dev in enumerate(self.spatial)]
         return shards, ((hb, wb) if hp != hb else None)
 
-    def _forward_level(self, imgs, lvs, hb, wb, valid_hw, level=None):
+    def _forward_level(self, imgs, lvs, hb, wb, valid_hw, fields, level):
         """The forward of one level's batch: on one device from
         ``_level_batch``, or over the spatial unit, its outputs cropped to
-        the level's hb / 8 rows."""
-        groups = self._scale_groups(lvs, level)
-        wait = functools.partial(self.stages, "wait_preproc", level)
+        the level's hb / 8 rows. ``imgs`` and ``fields`` by device."""
+        groups = fields[self.device].get("groups")
         if self.spatial is None:
             with self.stages("preproc", level):
                 x = self._level_batch(imgs[self.device], lvs, hb, wb,
-                                      wait=wait)
+                                      fields=fields[self.device])
             with self.stages("forward", level):
                 return self.model(x, valid_hw, self.precision, self.qstate,
                                   scale_groups=groups)
         with self.stages("preproc", level):
-            shards, valid = self._sharded_level(imgs, lvs, hb, wb, wait)
+            shards, valid = self._sharded_level(imgs, lvs, hb, wb, fields)
         with self.stages("forward", level):
             out = self.model(shards, valid, self.precision, self.qstate,
                              scale_groups=groups)
@@ -407,53 +469,52 @@ class TorchDetector:
         image's original coordinates and scores (N, R), -inf on empty
         slots; nothing waits for the device."""
         n = len(preps)
-        dev = self.device
         reps = 2 if cfg.TEST.FLIP else 1
         st = float(score_thresh if score_thresh is not None
                    else cfg.TEST.SCORE_THRESH)
+        levels = [[p["levels"][li] for p in preps]
+                  for li in range(len(preps[0]["levels"]))]
         all_boxes, all_scores = [], []
         with self.stages("upload"):
-            raw = (np.stack([p["padded"] for p in preps]) if not bucketed
-                   else np.stack([_pad_to(p["image"], *p["key"][:2])
-                                  for p in preps]))
-            # the raw images once on every device of the unit
-            raw = torch.from_numpy(raw)
-            imgs = {}
-            for d in self.spatial or [dev]:
-                with self.stages("wait_upload"):
-                    raw_d = raw.to(d)
-                imgs[d] = raw_d.float()
+            raw = torch.from_numpy(
+                np.stack([p["padded"] for p in preps]) if not bucketed
+                else np.stack([_pad_to(p["image"], *p["key"][:2])
+                               for p in preps]))
+            if self.device.type == "cuda":
+                raw = raw.pin_memory()
+            table = self._level_table(levels)
+            # the raw images and the level table once on every device of
+            # the unit, copies that do not wait for the device
+            imgs, tables = {}, {}
+            for d in dict.fromkeys(self.spatial or [self.device]):
                 # the uint8 copy is freed here, not after the pyramid
-                del raw_d
-        for li in range(len(preps[0]["levels"])):
-            lvs = [p["levels"][li] for p in preps]
+                imgs[d] = raw.to(d, non_blocking=True).float()
+                tables[d] = upload_arrays(table, d)
+        for li, lvs in enumerate(levels):
             hb, wb = ((lvs[0]["bh"], lvs[0]["bw"]) if bucketed
                       else (lvs[0]["hb"], lvs[0]["wb"]))
-            upload = functools.partial(self._upload, level=li)
-            # the extent the forward masks each item to, uploaded before
-            # the level's stages open
-            valid = self.model.level_extent(
-                lvs, functools.partial(upload, site="wait_extents"), reps,
-                bucketed)
-            out = self._forward_level(imgs, lvs, hb, wb, valid, li)
+            fields = {d: {k: v[li] for k, v in t.items()}
+                      for d, t in tables.items()}
+            # the extent the forward masks each item to
+            valid = self.model.level_extent(lvs, fields[self.device], reps,
+                                            bucketed)
+            out = self._forward_level(imgs, lvs, hb, wb, valid, fields, li)
             with self.stages("decode", li):
                 rows = self.model.decode_level(
-                    out, lvs, functools.partial(upload, site="wait_decode"),
-                    reps, st, self.capacity,
-                    functools.partial(self.stages, "wait_decode", li))
+                    out, lvs, fields[self.device], reps, st, self.capacity)
                 boxes, scores = _image_rows(*rows, n, reps)
             all_boxes.append(boxes)
             all_scores.append(scores)
         with self.stages("decode"):
             return torch.cat(all_boxes, dim=1), torch.cat(all_scores, dim=1)
 
-    def _scale_groups(self, lvs, level=None):
+    def _scale_groups(self, lvs):
         """The dynamic int8 mode's step groups of one level's batch (image
         i's items i·F .. i·F + F - 1): the ids that ``Detector.forward``
-        shares one activation step across, (N·F,) on the device, or None
-        outside that mode. JAX takes the step over what one forward call
-        sees: ``detect_many`` is a ``vmap`` over images, so no step spans
-        two images, and a level whose JAX bucket has at least
+        shares one activation step across, an (N·F,) int64 host array, or
+        None outside that mode. JAX takes the step over what one forward
+        call sees: ``detect_many`` is a ``vmap`` over images, so no step
+        spans two images, and a level whose JAX bucket has at least
         TPU.FLIP_SPLIT_PX pixels runs the image and its mirror as two
         forwards (JAX detect.py:248-271), a step each; below it the pair
         shares one. JAX's bucket is the ×16 shape under MASK_MODE "exact",
@@ -468,7 +529,7 @@ class TorchDetector:
             area = lv["hb"] * lv["wb"] if exact else lv["bh"] * lv["bw"]
             split = area >= int(cfg.TPU.FLIP_SPLIT_PX)
             ids += [i * reps + (f if split else 0) for f in range(reps)]
-        return self._upload(ids, "wait_groups", level)
+        return np.array(ids, np.int64)
 
     def calibrate_int8(self, images):
         """Calibrate the int8 mode's static activation steps (JAX
@@ -523,7 +584,9 @@ class TorchDetector:
         device, one handle per image for ``finalize_async``: under the
         device vote the top VOTE_CAP kept rows of every image are voted in
         one launch; otherwise each image's kept rows (the top
-        MERGED_DET_CAP when that is > 0) wait for the host vote."""
+        MERGED_DET_CAP when that is > 0) wait for the host vote. On a
+        CUDA device each handle carries "done", an event recorded after
+        this work, which its readback waits for."""
         with torch.inference_mode(), self.stages("vote"):
             keep = scores > thresh      # the strict > of lib/test.py:163
             if self.device_vote:
@@ -532,15 +595,22 @@ class TorchDetector:
                         if cfg.TEST.NMS_METHOD == "BBOX_VOTE"
                         else nms_device.nms_device)
                 out, n_out = vote(dets, n, float(cfg.TEST.NMS_THRESH))
-                return [{"packed": o, "n": c, "voted": True}
-                        for o, c in zip(out, n_out)]
-            if self.merged_cap > 0:
+                handles = [{"packed": o, "n": c, "voted": True}
+                           for o, c in zip(out, n_out)]
+            elif self.merged_cap > 0:
                 dets, n = top_rows(boxes, scores, keep, self.merged_cap)
-                return [{"packed": d, "n": c, "voted": False}
-                        for d, c in zip(dets, n)]
-            rows = torch.cat([boxes, scores[..., None]], dim=-1)
-            return [{"packed": r, "keep": k, "voted": False}
-                    for r, k in zip(rows, keep)]
+                handles = [{"packed": d, "n": c, "voted": False}
+                           for d, c in zip(dets, n)]
+            else:
+                rows = torch.cat([boxes, scores[..., None]], dim=-1)
+                handles = [{"packed": r, "keep": k, "voted": False}
+                           for r, k in zip(rows, keep)]
+            if boxes.is_cuda:
+                done = torch.cuda.Event()
+                done.record(torch.cuda.current_stream(boxes.device))
+                for h in handles:
+                    h["done"] = done
+            return handles
 
     def detect_async(self, im, thresh=0.05, score_thresh=None):
         """Enqueue one image's pyramid at its exact ×16 level shapes and,
@@ -558,7 +628,7 @@ class TorchDetector:
         device vote (with the reference's dummy row when there are none),
         else the kept rows, voted on the host in float64. Returns cls_dets
         like ``detect``. (``thresh`` was applied in ``detect_async``.)"""
-        with self.stages("readback"):
+        with self.stages("readback"), _after(handle):
             # the row count, or the boolean mask's, then the rows: each
             # waits for the device
             if "keep" in handle:
@@ -746,6 +816,18 @@ def _image_rows(boxes, scores, counts, w_s, inv_fx, n, reps):
     boxes = boxes * inv_fx
     scores = torch.where(row_ok, scores.view(n, reps, cap), -float("inf"))
     return boxes.reshape(n, -1, 4), scores.reshape(n, -1)
+
+
+def _after(handle):
+    """Where ``handle`` carries its "done" event (``_dispatch``): a pool
+    stream that waits for that event alone, made current, so that the
+    readback's copies synchronise with this image's work and not with the
+    images queued after it, which run on meanwhile. Else nothing."""
+    if "done" not in handle:
+        return contextlib.nullcontext()
+    stream = torch.cuda.Stream(handle["packed"].device)
+    stream.wait_event(handle["done"])
+    return torch.cuda.stream(stream)
 
 
 def _indexed(device):

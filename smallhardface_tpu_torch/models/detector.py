@@ -286,9 +286,10 @@ def load_params(path, spec: ModelSpec, seed):
     return weights.load_params(path)
 
 
-def _per_item(upload, lvs, key, reps):
-    """Level field ``key`` uploaded, once per item (image, mirror)."""
-    return upload([lv[key] for lv in lvs]).repeat_interleave(reps)
+def _per_item(fields, key, reps):
+    """Level field ``key`` of each image (``fields``: the level's numbers
+    on the device), once per item (image, mirror)."""
+    return fields[key].repeat_interleave(reps)
 
 
 def pin_fp32_numerics():
@@ -347,6 +348,9 @@ class Detector(nn.Module):
                     t.to(device, copy=True),
                     requires_grad=trainable and lr_mults[name][k] > 0)
             self.params[name] = leaf
+        # decode's base anchors, held on the device (a few hundred bytes)
+        self.base_anchors = torch.as_tensor(
+            np.asarray(BASE_ANCHORS, np.float32), device=device)
 
     def tree(self):
         """The parameters as a {name: {'w'|'b': Parameter}} dict (the
@@ -632,35 +636,33 @@ class Detector(nn.Module):
                 "bbox_deltas": spatial.gather(bbox_deltas).float()
                 .contiguous()}
 
-    def level_extent(self, lvs, upload, reps, bucketed):
+    def level_extent(self, lvs, fields, reps, bucketed):
         """What ``forward`` masks a level of N images (metadata ``lvs``,
         F = ``reps`` items each) to: each item's ×16 extent in a shared
-        bucket (``bucketed``), uploaded by ``upload(values)``; else None."""
+        bucket (``bucketed``), from the level's numbers on the device
+        (``fields``, the views of ``detect.TorchDetector._level_table``);
+        else None."""
         if not bucketed:
             return None
-        return (_per_item(upload, lvs, "hb", reps),
-                _per_item(upload, lvs, "wb", reps))
+        return (_per_item(fields, "hb", reps), _per_item(fields, "wb", reps))
 
-    def decode_level(self, out, lvs, upload, reps, score_thresh, capacity,
-                     wait):
-        """One level's rows of N images (``detect._image_rows``):
-        the anchor decode clipped to each item's extent, level fields
-        uploaded by ``upload``, ``wait()`` around the anchor grid's copy;
-        w_s (N, 1) and inv_fx (N, 1, 1, 1) on the device."""
+    def decode_level(self, out, lvs, fields, reps, score_thresh, capacity):
+        """One level's rows of N images (``detect._image_rows``): the
+        anchor decode clipped to each item's extent, from the level's
+        numbers on the device (``fields``) and the base anchors held there;
+        w_s (N, 1) and inv_fx (N, 1, 1, 1) views of ``fields``."""
         probs = torch.softmax(out["cls_logits"], dim=-1)[..., 1]
         boxes, scores, counts = decode_mod.decode_proposals_batch(
-            probs, out["bbox_deltas"], BASE_ANCHORS,
+            probs, out["bbox_deltas"], self.base_anchors,
             feat_stride=FEAT_STRIDE,
-            im_h=_per_item(upload, lvs, "h_s", reps).float(),
-            im_w=_per_item(upload, lvs, "w_s", reps).float(),
-            valid_h=_per_item(upload, lvs, "hb", reps) // FEAT_STRIDE,
-            valid_w=_per_item(upload, lvs, "wb", reps) // FEAT_STRIDE,
-            score_thresh=score_thresh, min_size=0.0, capacity=capacity,
-            wait=wait)
-        w_s = (upload([float(lv["w_s"]) for lv in lvs])[:, None]
-               if reps == 2 else None)
-        inv_fx = upload([lv["inv_fx"] for lv in lvs])[:, None, None, None]
-        return boxes, scores, counts, w_s, inv_fx
+            im_h=_per_item(fields, "h_s", reps).float(),
+            im_w=_per_item(fields, "w_s", reps).float(),
+            valid_h=_per_item(fields, "hb", reps) // FEAT_STRIDE,
+            valid_w=_per_item(fields, "wb", reps) // FEAT_STRIDE,
+            score_thresh=score_thresh, min_size=0.0, capacity=capacity)
+        w_s = fields["w_flip"][:, None] if reps == 2 else None
+        return (boxes, scores, counts, w_s,
+                fields["inv_fx"][:, None, None, None])
 
 
 def int8_layer_names(spec: ModelSpec):

@@ -330,13 +330,12 @@ class RetinaFace:
                         B, hh, ww, NUM_ANCHORS, per_anchor))
         return out
 
-    def level_extent(self, lvs, upload, reps, bucketed):
+    def level_extent(self, lvs, fields, reps, bucketed):
         """What the forward masks a level of one image to at every stride:
         its extent (h_s, w_s), host numbers."""
         return lvs[0]["h_s"], lvs[0]["w_s"]
 
-    def decode_level(self, out, lvs, upload, reps, score_thresh, capacity,
-                     wait):
+    def decode_level(self, out, lvs, fields, reps, score_thresh, capacity):
         """One level's rows of one image (``detect._image_rows``):
         the priors' variance decode of its three maps over each one's valid
         grid ceil(h_s / step) × ceil(w_s / step) (the extent the image has

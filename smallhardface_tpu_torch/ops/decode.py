@@ -25,12 +25,14 @@ from smallhardface_tpu_torch.ops import bbox
 def dense_anchor_grid(h, w, base_anchors, feat_stride, device=None,
                       wait=contextlib.nullcontext):
     """(h, w, A, 4) float32 anchor grid: base anchors shifted by
-    (x, y, x, y) = feat_stride · (col, row, col, row). ``wait()``: the span
-    around the copy of host base anchors to ``device``, which waits for
-    the device's queue to drain."""
-    with wait():
-        a = torch.as_tensor(np.asarray(base_anchors, np.float32),
-                            device=device)
+    (x, y, x, y) = feat_stride · (col, row, col, row). ``base_anchors``:
+    (A, 4) float32 on ``device`` already, or host numbers copied there
+    under ``wait()``, the span around a copy that waits for the device's
+    queue to drain."""
+    a = base_anchors
+    if not isinstance(a, torch.Tensor):
+        with wait():
+            a = torch.as_tensor(np.asarray(a, np.float32), device=device)
     ys = torch.arange(h, dtype=torch.float32, device=device) * feat_stride
     xs = torch.arange(w, dtype=torch.float32, device=device) * feat_stride
     A = a.shape[0]
@@ -53,15 +55,14 @@ def _per_image(v, device, dtype):
 
 def _decode_fields(fg_scores, bbox_deltas, base_anchors, *, feat_stride,
                    im_h, im_w, valid_h, valid_w, score_thresh, min_size,
-                   capacity, wait):
+                   capacity):
     """Elementwise half of the decode for a batch: decoded and clipped
     boxes (B, hwA, 4), the keepability-masked scores (B, hwA), the keep
     count (B,) (entries >= score_thresh, clamped to [1, capacity]: at least
     one box survives, proposal_layer.py:183-185), and the capacity."""
     _, h, w, A = fg_scores.shape
     dev = fg_scores.device
-    anchors = dense_anchor_grid(h, w, base_anchors, feat_stride, device=dev,
-                                wait=wait)
+    anchors = dense_anchor_grid(h, w, base_anchors, feat_stride, device=dev)
     decoded = bbox.bbox_transform_inv(anchors, bbox_deltas)
     if isinstance(im_h, torch.Tensor) and im_h.dim() == 1:
         # per image: x into [0, im_w - 1], y into [0, im_h - 1], as
@@ -94,8 +95,7 @@ def _decode_fields(fg_scores, bbox_deltas, base_anchors, *, feat_stride,
 
 def decode_proposals_batch(fg_scores, bbox_deltas, base_anchors, *,
                            feat_stride, im_h, im_w, valid_h, valid_w,
-                           score_thresh, min_size, capacity,
-                           wait=contextlib.nullcontext):
+                           score_thresh, min_size, capacity):
     """fg_scores (B, h, w, A) foreground probabilities, bbox_deltas
     (B, h, w, A, 4); im_h/im_w the unpadded image extent for clipping,
     valid_h/valid_w the valid grid extent: Python numbers, or (B,) tensors
@@ -103,13 +103,11 @@ def decode_proposals_batch(fg_scores, bbox_deltas, base_anchors, *,
     Returns (boxes (B, cap, 4), scores (B, cap), n_keep (B,) int32) with
     cap = min(capacity, h·w·A), rows in descending score order, lower
     index first among ties. Rows at and beyond n_keep are to be ignored.
-    ``wait()``: the span around the copy that waits for the device
-    (``dense_anchor_grid``'s)."""
+    ``base_anchors`` as ``dense_anchor_grid`` takes them."""
     boxes, sortable, n_keep, cap = _decode_fields(
         fg_scores, bbox_deltas, base_anchors, feat_stride=feat_stride,
         im_h=im_h, im_w=im_w, valid_h=valid_h, valid_w=valid_w,
-        score_thresh=score_thresh, min_size=min_size, capacity=capacity,
-        wait=wait)
+        score_thresh=score_thresh, min_size=min_size, capacity=capacity)
     return (*_top(boxes, sortable, cap), n_keep)
 
 

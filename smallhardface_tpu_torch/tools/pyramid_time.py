@@ -7,7 +7,7 @@ from Python, so the split comes from the port's own stage boundaries: a
 ``tools/measure.Stages`` hook on ``TorchDetector.stages`` marks
 
   prep      ``_prep``: the levels and the bucket key, on the host
-  upload    the raw image to the device
+  upload    the raw image and the level table to the device
   preproc   ``_level_batch``: the resize products, mean, mask and mirror
             of each level
   forward   ``Detector.forward`` of each level (image and mirror)

@@ -15,9 +15,7 @@ def no_stages(name, level=None):
     stages(name, level):`` around a stage of ``TorchDetector`` or of a
     training step does nothing. Inside a stage ``s``, a span named
     "wait_s" wraps each call that waits for the device (a copy from
-    pageable host memory, a readback) and nothing else; the few spans
-    outside any stage name what they upload ("wait_extents",
-    "wait_groups")."""
+    pageable host memory, a readback) and nothing else."""
     return contextlib.nullcontext()
 
 

@@ -3,7 +3,6 @@ model of ``models.MODELS`` answers the same names on the CPU at skeletal
 width, and an unknown ``MODEL.ARCH`` raises one clear error wherever it
 is read."""
 
-import contextlib
 import copy
 import os
 
@@ -102,14 +101,14 @@ def test_every_model_answers_the_seam(arch_cfg, tmp_path):
     im = images.background(60, 84, np.random.default_rng(5))
     prep = det._prep(im)
     (lv,) = prep["levels"]
-    upload = torch.tensor
-    valid = det.model.level_extent([lv], upload, 2, False)
+    fields = det._fields([lv], torch.device("cpu"))
+    valid = det.model.level_extent([lv], fields, 2, False)
     x = det._level_batch(torch.from_numpy(prep["padded"]).float()[None],
-                         [lv], lv["hb"], lv["wb"])
+                         [lv], lv["hb"], lv["wb"], fields=fields)
     with torch.inference_mode():
         out = det.model(x, valid)
         boxes, scores, counts, w_s, inv_fx = det.model.decode_level(
-            out, [lv], upload, 2, 0.0, 50, contextlib.nullcontext)
+            out, [lv], fields, 2, 0.0, 50)
     assert boxes.shape == (2, 50, 4) and scores.shape == (2, 50)
     assert counts.tolist() == [50, 50]
     assert float(torch.as_tensor(w_s).max()) == lv["w_s"]

@@ -3,6 +3,10 @@ training step, a span "wait_<stage>" wraps each call that waits for the
 device (a copy of host numbers from pageable memory, a readback), and
 nothing else.
 
+Detection copies every number its levels read to the device once a
+``_pyramid`` call (the level table), from pinned memory and without
+waiting, so its only waits are the readback's.
+
 On the CPU, at the skeletal width: a recording hook over an fp32
 ``detect_async`` + ``finalize_async``, a calibrated int8 ``detect_many``
 of four images and ``train_time.Step`` (``LossFn``, ``grad_step`` at
@@ -10,13 +14,16 @@ ITERSIZE 2 with OHEM, the solver, the metrics read back) sees every span
 in order, each wait span inside its stage and none inside a wait span,
 and the outputs equal to the bit to a run without a hook; under
 ``torch.profiler`` the "stage:wait_*" ranges lie inside their stage's
-ranges; the benchmark's six readers of the spans on hand-made records.
+ranges; one copy of the level table a ``_pyramid`` call and device;
+the benchmark's six readers of the spans on hand-made records.
 
 On the card (marker ``cuda``; this file imports neither jax nor the JAX
 package, so ``python -m pytest --noconftest tests/test_torch_port_waits.py
 -q -m cuda`` runs it there): the same three paths at full width with
 ``torch.cuda.set_sync_debug_mode("error")`` outside every wait span, so
-that a call that waits for the card outside one fails.
+that a call that waits for the card outside one fails; and three
+pyramids queued behind a busy card, equal to the bit to each one run
+alone.
 """
 
 import contextlib
@@ -28,9 +35,12 @@ import numpy as np
 import pytest
 import torch
 
-from smallhardface_tpu_torch.config import CONFIG_DIR, cfg, cfg_from_file
+from smallhardface_tpu_torch import detect as detect_mod
+from smallhardface_tpu_torch.config import (CONFIG_DIR, PORT_CONFIG_DIR, cfg,
+                                            cfg_from_file)
 from smallhardface_tpu_torch.detect import TorchDetector
 from smallhardface_tpu_torch.models import detector as tdm
+from smallhardface_tpu_torch.models import retinaface as rm
 from smallhardface_tpu_torch.tools import measure, pyramid_time, train_time
 from smallhardface_tpu_torch.train import train_loop as ttl
 from smallhardface_tpu_torch.utils.timer import no_stages
@@ -39,9 +49,7 @@ import torch_threads  # noqa: F401
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SKELETAL = (("conv1", 8, 1), ("conv2", 8, 1), ("conv3", 16, 1),
             ("conv4", 16, 1), ("conv5", 16, 1))
-# the wait spans that open outside every stage: the bucketed forward's
-# per-item extents, the dynamic int8 mode's step groups
-TOP_LEVEL_WAITS = ("wait_extents", "wait_groups")
+RETINA_TOML = os.path.join(PORT_CONFIG_DIR, "retinaface-r50.toml")
 
 
 class Recorder:
@@ -65,16 +73,12 @@ class Recorder:
         return [span for span, _ in self.opened]
 
     def check_nesting(self):
-        """Each wait span inside its stage (same level), or at the top
-        for the top-level sites; nothing inside a wait span."""
+        """Each wait span inside its stage (same level); nothing inside a
+        wait span."""
         for (name, level), parent in self.opened:
             if parent is not None:
                 assert not parent[0].startswith("wait_"), (name, parent)
-            if not name.startswith("wait_"):
-                continue
-            if name in TOP_LEVEL_WAITS:
-                assert parent is None, (name, parent)
-            else:
+            if name.startswith("wait_"):
                 assert parent == (name[len("wait_"):], level), (name, parent)
 
 
@@ -111,8 +115,8 @@ class SyncGuard:
 @contextlib.contextmanager
 def _config(toml, **amend):
     """The port's global config loaded as a benchmark cell loads it (the
-    defaults, then ``toml``), with ``amend`` ("SECTION__KEY": value)
-    over it; restored after."""
+    defaults, then ``toml``: a name in ``CONFIG_DIR`` or a path), with
+    ``amend`` ("SECTION__KEY": value) over it; restored after."""
     saved = copy.deepcopy(cfg)
     try:
         cfg_from_file(os.path.join(CONFIG_DIR, "default.toml"))
@@ -158,30 +162,22 @@ def _spans(name, level, n):
 
 def _expected_detect(levels):
     """The spans of one image's ``detect_async`` + ``finalize_async``:
-    per level six copies in preproc (two scalars of each of two resize
-    matrices, the extents) and seven in decode (four per-item fields,
-    the base anchors, the widths to un-mirror about, the inverse
-    scales); the image's upload; the row count and the rows."""
-    seq = [("prep", None), ("upload", None), ("wait_upload", None)]
+    the image and the level table go up without a wait, and no level
+    waits; the row count and the rows are the two waits."""
+    seq = [("prep", None), ("upload", None)]
     for li in range(levels):
-        seq += ([("preproc", li)] + _spans("wait_preproc", li, 6)
-                + [("forward", li), ("decode", li)]
-                + _spans("wait_decode", li, 7))
+        seq += [("preproc", li), ("forward", li), ("decode", li)]
     return seq + [("decode", None), ("vote", None), ("readback", None),
                   ("wait_readback", None), ("wait_readback", None)]
 
 
 def _expected_many(levels, n):
-    """The spans of ``detect_many`` over one group of ``n`` images: per
-    level the two per-item extents before the level's stages, four
-    copies a resize pair an image and the extents in preproc, decode as
-    for one image; a readback per image."""
-    seq = [("prep", None), ("upload", None), ("wait_upload", None)]
+    """The spans of ``detect_many`` over one group of ``n`` images: no
+    level waits (its per-item extents are views of the level table);
+    a readback per image."""
+    seq = [("prep", None), ("upload", None)]
     for li in range(levels):
-        seq += (_spans("wait_extents", li, 2) + [("preproc", li)]
-                + _spans("wait_preproc", li, 4 * n + 2)
-                + [("forward", li), ("decode", li)]
-                + _spans("wait_decode", li, 7))
+        seq += [("preproc", li), ("forward", li), ("decode", li)]
     seq += [("decode", None), ("vote", None)]
     for _ in range(n):
         seq += [("readback", None)] + _spans("wait_readback", None, 2)
@@ -238,17 +234,98 @@ def test_detect_many_int8_wait_spans(skeletal):
     rec.check_nesting()
 
 
-def test_dynamic_int8_step_groups_wait_at_the_top(skeletal):
-    """Uncalibrated int8 uploads each level's step groups before the
-    level's stages: one top-level wait span a level."""
-    with _config("smallhardface-int8.toml", TEST__SCALES=[50, 90]):
+class Uploads:
+    """``detect.upload_arrays`` wrapped: each copy's host arrays and
+    device, in order."""
+
+    def __init__(self, monkeypatch):
+        self.copies, real = [], detect_mod.upload_arrays
+
+        def upload(arrays, device):
+            self.copies.append((arrays, device))
+            return real(arrays, device)
+        monkeypatch.setattr(detect_mod, "upload_arrays", upload)
+
+
+def test_dynamic_int8_step_groups_wait_at_the_top(skeletal, monkeypatch):
+    """Uncalibrated int8 carries each level's step groups in the level
+    table: the 64×80 level's pair shares a step, the 96×128 level (at
+    least FLIP_SPLIT_PX pixels) splits it; no "wait_groups" span opens,
+    and the readback's are the only waits."""
+    with _config("smallhardface-int8.toml", TEST__SCALES=[50, 90],
+                 TPU__FLIP_SPLIT_PX=8000):
         det = _detector("cpu")
         rec = Recorder()
         det.stages = rec
+        uploads = Uploads(monkeypatch)
         fp32_detect(det, _images(1, 96, 128)[0])
-    groups = [s for s in rec.names() if s[0] == "wait_groups"]
-    assert groups == [("wait_groups", 0), ("wait_groups", 1)]
+    ((table, _),) = uploads.copies
+    assert table["groups"].tolist() == [[0, 0], [0, 1]]
+    assert [s for s in rec.names() if s[0].startswith("wait_")] == [
+        ("wait_readback", None)] * 2
     rec.check_nesting()
+
+
+def _pyramids(monkeypatch):
+    """``TorchDetector._pyramid`` wrapped: the number of calls, in a
+    list."""
+    calls, real = [], TorchDetector._pyramid
+
+    def pyramid(self, *a, **k):
+        calls.append(1)
+        return real(self, *a, **k)
+    monkeypatch.setattr(TorchDetector, "_pyramid", pyramid)
+    return calls
+
+
+@pytest.mark.parametrize("path", ["detect_async", "dynamic_int8_many",
+                                  "spatial"])
+def test_one_level_table_copy_a_pyramid_per_device(path, skeletal,
+                                                   monkeypatch):
+    """Every ``_pyramid`` call copies its level numbers to each device of
+    its unit exactly once, all levels in one table: fp32 ``detect_async``;
+    ``detect_many`` of four images under dynamic int8 in batches of two
+    (two calls, the step groups in the table); a spatial unit of two
+    CPU shards (one device, repeated: one copy)."""
+    toml = "smallhardface-int8.toml" if "int8" in path else (
+        "smallhardface.toml")
+    with _config(toml, TEST__SCALES=[50, 90]):
+        spec = tdm.build_spec(cfg)
+        params = tdm.init_params(torch.Generator().manual_seed(3), spec)
+        det = TorchDetector(params, spec, "cpu",
+                            spatial_devices=(["cpu"] * 2 if path == "spatial"
+                                             else None))
+        ims = _images(4, 96, 128)
+        calls, uploads = _pyramids(monkeypatch), Uploads(monkeypatch)
+        if path == "dynamic_int8_many":
+            det.detect_many(ims, 0.05, max_batch=2)
+        else:
+            fp32_detect(det, ims[0])
+    assert len(calls) == (2 if path == "dynamic_int8_many" else 1)
+    assert [d for _, d in uploads.copies] == [torch.device("cpu")] * len(
+        calls)
+    n = 2 if path == "dynamic_int8_many" else 1
+    for table, _ in uploads.copies:
+        assert ("groups" in table) == (path == "dynamic_int8_many")
+        assert all(v.shape[0] == 2 for v in table.values())
+        assert table["h_s"].shape == (2, n)
+
+
+def test_training_preprocess_copies_its_four_numbers(monkeypatch):
+    """Training's ``preprocess_image`` keeps its host numbers: the two
+    resize matrices' inverse scale and translation, four copies to the
+    device a micro-batch."""
+    to, real = [], torch.Tensor.to
+
+    def counted(self, *a, **k):
+        to.append(1)
+        return real(self, *a, **k)
+    data = torch.from_numpy(_images(1, 64, 96)[0])
+    mean = torch.tensor([102.9801, 115.9465, 122.7717])
+    monkeypatch.setattr(torch.Tensor, "to", counted)
+    x = ttl.preprocess_image(data, 0.75, (4, 8), (40, 60), (48, 64), mean)
+    monkeypatch.undo()
+    assert len(to) == 4 and x.shape == (48, 64, 3)
 
 
 def test_training_step_wait_spans(skeletal):
@@ -471,3 +548,69 @@ def test_no_sync_outside_a_wait_span_on_the_card(cuda):
             run(guard)
         torch.cuda.synchronize()
         assert guard.waits > 0, name
+
+
+def _run_ahead_case(path, device, monkeypatch):
+    """(run_queued(ims), run_alone(ims), images) of one path on the card:
+    SHF fp32 ``detect_async`` at skeletal width, RetinaFace-R50's
+    ``detect_async`` (random weights), dynamic int8 ``detect_many`` in
+    batches of two, each at two small scales. ``run_queued`` issues three
+    pyramids before it reads any back; ``run_alone`` reads each back
+    before the next is issued."""
+    if path == "fp32_detect_async":
+        monkeypatch.setattr(tdm, "VGG_STAGES", SKELETAL)
+        det = _detector(device)
+        ims = _images(3, 192, 256)
+    elif path == "retinaface_detect_async":
+        params = rm.init_params(torch.Generator().manual_seed(5))
+        det = TorchDetector(params, None, device)
+        ims = _images(3, 192, 256)
+    else:
+        det = _detector(device)
+        ims = _images(6, 192, 256)
+    if path == "int8_detect_many":
+        def queued(ims):
+            return [r[0] for r in det.detect_many(ims, 0.05, max_batch=2)]
+
+        def alone(ims):
+            return [r[0] for i in range(0, len(ims), 2)
+                    for r in det.detect_many(ims[i:i + 2], 0.05,
+                                             max_batch=2)]
+        return queued, alone, ims
+
+    def queued(ims):
+        handles = [det.detect_async(im, 0.05) for im in ims]
+        return [det.finalize_async(h, 0.05)[0] for h in handles]
+
+    def alone(ims):
+        return [fp32_detect(det, im) for im in ims]
+    return queued, alone, ims
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["fp32_detect_async",
+                                  "retinaface_detect_async",
+                                  "int8_detect_many"])
+def test_queued_pyramids_equal_each_run_alone_on_the_card(path, cuda,
+                                                          monkeypatch):
+    """Three pyramids issued while the card is still busy (about half a
+    second of ``torch.cuda._sleep``), then read back, give each image's
+    rows equal to the bit to the image run alone: no pinned block of the
+    raw image or the level table, and no device view of either, is
+    reused while its pyramid is queued, and each readback waits for its
+    own image's work."""
+    toml, amend = {
+        "fp32_detect_async": ("smallhardface.toml", {}),
+        "retinaface_detect_async": (RETINA_TOML, {
+            "TEST__PYRAMID_BASE_SIZE": [128, 4000]}),
+        "int8_detect_many": ("smallhardface-int8.toml", {}),
+    }[path]
+    with _config(toml, TEST__SCALES=[128, 256], **amend):
+        queued, alone, ims = _run_ahead_case(path, cuda, monkeypatch)
+        want = alone(ims)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(10 ** 9)
+        got = queued(ims)
+    assert len(got) == len(ims) and all(len(w) > 1 for w in want)
+    for a, b in zip(got, want):
+        assert np.array_equal(a, b)
